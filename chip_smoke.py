@@ -23,18 +23,20 @@ makes the script exit non-zero):
               options (a 32-graph stream and dblp-like), the bench suite
               plus dblp-large at steps_per_call=16, then resident_lanes=0
               (single-lane kernel) and resident=False (per-step
-              fused_check); every n_max and cs against the oracle, every
-              kernel's launch count > 0 on its path;
+              fused_check: one bench graph through ``run``, and two real
+              pools through ``run_batch`` at buckets 128 x 256
+              (unicode-like + ucforum-like) and 512 x 2048 (dblp-like +
+              corp-leadership)); every n_max and cs against the oracle, every
+              kernel's launch count > 0 on its path, counted per path;
 5. times    — per-kernel CUDA-event times at the main path's shapes
               beside the plain version and the bound.
 
-The line before the last is the ``{"kernels": [...]}`` record; the last
-line is ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset
-(for bring-up); the contract run is the one with no arguments.
+Every phase runs on every call; the script takes no arguments.  The line
+before the last is the ``{"kernels": [...]}`` record; the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
-import argparse
 import dataclasses
 import json
 import os
@@ -149,8 +151,19 @@ def check_fused_check(dev, seed):
     want = fused_check_packed_ref(adj, masks, nlps, qs, ps, with_counts=True)
     err = max_err(tuple(got), tuple(want))
     require(err == 0, f"fused_check lane-batched differs ({err})")
+    worst = max(worst, err)
+    # per-lane adjacency at the per-step pools' buckets (128 x 256 and
+    # 512 x 2048, two lanes)
+    for n, w in ((128, 8), (512, 64)):
+        args = k1_lane_inputs(2, n, w, seed + 3 * n, dev)
+        got = fused_check_packed(*args, impl="pallas", with_counts=True)
+        want = fused_check_packed_ref(*args, with_counts=True)
+        err = max_err(tuple(got), tuple(want))
+        require(err == 0, f"fused_check per-lane adj ({n},{w}) differs "
+                          f"({err})")
+        worst = max(worst, err)
     log(f"  fused_check: bit-exact at (512,64), (1024,128), (100,3), "
-        f"counts on/off, lane-batched")
+        f"counts on/off, lane-batched shared and per-lane adjacency")
     return worst
 
 
@@ -179,7 +192,7 @@ def drive_pool(ctx, cfg, s, *, spc, budget, rebalance, segments, what):
     start = s.steps.clone()
     bud = torch.full_like(start, budget)
     sk = sr = s
-    n = 0
+    worst = 0
     for seg in range(segments):
         if not bool(ed._active(sk, start, bud).any()):
             break
@@ -190,12 +203,12 @@ def drive_pool(ctx, cfg, s, *, spc, budget, rebalance, segments, what):
                                            budget=bud, steps_per_call=spc,
                                            ctx_batched=True)
         torch.cuda.synchronize()
+        worst = max(worst, max_err(tuple(sk), tuple(sr)), max_err(bk, br))
         assert_states_equal(sk, sr, f"{what} seg {seg}")
         require(torch.equal(bk, br), f"{what} seg {seg}: scoreboard differs")
         if rebalance:
             bud = ed._rebalance_budgets(start, bud, sk.steps, bk)
-        n += 1
-    return sk, n
+    return worst
 
 
 def drive_lane(ctx, cfg, s, *, spc, segments, what):
@@ -207,6 +220,7 @@ def drive_lane(ctx, cfg, s, *, spc, segments, what):
     start = s.steps.clone()
     budget = 1 << 30
     sk = sr = s
+    worst = 0
     for seg in range(segments):
         if not bool(ed._active(sk, start, budget)):
             break
@@ -215,10 +229,15 @@ def drive_lane(ctx, cfg, s, *, spc, segments, what):
         sr = resident_segment_ref(ctx, cfg, sr, start=start, budget=budget,
                                   steps_per_call=spc)
         torch.cuda.synchronize()
+        worst = max(worst, max_err(tuple(sk), tuple(sr)))
         assert_states_equal(sk, sr, f"{what} seg {seg}")
+    return worst
 
 
-def check_resident(dev, quick: bool):
+def check_resident(dev):
+    """K3 and K2 against their plain versions on real pools; returns
+    (pool configurations checked, largest |err| of K3, of K2) over every
+    leaf and scoreboard entry compared."""
     from repro_torch.core import engine_dense as ed
     from repro_torch.kernels.resident_step.ops import resident_stage_adj
     from repro_torch.data.generators import (dataset_suite,
@@ -233,11 +252,9 @@ def check_resident(dev, quick: bool):
     stream_pool = max(by_bucket.values(), key=len)[:8]
     pools = [("512x2048 dblp+youtube", [bench["dblp-like"],
                                         bench["youtube-like"]]),
-             (f"stream pool x{len(stream_pool)}", stream_pool)]
-    if not quick:
-        pools.append(("1024x4096 dblp-large",
-                      [dataset_suite("large")["dblp-large"]]))
-    checked = 0
+             (f"stream pool x{len(stream_pool)}", stream_pool),
+             ("1024x4096 dblp-large", [dataset_suite("large")["dblp-large"]])]
+    checked = err_pool = err_step = 0
     for name, graphs in pools:
         for mode in ("deg", "deg_nocache", "input"):
             cfg, ctx, s0 = bucket_pool(graphs, dev, order_mode=mode,
@@ -248,23 +265,25 @@ def check_resident(dev, quick: bool):
                                 ctx_batched=True, unroll=16)
             for spc in (1, 16):
                 for rebalance in (False, True):
-                    segs = (12 if spc == 16 else 24) // (2 if quick else 1)
+                    segs = 12 if spc == 16 else 24
                     budget = 8 * spc if rebalance else 1 << 30
-                    drive_pool(ctx, dataclasses.replace(
-                        cfg, resident_rebalance=rebalance), warm, spc=spc,
-                        budget=budget, rebalance=rebalance, segments=segs,
+                    err_pool = max(err_pool, drive_pool(
+                        ctx, dataclasses.replace(
+                            cfg, resident_rebalance=rebalance), warm,
+                        spc=spc, budget=budget, rebalance=rebalance,
+                        segments=segs,
                         what=f"resident_pool {name} {mode} spc={spc} "
-                             f"rebalance={rebalance}")
+                             f"rebalance={rebalance}"))
                     checked += 1
-                for i in range(len(graphs)) if not quick else (0,):
+                for i in range(len(graphs)):
                     lane = ed._lane(warm, i)
-                    drive_lane(ed._lane(ctx, i), cfg, lane, spc=spc,
-                               segments=8,
-                               what=f"resident_step {name} lane {i} "
-                                    f"{mode} spc={spc}")
+                    err_step = max(err_step, drive_lane(
+                        ed._lane(ctx, i), cfg, lane, spc=spc, segments=8,
+                        what=f"resident_step {name} lane {i} {mode} "
+                             f"spc={spc}"))
         log(f"  resident_pool / resident_step: {name} bit-exact, "
             f"adjacency in shared memory: {resident_stage_adj(cfg)}")
-    return checked
+    return checked, err_pool, err_step
 
 
 # ---------------------------------------------------------------------------
@@ -310,6 +329,9 @@ def counters():
 
 
 def main_path(dev):
+    """Drive every path of the slice; returns {path label: launch counts},
+    each read right after its own drive with the counts set to 0 just
+    before it."""
     import torch
     from repro_torch import MBEClient, MBEOptions
     from repro_torch.core import engine_dense as ed
@@ -319,14 +341,11 @@ def main_path(dev):
     bench = dataset_suite("bench")
     suite = dict(bench)
     suite["dblp-large"] = dataset_suite("large")["dblp-large"]
-    test = dataset_suite("test")
     t0 = time.perf_counter()
-    truth = {key(g): oracle(g) for g in
-             [*stream, *suite.values(), test["unicode-like"],
-              test["ucforum-like"]]}
+    truth = {key(g): oracle(g) for g in [*stream, *suite.values()]}
     log(f"  oracle (NumPy serial MBEA, host CPU): "
         f"{time.perf_counter() - t0:.1f} s for {len(truth)} graphs")
-    launches = dict(fused_check=0, resident_pool=0, resident_step=0)
+    by_path = {}
     per_graph = []
 
     def drive(label, opts, graphs, one_by_one=False):
@@ -347,15 +366,43 @@ def main_path(dev):
             res = client.enumerate_many(graphs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
+        by_path[label] = c = counters()
         check_results(res, graphs, truth, label)
-        c = counters()
-        for k in launches:
-            launches[k] += c[k]
         st = client.stats()
         log(f"  {label}: {len(graphs)} graphs, all n_max/cs = oracle, "
             f"{wall:.2f} s, launches {c}, scheduler launches "
             f"{st['launches']}, misses {st['misses']}")
         return c
+
+    def drive_per_step(label, graphs, unroll):
+        """``resident=False``: the per-step torch-op engine with the
+        ``fused_check`` kernel, one lane through ``run`` or a real pool
+        (per-lane adjacency, ``ctx_batched``) through ``run_batch``."""
+        reset_counters()
+        t = time.perf_counter()
+        if len(graphs) == 1:
+            g = graphs[0]
+            s = ed.enumerate_dense(g.canonical(), device=str(dev),
+                                   resident=False)
+            finals = [s]
+        else:
+            cfg, ctx, s0 = bucket_pool(graphs, dev, resident=False)
+            s = ed.run_batch(ctx, cfg, s0, ctx_batched=True, unroll=unroll)
+            finals = [ed._lane(s, i) for i in range(len(graphs))]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        by_path[label] = c = counters()
+        for g, f in zip(graphs, finals):
+            require(bool(ed._done(f)), f"{label}: {g.name} not done")
+            got = (int(f.n_max), int(f.cs) % (1 << 32))
+            require(got == truth[key(g)], f"{label}: {g.name} n_max/cs "
+                                          f"{got} != oracle {truth[key(g)]}")
+        steps = max(int(f.steps) for f in finals)
+        per_graph.append(dict(graph="+".join(g.name for g in graphs),
+                              path=label, steps=steps, wall_s=wall,
+                              steps_per_s=steps / wall))
+        log(f"  {label}: = oracle, {wall:.2f} s, launches {c}")
+        require(c["fused_check"] > 0, f"fused_check not launched: {label}")
 
     c = drive("default stream", MBEOptions(), stream)
     require(c["resident_pool"] > 0, "resident_pool not launched on the "
@@ -369,22 +416,23 @@ def main_path(dev):
               stream)
     require(c["resident_step"] > 0, "resident_step not launched with "
                                     "resident_lanes=0")
-    reset_counters()
-    for g in (test["unicode-like"], test["ucforum-like"]):
-        s = ed.enumerate_dense(g.canonical(), device=str(dev),
-                               resident=False)
-        require((int(s.n_max), int(s.cs) % (1 << 32)) == truth[key(g)],
-                f"resident=False {g.name} differs from the oracle")
-    c = counters()
-    for k in launches:
-        launches[k] += c[k]
-    require(c["fused_check"] > 0, "fused_check not launched with "
-                                  "resident=False")
-    log(f"  resident=False run on unicode-like, ucforum-like (test "
-        f"scale): = oracle, launches {c}")
+    drive_per_step("resident=False run unicode-like", [bench["unicode-like"]],
+                   unroll=1)
+    drive_per_step("resident=False run_batch 128x256 unicode+ucforum",
+                   [bench["unicode-like"], bench["ucforum-like"]], unroll=16)
+    drive_per_step("resident=False run_batch 512x2048 dblp+corp",
+                   [bench["dblp-like"], bench["corp-leadership"]], unroll=16)
     for row in per_graph:
         log("  per-graph " + json.dumps(row))
-    return launches
+    return by_path
+
+
+# each kernel's own path: the drive whose count is the record's `launches`
+KERNEL_PATH = {
+    "fused_check": "resident=False run_batch 128x256 unicode+ucforum",
+    "resident_pool": "default stream",
+    "resident_step": "resident_lanes=0 stream",
+}
 
 
 # ---------------------------------------------------------------------------
@@ -447,37 +495,68 @@ def bound(bytes_, ops):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def times(dev, launches, errs):
+def k1_lane_inputs(lanes, n, w, seed, dev):
+    """K1 operands of a ``lanes``-wide pool with per-lane adjacency (the
+    per-step ``run_batch`` path's shape)."""
+    import torch
+    parts = [k1_inputs(n, w, seed + i, dev) for i in range(lanes)]
+    return tuple(torch.stack(xs) for xs in zip(*parts))
+
+
+def record(name, by_path, errs, **fields):
+    """One entry of the ``kernels`` line: ``launches`` is the count of
+    the kernel's own path (``KERNEL_PATH``), ``launches_by_path`` every
+    drive that launched it."""
+    rec = dict(name=name, route="cuda",
+               launches=by_path[KERNEL_PATH[name]][name],
+               max_abs_err=errs[name], **fields)
+    rec["path"] = KERNEL_PATH[name]
+    rec["launches_by_path"] = {k: c[name] for k, c in by_path.items()
+                               if c[name]}
+    return rec
+
+
+def times(dev, by_path, errs):
     import torch
     from repro_torch.core import engine_dense as ed
     from repro_torch.data.generators import dataset_suite
     from repro_torch.kernels.fused_check.ops import fused_check_packed
     from repro_torch.kernels.fused_check.ref import fused_check_packed_ref
-    from repro_torch.kernels.resident_pool.ops import pool_launch
+    from repro_torch.kernels.resident_pool.ops import packed_pool_segment
     from repro_torch.kernels.resident_pool.ref import (
         resident_pool_segment_ref)
-    from repro_torch.kernels.resident_step.ops import (lane_launch, pack,
+    from repro_torch.kernels.resident_step.ops import (pack, packed_segment,
                                                        resident_state_bytes)
     from repro_torch.kernels.resident_step.ref import resident_segment_ref
     out = []
-    # K1 at the dblp-like bucket's row shape (512 rows x 64 words)
-    n, w = 512, 64
-    args = k1_inputs(n, w, 7, dev)
-    ms = cuda_ms(lambda: fused_check_packed(*args, impl="pallas",
-                                            with_counts=True))
-    plain = cuda_ms(lambda: fused_check_packed_ref(*args, with_counts=True))
-    dms = device_ms(lambda: fused_check_packed(*args, impl="pallas",
-                                               with_counts=True),
-                    "fused_check_kernel")
-    nw = n // 32
-    b, kind = bound(4 * (n * w + w + 2 * nw + 3 * nw + n + 2), 2 * n * w)
-    out.append(dict(name="fused_check", route="cuda",
-                    source="src/repro_torch/csrc/fused_check.cu",
-                    replaces="src/repro/kernels/fused_check/kernel.py:81",
-                    launches=launches["fused_check"],
-                    max_abs_err=errs["fused_check"], ms=ms, plain_ms=plain,
-                    bound_ms=b, bound_by=kind, library_ms=None,
-                    device_ms=dms, shape=f"N={n} W={w} with_counts"))
+    # K1 at its path's shapes: 2-lane pools with per-lane adjacency and
+    # counts on (order_mode 'deg'), buckets 128 x 256 (the record) and
+    # 512 x 2048 (logged)
+    for lanes, n, w in ((2, 128, 8), (2, 512, 64)):
+        args = k1_lane_inputs(lanes, n, w, 7, dev)
+
+        def k1():
+            return fused_check_packed(*args, impl="pallas", with_counts=True)
+        ms = cuda_ms(k1)
+        plain = cuda_ms(lambda: fused_check_packed_ref(*args,
+                                                       with_counts=True))
+        dms = device_ms(k1, "fused_check_kernel")
+        nw = n // 32
+        # read adj, mask, n_mask, q, p; write viol, full/part/nz, counts
+        b, kind = bound(4 * lanes * (n * w + w + 1 + 2 * nw
+                                     + 1 + 3 * nw + n), 2 * lanes * n * w)
+        shape = f"lanes={lanes} N={n} W={w} per-lane adj, with_counts"
+        if n == 128:
+            out.append(record(
+                "fused_check", by_path, errs,
+                source="src/repro_torch/csrc/fused_check.cu",
+                replaces="src/repro/kernels/fused_check/kernel.py:81",
+                ms=ms, plain_ms=plain, bound_ms=b, bound_by=kind,
+                library_ms=None, device_ms=dms, shape=shape))
+        else:
+            log(f"  fused_check at {shape}: {ms:.4f} ms/call (device "
+                f"{dms} ms), plain {plain:.4f} ms, bound {b:.6f} ms "
+                f"({kind})")
     # K3 / K2 at the default path's dblp-like pool: bucket 512 x 2048,
     # one lane, steps_per_call = 1, from a mid-run state
     g = dataset_suite("bench")["dblp-like"]
@@ -485,27 +564,26 @@ def times(dev, launches, errs):
     warm = ed.run_batch(ctx, cfg, s0, max_steps=2000, ctx_batched=True)
     for spc in (1, 16):
         p = pack(warm, warm.steps, 1 << 30)
-        ms = cuda_ms(lambda: pool_launch(ctx, cfg, warm.tasks, p, spc,
-                                         ctx_batched=True))
+
+        def k3():
+            return packed_pool_segment(ctx, cfg, warm, p, spc,
+                                       ctx_batched=True)
+        ms = cuda_ms(k3)
         plain = cuda_ms(lambda: resident_pool_segment_ref(
             ctx, cfg, warm, start=warm.steps, budget=1 << 30,
             steps_per_call=spc, ctx_batched=True), reps=5)
-        dms = device_ms(lambda: pool_launch(ctx, cfg, warm.tasks, p, spc,
-                                            ctx_batched=True),
-                        "resident_pool_kernel")
-        _, board = pool_launch(ctx, cfg, warm.tasks, p, spc,
-                               ctx_batched=True)
+        dms = device_ms(k3, "resident_pool_kernel")
+        _, board = k3()
         adv = int((spc - board[:, 1]).sum())
         b, kind = bound(resident_state_bytes(cfg, cfg.n_u, lanes=1),
                         adv * 2 * cfg.n_u * cfg.wv)
         if spc == 1:
-            out.append(dict(
-                name="resident_pool", route="cuda",
+            out.append(record(
+                "resident_pool", by_path, errs,
                 source="src/repro_torch/csrc/resident_pool.cu",
                 replaces="src/repro/kernels/resident_pool/kernel.py:50",
-                launches=launches["resident_pool"],
-                max_abs_err=errs["resident"], ms=ms, plain_ms=plain,
-                bound_ms=b, bound_by=kind, library_ms=None, device_ms=dms,
+                ms=ms, plain_ms=plain, bound_ms=b, bound_by=kind,
+                library_ms=None, device_ms=dms,
                 shape="bucket 512x2048, 1 lane, steps_per_call=1"))
         else:
             log(f"  resident_pool at spc=16 (512x2048, 1 lane): {ms:.4f} "
@@ -514,22 +592,21 @@ def times(dev, launches, errs):
         lane = ed._lane(warm, 0)
         lctx = ed._lane(ctx, 0)
         pl = pack(lane, lane.steps, 1 << 30)
-        ms2 = cuda_ms(lambda: lane_launch(lctx, cfg, lane.tasks, pl, spc,
-                                          lanes=None))
+
+        def k2():
+            return packed_segment(lctx, cfg, lane, pl, spc)
+        ms2 = cuda_ms(k2)
         plain2 = cuda_ms(lambda: resident_segment_ref(
             lctx, cfg, lane, start=lane.steps, budget=1 << 30,
             steps_per_call=spc), reps=5)
-        dms2 = device_ms(lambda: lane_launch(lctx, cfg, lane.tasks, pl, spc,
-                                             lanes=None),
-                         "resident_step_kernel")
+        dms2 = device_ms(k2, "resident_step_kernel")
         if spc == 1:
-            out.append(dict(
-                name="resident_step", route="cuda",
+            out.append(record(
+                "resident_step", by_path, errs,
                 source="src/repro_torch/csrc/resident_step.cu",
                 replaces="src/repro/kernels/resident_step/kernel.py:115",
-                launches=launches["resident_step"],
-                max_abs_err=errs["resident"], ms=ms2, plain_ms=plain2,
-                bound_ms=b, bound_by=kind, library_ms=None, device_ms=dms2,
+                ms=ms2, plain_ms=plain2, bound_ms=b, bound_by=kind,
+                library_ms=None, device_ms=dms2,
                 shape="bucket 512x2048, steps_per_call=1"))
         else:
             log(f"  resident_step at spc=16: {ms2:.4f} ms/launch (device "
@@ -554,14 +631,7 @@ def times(dev, launches, errs):
 
 # ---------------------------------------------------------------------------
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="build,kernels,main,times",
-                    help="comma list of phases to run after 'device'")
-    ap.add_argument("--quick", action="store_true",
-                    help="fewer kernel-check segments (bring-up only)")
-    args = ap.parse_args(argv)
-    phases = set(args.phases.split(","))
+def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found next to the script",
               file=sys.stderr)
@@ -590,22 +660,18 @@ def main(argv=None) -> int:
     for line in _build.ptxas_log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             log("  ptxas " + line.strip())
-    errs = dict(fused_check=0, resident=0)
-    if "kernels" in phases:
-        t0 = time.perf_counter()
-        errs["fused_check"] = check_fused_check(dev, seed=0)
-        n = check_resident(dev, args.quick)
-        log(f"[kernels] {n} pool configurations + lanes bit-exact, "
-            f"{time.perf_counter() - t0:.1f} s")
-    launches = dict(fused_check=0, resident_pool=0, resident_step=0)
-    if "main" in phases:
-        t0 = time.perf_counter()
-        launches = main_path(dev)
-        log(f"[main] {time.perf_counter() - t0:.1f} s, launches {launches}")
-    rec = times(dev, launches, errs) if "times" in phases else None
+    t0 = time.perf_counter()
+    errs = dict(fused_check=check_fused_check(dev, seed=0))
+    n, errs["resident_pool"], errs["resident_step"] = check_resident(dev)
+    log(f"[kernels] {n} pool configurations + lanes bit-exact, max |err| "
+        f"{errs}, {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path = main_path(dev)
+    log(f"[main] {time.perf_counter() - t0:.1f} s, launches by path "
+        f"{json.dumps(by_path)}")
+    rec = times(dev, by_path, errs)
     log(smi_line)
-    if rec is not None:
-        log(json.dumps({"kernels": rec}))
+    log(json.dumps({"kernels": rec}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,7 +7,8 @@ only through the ``Engine`` ABC: constructors (``make_context``,
 ``counters``/``make_result``).  Only ``dense`` is registered in this
 slice; ``compact``, ``count`` and ``mce`` are ROADMAP Queue 1 item 7.
 
-Device: constructors take the ``device`` their tensors go to;
+Device: constructors take the ``device`` their tensors go to (the card
+unless the caller asks for the CPU; ``"cuda"`` without a card raises);
 ``pool_lanes`` asks about a device because the kernel path is decided by
 where the tensors live.
 """
@@ -41,16 +42,16 @@ class Engine(abc.ABC):
     # -- constructors ---------------------------------------------------
     @abc.abstractmethod
     def make_context(self, g: BipartiteGraph, cfg: EngineConfig,
-                     device="cpu"):
+                     device="cuda"):
         """Device-resident graph data (adjacency + orderings)."""
 
     @abc.abstractmethod
     def init_state(self, cfg: EngineConfig, tasks: np.ndarray,
-                   device="cpu"):
+                   device="cuda"):
         """Fresh worker state owning the given root-task list."""
 
     @abc.abstractmethod
-    def dummy_context(self, cfg: EngineConfig, device="cpu"):
+    def dummy_context(self, cfg: EngineConfig, device="cuda"):
         """All-zero context for idle lanes."""
 
     def config(self, n_u: int, n_v: int, depth: int, *,
@@ -67,9 +68,10 @@ class Engine(abc.ABC):
         return self.config(g.n_u, g.n_v, g.n_u + 2, m_real=g.n_u, **kw)
 
     def fresh_lane_state(self, cfg: EngineConfig, n_tasks: int,
-                         device="cpu"):
+                         device="cuda"):
         """Worker state owning root tasks [0, n_tasks), task queue padded
         to ``cfg.n_u`` so every serving lane has identical shapes."""
+        device = check_device(device)
         s = self.init_state(cfg, np.arange(n_tasks, dtype=np.int32), device)
         pad = np.full(cfg.n_u, -1, np.int32)
         pad[:n_tasks] = np.arange(n_tasks, dtype=np.int32)
@@ -159,13 +161,15 @@ class DenseEngine(Engine):
 
     name = "dense"
 
-    def make_context(self, g, cfg, device="cpu"):
+    def make_context(self, g, cfg, device="cuda"):
         return ed.make_context(g, cfg, device)
 
-    def init_state(self, cfg, tasks, device="cpu"):
+    def init_state(self, cfg, tasks, device="cuda"):
         return ed.init_state(cfg, tasks, device)
 
-    def dummy_context(self, cfg, device="cpu"):
+    def dummy_context(self, cfg, device="cuda"):
+        device = check_device(device)
+
         def z(*shape):
             return torch.zeros(shape, dtype=torch.int32, device=device)
         return ed.GraphContext(adj=z(cfg.n_u, cfg.wv), order=z(cfg.n_u),

@@ -50,13 +50,12 @@ from repro_torch.kernels.dispatch import check_device, resolve_impl
 from repro_torch.kernels.fused_check.ops import fused_check_packed
 from repro_torch.kernels.fused_select.ops import fused_select_packed
 from repro_torch.kernels.intersect_count.ops import intersect_count
-from repro_torch.kernels.resident_pool.ops import (pool_launch,
+from repro_torch.kernels.resident_pool.ops import (packed_pool_segment,
                                                    resident_pool_supported)
-from repro_torch.kernels.resident_pool.ref import resident_pool_segment_ref
 from repro_torch.kernels.resident_step.ops import (S_BUDGET, S_LVL,
                                                    S_NTASKS, S_START,
-                                                   S_STEPS, S_TPOS,
-                                                   lane_launch, pack,
+                                                   S_STEPS, S_TPOS, pack,
+                                                   packed_segment,
                                                    resident_supported,
                                                    unpack)
 
@@ -144,9 +143,9 @@ WORD_LEAVES = frozenset(("adj", "l_root", "lmask", "pmask", "qmask",
 # ---------------------------------------------------------------------------
 
 def make_context(g: BipartiteGraph, cfg: EngineConfig,
-                 device="cpu") -> GraphContext:
+                 device="cuda") -> GraphContext:
     """The reference's ``make_context`` (same NumPy arithmetic), placed on
-    ``device``."""
+    ``device`` (the card unless the caller asks for the CPU)."""
     assert g.n_u <= cfg.n_u and g.n_v <= cfg.n_v
     adj = np.zeros((cfg.n_u, cfg.wv), dtype=np.uint32)
     src_rows = np.asarray(g.adj_u, dtype=np.uint32)
@@ -169,8 +168,10 @@ def make_context(g: BipartiteGraph, cfg: EngineConfig,
 
 
 def init_state(cfg: EngineConfig, tasks: np.ndarray,
-               device="cpu") -> DenseState:
-    """Fresh worker state with a task list (indices into the root order)."""
+               device="cuda") -> DenseState:
+    """Fresh worker state with a task list (indices into the root order)
+    on ``device``."""
+    device = check_device(device)
     t = np.full(max(len(tasks), 1), -1, dtype=np.int32)
     t[: len(tasks)] = np.asarray(tasks, dtype=np.int32)
     D, WU, WV, C = cfg.depth, cfg.wu, cfg.wv, cfg.collect_cap
@@ -200,16 +201,19 @@ def _leaf_to_torch(name: str, a, device) -> torch.Tensor:
     ).to(device)
 
 
-def context_from_numpy(leaves, device="cpu") -> GraphContext:
+def context_from_numpy(leaves, device="cuda") -> GraphContext:
     """Any object with the ``GraphContext`` fields as arrays (NumPy, or a
-    reference ``GraphContext`` after ``np.asarray``) -> port tensors."""
+    reference ``GraphContext`` after ``np.asarray``) -> port tensors on
+    ``device``."""
+    device = check_device(device)
     return GraphContext(*[_leaf_to_torch(f, getattr(leaves, f), device)
                           for f in GraphContext._fields])
 
 
-def state_from_numpy(leaves, device="cpu") -> DenseState:
+def state_from_numpy(leaves, device="cuda") -> DenseState:
     """Any object with the ``DenseState`` fields as arrays -> port state
-    (uint32 words become int32 bit patterns)."""
+    on ``device`` (uint32 words become int32 bit patterns)."""
+    device = check_device(device)
     return DenseState(*[_leaf_to_torch(f, getattr(leaves, f), device)
                         for f in DenseState._fields])
 
@@ -458,21 +462,15 @@ def run(g: GraphContext, cfg: EngineConfig, s: DenseState,
         max_steps: int | None = None, unroll: int = 1) -> DenseState:
     """Run one lane until its tasks are done or the step budget is spent
     (resumable).  On the resident kernel path each segment of ``unroll``
-    guarded steps is ONE launch of the single-lane kernel; otherwise
-    segments of the torch-op step (with the per-step ``fused_check``
-    kernel on the kernel path)."""
+    guarded steps is ONE ``packed_segment`` (one launch of the
+    single-lane kernel on the card); otherwise segments of the torch-op
+    step (with the per-step ``fused_check`` kernel on the kernel path)."""
     budget = cfg.max_steps if max_steps is None else max_steps
-    dev = s.lvl.device
-    if cfg.resident_active_on(dev):
-        if dev.type != "cuda":
-            # the resident segment's plain version: guarded torch-op
-            # steps (resident_step/ref.py), i.e. the torch-op loop
-            cfg = dataclasses.replace(cfg, kernel_impl="jnp")
-        else:
-            p = pack(s, s.steps, budget)
-            while bool(_packed_active(p)):
-                p, _ = lane_launch(g, cfg, s.tasks, p, unroll, lanes=None)
-            return _owned(unpack(s, p))
+    if cfg.resident_active_on(s.lvl.device):
+        p = pack(s, s.steps, budget)
+        while bool(_packed_active(p)):
+            p = packed_segment(g, cfg, s, p, unroll)
+        return _owned(unpack(s, p))
     return _unlane(_torch_loop(g, cfg, _lanes(s), budget, unroll,
                                batched=False))
 
@@ -515,25 +513,18 @@ def _rebalance_budgets(start: torch.Tensor, bud: torch.Tensor,
 def _run_batch_pool(g: GraphContext, cfg: EngineConfig, s: DenseState,
                     budget: int, ctx_batched: bool,
                     unroll: int) -> DenseState:
-    """Pool-kernel backing for ``run_batch``: ONE launch advances every
-    lane by an ``unroll``-step segment, until no lane is active.  The
+    """Pool-kernel backing for ``run_batch``: ONE ``packed_pool_segment``
+    (one launch on the card) advances every lane by an ``unroll``-step
+    segment, until no lane is active.  The
     scalar block (cursor, per-lane start and budget columns) stays on the
     device across the loop; the host reads one ``any(active)`` per
     segment.  With ``cfg.resident_rebalance`` the budget column is
     rewritten from the scoreboard between segments."""
-    dev = s.lvl.device
     start = s.steps.clone()
     p = pack(s, start, torch.full_like(start, budget))
     while bool(_packed_active(p).any()):
-        if dev.type == "cuda":
-            p, board = pool_launch(g, cfg, s.tasks, p, unroll,
-                                   ctx_batched=ctx_batched)
-        else:
-            st, board = resident_pool_segment_ref(
-                g, cfg, unpack(s, p), start=p.scal[:, S_START],
-                budget=p.scal[:, S_BUDGET], steps_per_call=unroll,
-                ctx_batched=ctx_batched)
-            p = pack(st, p.scal[:, S_START], p.scal[:, S_BUDGET])
+        p, board = packed_pool_segment(g, cfg, s, p, unroll,
+                                       ctx_batched=ctx_batched)
         if cfg.resident_rebalance:
             p.scal[:, S_BUDGET] = _rebalance_budgets(
                 start, p.scal[:, S_BUDGET], p.scal[:, S_STEPS], board)

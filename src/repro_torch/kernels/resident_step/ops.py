@@ -9,6 +9,8 @@ Pallas kernel ``src/repro/kernels/resident_step/kernel.py:resident_kernel``
 ``resident_segment(g, cfg, s, ...)`` advances one dense-engine lane by up
 to ``steps_per_call`` guarded steps in ONE launch and returns a fresh
 ``DenseState``; on a CPU tensor it runs the plain version (``ref.py``).
+``packed_segment`` is the same decision on a ``Packed`` state, for the
+engine's run loop.
 Every single-lane launch (``lane_launch(lanes=None)``, the one place
 ``rt_resident_step`` is called) adds one to ``resident_segment.launches``.
 
@@ -215,18 +217,26 @@ def lane_launch(g, cfg, tasks, p: Packed, steps_per_call: int, *,
     return out, board
 
 
+def packed_segment(g, cfg, s, p: Packed, steps_per_call: int, *,
+                   impl: str = "pallas") -> Packed:
+    """One single-lane segment on a ``Packed`` state (``s`` supplies the
+    task list): the kernel on a CUDA tensor, the plain version on a CPU
+    one.  The run loop calls this once per segment."""
+    if use_kernel(impl, p.scal.device):
+        return lane_launch(g, cfg, s.tasks, p, steps_per_call, lanes=None)[0]
+    from repro_torch.kernels.resident_step.ref import resident_segment_ref
+    start, budget = p.scal[..., S_START], p.scal[..., S_BUDGET]
+    st = resident_segment_ref(g, cfg, unpack(s, p), start=start,
+                              budget=budget, steps_per_call=steps_per_call)
+    return pack(st, start, budget)
+
+
 def resident_segment(g, cfg, s, *, start, budget, steps_per_call: int = 1,
                      impl: str = "pallas"):
     """Advance lane state ``s`` by up to ``steps_per_call`` engine steps,
     each guarded by ``~done & (steps - start < budget)``."""
-    if not use_kernel(impl, s.lvl.device):
-        from repro_torch.kernels.resident_step.ref import (
-            resident_segment_ref)
-        return resident_segment_ref(g, cfg, s, start=start, budget=budget,
-                                    steps_per_call=steps_per_call)
-    out, _ = lane_launch(g, cfg, s.tasks, pack(s, start, budget),
-                         steps_per_call, lanes=None)
-    return unpack(s, out)
+    return unpack(s, packed_segment(g, cfg, s, pack(s, start, budget),
+                                    steps_per_call, impl=impl))
 
 
 resident_segment.launches = 0

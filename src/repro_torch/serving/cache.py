@@ -18,6 +18,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core.engine import DENSE, Engine
+from repro_torch.kernels.dispatch import check_device
 
 
 class CacheEntry:
@@ -111,12 +112,13 @@ class ExecutableCache:
 
     def get_round(self, cfg, batch: int, max_steps: int | None = None,
                   engine: Engine | None = None, unroll: int = 1,
-                  device="cpu") -> CacheEntry:
+                  device="cuda") -> CacheEntry:
         """Local-backend batched enumeration callable
         ``(ctx, state) -> state`` over ``batch`` lanes on ``device``, with
         the reference's key (``("pool", width)`` appended only when the
         pool kernel serves this (cfg, batch))."""
         eng = engine or DENSE
+        device = check_device(device)
 
         def build():
             def fn(ctx, s):
@@ -132,7 +134,7 @@ class ExecutableCache:
             key = key + (("pool", pw),)
         return self.get_entry(key, build)
 
-    def get(self, cfg, batch: int, device="cpu") -> CacheEntry:
+    def get(self, cfg, batch: int, device="cuda") -> CacheEntry:
         """Run-to-completion callable (drain entry)."""
         return self.get_round(cfg, batch, None, device=device)
 

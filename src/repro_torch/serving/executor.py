@@ -56,7 +56,7 @@ class Executor(abc.ABC):
     """Execution backend: owns where lane pools live and how rounds run."""
 
     name: str = "executor"
-    device: torch.device = torch.device("cpu")
+    device: torch.device        # set by each backend (no CPU default)
 
     @abc.abstractmethod
     def plan_lanes(self, n_pending: int, policy: BucketPolicy) -> int:

@@ -97,3 +97,43 @@ def test_cuda_device_without_a_card_raises():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         repro_torch.MBEClient(repro_torch.MBEOptions())
+
+
+def _default_device_calls():
+    """Every public constructor that places tensors, called without a
+    device: each must aim at the card."""
+    import numpy as np
+    from repro_torch.core import engine_dense as ted
+    from repro_torch.core.engine import DENSE
+    from repro_torch.serving.cache import ExecutableCache
+    g = STREAM[0].canonical()
+    cfg = ted.make_config(g)
+    tasks = np.arange(g.n_u, dtype=np.int32)
+    ctx = ted.GraphContext(**ted.state_to_numpy(
+        ted.make_context(g, cfg, "cpu")))
+    st = ted.DenseState(**ted.state_to_numpy(
+        ted.init_state(cfg, tasks, "cpu")))
+    return {
+        "make_context": lambda: ted.make_context(g, cfg),
+        "init_state": lambda: ted.init_state(cfg, tasks),
+        "context_from_numpy": lambda: ted.context_from_numpy(ctx),
+        "state_from_numpy": lambda: ted.state_from_numpy(st),
+        "Engine.make_context": lambda: DENSE.make_context(g, cfg),
+        "Engine.init_state": lambda: DENSE.init_state(cfg, tasks),
+        "Engine.dummy_context": lambda: DENSE.dummy_context(cfg),
+        "Engine.fresh_lane_state": lambda: DENSE.fresh_lane_state(cfg, 2),
+        "ExecutableCache.get_round":
+            lambda: ExecutableCache().get_round(cfg, 2, 8),
+        "ExecutableCache.get": lambda: ExecutableCache().get(cfg, 2),
+    }
+
+
+@pytest.mark.parametrize("entry", sorted(_default_device_calls()))
+def test_entry_points_default_to_the_card(entry):
+    """No helper quietly places its tensors on the CPU: without a
+    ``device`` each asks for the card, and raises when there is none."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _default_device_calls()[entry]()

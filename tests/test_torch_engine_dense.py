@@ -47,10 +47,10 @@ def _lockstep(name, seg_steps=40, unroll=1, **cfg_kw):
     jcfg = jed.make_config(jg, **cfg_kw)
     tcfg = ted.make_config(tg, **cfg_kw)
     jctx = jed.make_context(jg, jcfg)
-    tctx = ted.make_context(tg, tcfg)
+    tctx = ted.make_context(tg, tcfg, "cpu")
     _assert_leaves(jctx, tctx, f"{name} ctx")
     tasks = np.arange(jg.n_u, dtype=np.int32)
-    js, ts = jed.init_state(jcfg, tasks), ted.init_state(tcfg, tasks)
+    js, ts = jed.init_state(jcfg, tasks), ted.init_state(tcfg, tasks, "cpu")
     run_j = jax.jit(lambda st: jed.run(jctx, jcfg, st, max_steps=seg_steps,
                                        unroll=unroll))
     seg = 0
@@ -85,9 +85,9 @@ def test_start_from_a_shared_mid_run_state():
     js = jed.init_state(jcfg, np.arange(jg.n_u, dtype=np.int32))
     js = jax.jit(lambda st: jed.run(jctx, jcfg, st, max_steps=57))(js)
     tctx = ted.context_from_numpy(
-        jed.GraphContext(*[np.asarray(x) for x in jctx]))
+        jed.GraphContext(*[np.asarray(x) for x in jctx]), "cpu")
     ts = ted.state_from_numpy(
-        jed.DenseState(*[np.asarray(x) for x in js]))
+        jed.DenseState(*[np.asarray(x) for x in js]), "cpu")
     _assert_leaves(js, ts, "converted")
     tcfg = ted.EngineConfig(**dataclasses.asdict(jcfg))
     js2 = jax.jit(lambda st: jed.run(jctx, jcfg, st, max_steps=64))(js)
@@ -108,8 +108,8 @@ def test_collected_bicliques_and_lane_surgery_match_jax():
     assert ted.collected_bicliques(tcfg, ts, tg.n_u, tg.n_v) == \
         jed.collected_bicliques(jcfg, js, jg.n_u, jg.n_v)
     # replace_lanes: rows idx take the new lanes, the others stay put
-    tctx = ted.make_context(tg, tcfg)
-    fresh = ted.init_state(tcfg, np.arange(tg.n_u, dtype=np.int32))
+    tctx = ted.make_context(tg, tcfg, "cpu")
+    fresh = ted.init_state(tcfg, np.arange(tg.n_u, dtype=np.int32), "cpu")
     batch = ted._stack([fresh] * 3)
     bctx = ted._stack([tctx] * 3)
     b2, c2 = ted.replace_lanes(batch, bctx, [2], ted._stack([ts]),
@@ -147,8 +147,8 @@ def test_run_batch_matches_jax_vmap(ctx_batched):
     js = jax.tree.map(lambda *x: np.stack(x), *[
         jax.tree.map(np.asarray, s) for s in states])
     tctx = ted.context_from_numpy(
-        jed.GraphContext(*[np.asarray(x) for x in jctx]))
-    ts = ted.state_from_numpy(jed.DenseState(*js))
+        jed.GraphContext(*[np.asarray(x) for x in jctx]), "cpu")
+    ts = ted.state_from_numpy(jed.DenseState(*js), "cpu")
     run_j = jax.jit(lambda st: jed.run_batch(jctx, jcfg, st, max_steps=90,
                                              ctx_batched=ctx_batched,
                                              unroll=2))

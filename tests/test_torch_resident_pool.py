@@ -48,8 +48,9 @@ def _pool(width, ctx_batched, **cfg_kw):
             n_tasks=jnp.int32(len(t))))
     js = jax.tree.map(lambda *x: jnp.stack(x), *states)
     tctx = ted.context_from_numpy(
-        jed.GraphContext(*[np.asarray(x) for x in jctx]))
-    ts = ted.state_from_numpy(jed.DenseState(*[np.asarray(x) for x in js]))
+        jed.GraphContext(*[np.asarray(x) for x in jctx]), "cpu")
+    ts = ted.state_from_numpy(jed.DenseState(*[np.asarray(x) for x in js]),
+                              "cpu")
     return jcfg, tcfg, jctx, tctx, js, ts
 
 
