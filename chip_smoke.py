@@ -13,23 +13,34 @@ makes the script exit non-zero):
 2. build    — nvcc builds every ``src/repro_torch/csrc/*.cu`` (timed);
 3. kernels  — each CUDA kernel against its plain torch-op version on the
               card, bit for bit (tolerance: exact, integer outputs):
-              fused_check at (512, 64) and (1024, 128) with and without
-              counts; resident_pool and resident_step on real pools
-              (bucket 512 x 2048 with two graphs, an 8-lane stream pool,
-              and the 1024 x 4096 bucket whose adjacency does not fit in
-              shared memory) in every order mode, steps_per_call 1 and 16,
-              rebalance off and on, at every segment boundary;
-4. main     — the port's main path through ``MBEClient`` at default
-              options (a 32-graph stream and dblp-like), the bench suite
-              plus dblp-large at steps_per_call=16, then resident_lanes=0
-              (single-lane kernel) and resident=False (per-step
-              fused_check: one bench graph through ``run``, and two real
-              pools through ``run_batch`` at buckets 128 x 256
-              (unicode-like + ucforum-like) and 512 x 2048 (dblp-like +
-              corp-leadership)); every n_max and cs against the oracle, every
-              kernel's launch count > 0 on its path, counted per path;
-5. times    — per-kernel CUDA-event times at the main path's shapes
-              beside the plain version and the bound.
+              fused_check packed at (512, 64) and (1024, 128) with and
+              without counts; resident_pool and resident_step on real
+              pools (bucket 512 x 2048 with two graphs, an 8-lane stream
+              pool, and the 1024 x 4096 bucket whose adjacency does not
+              fit in shared memory) in every order mode, steps_per_call 1
+              and 16, rebalance off and on, at every segment boundary;
+              intersect_count (plain and through idx), every fused_select
+              kind and the dense/prefix2 fused_check kinds (plain and
+              gathered, counts on/off) at (128, 8), (512, 64), (1024, 128)
+              and (100, 5), shared and per-lane adjacency, 1 and 8 lanes,
+              random rows, all rows tied, nothing active (p = 0) and
+              |L'| = 0;
+4. main     — the port's main paths against the oracle, each drive with
+              the launch counters set to 0 just before it and read just
+              after: ``MBEClient`` at default options (a 32-graph stream
+              and dblp-like), the bench suite plus dblp-large at
+              steps_per_call=16, resident_lanes=0 (single-lane kernel),
+              resident=False (per-step fused_check: unicode-like through
+              ``run``, 2-lane pools through ``run_batch`` at 64 x 256 and
+              512 x 2048); the compact engine (the stream; unicode-like
+              and dblp-like at steps_per_call=16; the stream unfused with
+              impl='pallas'); the dense deg_nocache path with residency
+              off (fused_select packed) and the dense unfused path with
+              impl='pallas' (intersect_count); every n_max and cs against
+              the oracle, every kernel's launch count > 0 on its path;
+5. times    — per-kernel CUDA-event and profiler times at each kernel's
+              own path's shapes beside the plain version and the bound,
+              and the device's busy share over main-path windows.
 
 Every phase runs on every call; the script takes no arguments.  The line
 before the last is the ``{"kernels": [...]}`` record; the last line is
@@ -152,9 +163,9 @@ def check_fused_check(dev, seed):
     err = max_err(tuple(got), tuple(want))
     require(err == 0, f"fused_check lane-batched differs ({err})")
     worst = max(worst, err)
-    # per-lane adjacency at the per-step pools' buckets (128 x 256 and
-    # 512 x 2048, two lanes)
-    for n, w in ((128, 8), (512, 64)):
+    # per-lane adjacency, two lanes, at the per-step pools' buckets
+    # (64 x 256, 128 x 256 and 512 x 2048)
+    for n, w in ((64, 8), (128, 8), (512, 64)):
         args = k1_lane_inputs(2, n, w, seed + 3 * n, dev)
         got = fused_check_packed(*args, impl="pallas", with_counts=True)
         want = fused_check_packed_ref(*args, with_counts=True)
@@ -167,16 +178,17 @@ def check_fused_check(dev, seed):
     return worst
 
 
-def bucket_pool(graphs, dev, **cfg_kw):
+def bucket_pool(graphs, dev, engine="dense", **cfg_kw):
     """(cfg, stacked ctx, stacked fresh state) of one bucket's pool."""
-    from repro_torch.core.engine import DENSE
+    from repro_torch.core.engine import get_engine
     from repro_torch.serving.buckets import BucketPolicy, plan_bucket
     from repro_torch.serving.executor import _stack
+    eng = get_engine(engine)
     specs = {plan_bucket(g.canonical(), BucketPolicy()) for g in graphs}
     spec = max(specs, key=lambda b: (b.n_u, b.n_v))
     cfg = spec.engine_config(**cfg_kw)
-    ctxs = [DENSE.make_context(g.canonical(), cfg, dev) for g in graphs]
-    sts = [DENSE.fresh_lane_state(cfg, g.canonical().n_u, dev)
+    ctxs = [eng.make_context(g.canonical(), cfg, dev) for g in graphs]
+    sts = [eng.fresh_lane_state(cfg, g.canonical().n_u, dev)
            for g in graphs]
     return cfg, _stack(ctxs), _stack(sts)
 
@@ -286,6 +298,135 @@ def check_resident(dev):
     return checked, err_pool, err_step
 
 
+def slice2_inputs(lanes, n, w, seed, dev, per_lane_adj, case):
+    """Operands of the K4/K5/K1-kind checks: ``lanes`` lanes (1 = no lane
+    dim), rows (n, w) shared or per lane, a permutation ``idx`` and the
+    [Q ++ P] index of length 2n; ``case`` 'random', 'tied' (every row
+    equal), 'none' (nothing active, p = 0, q_hi = p_hi = 0) or 'empty'
+    (|L'| = 0)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bitset
+    rng = np.random.default_rng(seed)
+
+    def words(*shape):
+        return rng.integers(0, 1 << 32, size=shape, dtype=np.uint64) \
+            & rng.integers(0, 1 << 32, size=shape, dtype=np.uint64)
+
+    def t32(a):
+        return bitset.from_u32(np.asarray(a).astype(np.uint32), dev)
+
+    L = max(lanes, 1)
+    adj = words(L if per_lane_adj else 1, n, w)
+    mask = words(L, w)
+    adj[:, ::7] |= mask[:, None, :] if per_lane_adj else mask[:1, None, :]
+    adj[:, 3::11] = 0
+    if case == "tied":
+        adj[:] = adj[:, :1]
+    if case == "empty":
+        mask[:] = 0
+    idx = np.stack([rng.permutation(n) for _ in range(L)]).astype(np.int32)
+    idx2 = np.concatenate([idx[:, ::-1], idx], axis=1)
+    act = (rng.random((L, n)) < 0.4).astype(np.int32)
+    p = rng.integers(1, n + 1, size=L).astype(np.int32)
+    q_hi = rng.integers(0, n + 1, size=L).astype(np.int32)
+    if case == "none":
+        act[:] = 0
+        p[:] = 0
+        q_hi[:] = 0
+    out = dict(adj=t32(adj if per_lane_adj else adj[0]), mask=t32(mask),
+               idx=torch.from_numpy(idx).to(dev),
+               idx2=torch.from_numpy(idx2.copy()).to(dev),
+               act=torch.from_numpy(act).to(dev),
+               p=torch.from_numpy(p).to(dev),
+               q_hi=torch.from_numpy(q_hi).to(dev))
+    out["words"] = bitset.from_bool(out["act"] > 0)
+    out["nlp"] = bitset.count(out["mask"])
+    if lanes == 0:          # unbatched (shared adjacency): no lane dim
+        require(not per_lane_adj, "an unbatched call has one adjacency")
+        out = {k: (v if k == "adj" else v[0]) for k, v in out.items()}
+    return out
+
+
+def check_slice2_kernels(dev):
+    """K5, every K4 kind and the dense/prefix2 K1 kinds, plain and
+    gathered, against their plain versions on the card at (128, 8),
+    (512, 64), (1024, 128) and a ragged (100, 5); shared and per-lane
+    adjacency; unbatched, 1 and 8 lanes; random rows, all rows tied,
+    nothing active (p = 0) and |L'| = 0.  Returns {entry point: largest
+    |err| measured}."""
+    from repro_torch.kernels import fused_check as fc
+    from repro_torch.kernels import fused_select as fs
+    from repro_torch.kernels.intersect_count.ops import intersect_count
+
+    def calls(x):
+        n = x["idx"].shape[-1]
+        return {
+            "intersect_count": (intersect_count, (x["adj"], x["mask"]), {}),
+            "intersect_count idx": (intersect_count, (x["adj"], x["mask"]),
+                                    dict(idx=x["idx"])),
+            "fused_select": (fs.fused_select,
+                             (x["adj"], x["mask"], x["act"]), {}),
+            "fused_select_packed": (fs.fused_select_packed,
+                                    (x["adj"], x["mask"], x["words"]), {}),
+            "fused_select_prefix": (fs.fused_select_prefix,
+                                    (x["adj"], x["mask"], x["p"]), {}),
+            "fused_select_gathered": (
+                fs.fused_select_gathered,
+                (x["adj"], x["idx"], x["mask"], x["act"]), {}),
+            "fused_select_gathered_prefix": (
+                fs.fused_select_gathered_prefix,
+                (x["adj"], x["idx"], x["mask"], x["p"]), {}),
+            "fused_check": (fc.fused_check,
+                            (x["adj"], x["mask"], x["nlp"], x["act"],
+                             1 - x["act"]), {}),
+            "fused_check_prefix2": (
+                fc.fused_check_prefix2,
+                (x["adj"], x["mask"], x["nlp"], x["q_hi"] // 2, x["p"]),
+                dict(split=n // 2)),
+            "fused_check_gathered": (
+                fc.fused_check_gathered,
+                (x["adj"], x["idx"], x["mask"], x["nlp"], x["act"],
+                 1 - x["act"]), {}),
+            "fused_check_gathered_prefix2": (
+                fc.fused_check_gathered_prefix2,
+                (x["adj"], x["idx2"], x["mask"], x["nlp"], x["q_hi"],
+                 x["p"]), {}),
+        }
+
+    errs: dict = {}
+    n_checks = 0
+    for n, w in ((128, 8), (512, 64), (1024, 128), (100, 5)):
+        for lanes, per_lane in ((0, False), (1, True), (8, False),
+                                (8, True)):
+            for case in ("random", "tied", "none", "empty"):
+                x = slice2_inputs(lanes, n, w, n + 7 * w + lanes, dev,
+                                  per_lane, case)
+                for name, (fn, args, kw) in calls(x).items():
+                    counts = (False, True) if name.startswith(
+                        "fused_check") else (None,)
+                    for wc in counts:
+                        ckw = dict(kw) if wc is None else dict(
+                            kw, with_counts=wc)
+                        got = fn(*args, impl="pallas", **ckw)
+                        want = fn(*args, impl="jnp", **ckw)
+                        got = got if isinstance(got, tuple) else (got,)
+                        want = want if isinstance(want, tuple) else (want,)
+                        err = max_err(got, want)
+                        require(err == 0 and all(
+                            (a is None) == (b is None) and (a is None or (
+                                a.shape == b.shape and a.dtype == b.dtype))
+                            for a, b in zip(got, want)),
+                            f"{name} ({n},{w}) lanes={lanes} per-lane adj="
+                            f"{per_lane} {case} counts={wc}: differs "
+                            f"(max |err| {err})")
+                        key_ = name.split(" ")[0]
+                        errs[key_] = max(errs.get(key_, 0), err)
+                        n_checks += 1
+    log(f"  K4/K5/K1 kinds: {n_checks} checks bit-exact, max |err| {errs}")
+    return errs
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -311,21 +452,46 @@ def check_results(results, graphs, truth, what):
                 f"{(n_max, cs)}")
 
 
-def reset_counters():
-    from repro_torch.kernels.fused_check.ops import fused_check_packed
+def counted():
+    """{record name: wrapper} of every kernel wrapper that counts its
+    launches: the seven entry points of the ``kernels`` line first, then
+    the kinds no main path launches (their counts must stay 0 there)."""
+    from repro_torch.kernels import fused_check as fc
+    from repro_torch.kernels import fused_select as fs
+    from repro_torch.kernels.intersect_count.ops import intersect_count
     from repro_torch.kernels.resident_pool.ops import resident_pool_segment
     from repro_torch.kernels.resident_step.ops import resident_segment
-    for f in (fused_check_packed, resident_pool_segment, resident_segment):
+    return {"fused_check_packed": fc.fused_check_packed,
+            "resident_pool": resident_pool_segment,
+            "resident_step": resident_segment,
+            "fused_select_packed": fs.fused_select_packed,
+            "fused_select_gathered_prefix": fs.fused_select_gathered_prefix,
+            "fused_check_gathered_prefix2": fc.fused_check_gathered_prefix2,
+            "intersect_count": intersect_count,
+            "fused_select": fs.fused_select,
+            "fused_select_prefix": fs.fused_select_prefix,
+            "fused_select_gathered": fs.fused_select_gathered,
+            "fused_check": fc.fused_check,
+            "fused_check_prefix2": fc.fused_check_prefix2,
+            "fused_check_gathered": fc.fused_check_gathered}
+
+
+def reset_counters():
+    for f in counted().values():
         f.launches = 0
 
 
 def counters():
-    from repro_torch.kernels.fused_check.ops import fused_check_packed
-    from repro_torch.kernels.resident_pool.ops import resident_pool_segment
-    from repro_torch.kernels.resident_step.ops import resident_segment
-    return dict(fused_check=fused_check_packed.launches,
-                resident_pool=resident_pool_segment.launches,
-                resident_step=resident_segment.launches)
+    return {k: f.launches for k, f in counted().items()}
+
+
+def nonzero(c) -> dict:
+    return {k: v for k, v in c.items() if v}
+
+
+def k4_k1_launches(c) -> int:
+    """Launches of any fused_select / fused_check kind in counts ``c``."""
+    return sum(v for k, v in c.items() if k.startswith("fused_"))
 
 
 def main_path(dev):
@@ -370,28 +536,31 @@ def main_path(dev):
         check_results(res, graphs, truth, label)
         st = client.stats()
         log(f"  {label}: {len(graphs)} graphs, all n_max/cs = oracle, "
-            f"{wall:.2f} s, launches {c}, scheduler launches "
+            f"{wall:.2f} s, launches {nonzero(c)}, scheduler launches "
             f"{st['launches']}, misses {st['misses']}")
         return c
 
-    def drive_per_step(label, graphs, unroll):
-        """``resident=False``: the per-step torch-op engine with the
-        ``fused_check`` kernel, one lane through ``run`` or a real pool
-        (per-lane adjacency, ``ctx_batched``) through ``run_batch``."""
+    def drive_per_step(label, graphs, need, unroll=16, **kw):
+        """``resident=False``: the per-step torch-op dense engine with the
+        per-step kernels (``need``: the one this drive must launch), one
+        lane through ``run`` or a real pool (per-lane adjacency,
+        ``ctx_batched``) through ``run_batch``."""
         reset_counters()
         t = time.perf_counter()
         if len(graphs) == 1:
             g = graphs[0]
             s = ed.enumerate_dense(g.canonical(), device=str(dev),
-                                   resident=False)
+                                   resident=False, **kw)
             finals = [s]
         else:
-            cfg, ctx, s0 = bucket_pool(graphs, dev, resident=False)
+            cfg, ctx, s0 = bucket_pool(graphs, dev, resident=False, **kw)
             s = ed.run_batch(ctx, cfg, s0, ctx_batched=True, unroll=unroll)
             finals = [ed._lane(s, i) for i in range(len(graphs))]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        by_path[label] = c = counters()
+        c = counters()
+        by_path[label] = {k: by_path.get(label, {}).get(k, 0) + v
+                          for k, v in c.items()}
         for g, f in zip(graphs, finals):
             require(bool(ed._done(f)), f"{label}: {g.name} not done")
             got = (int(f.n_max), int(f.cs) % (1 << 32))
@@ -401,8 +570,9 @@ def main_path(dev):
         per_graph.append(dict(graph="+".join(g.name for g in graphs),
                               path=label, steps=steps, wall_s=wall,
                               steps_per_s=steps / wall))
-        log(f"  {label}: = oracle, {wall:.2f} s, launches {c}")
-        require(c["fused_check"] > 0, f"fused_check not launched: {label}")
+        log(f"  {label} {'+'.join(g.name for g in graphs)}: = oracle, "
+            f"{wall:.2f} s, launches {nonzero(c)}")
+        require(c[need] > 0, f"{need} not launched: {label}")
 
     c = drive("default stream", MBEOptions(), stream)
     require(c["resident_pool"] > 0, "resident_pool not launched on the "
@@ -416,12 +586,42 @@ def main_path(dev):
               stream)
     require(c["resident_step"] > 0, "resident_step not launched with "
                                     "resident_lanes=0")
+    k1 = "fused_check_packed"
     drive_per_step("resident=False run unicode-like", [bench["unicode-like"]],
-                   unroll=1)
-    drive_per_step("resident=False run_batch 128x256 unicode+ucforum",
-                   [bench["unicode-like"], bench["ucforum-like"]], unroll=16)
+                   k1, unroll=1)
+    # depth cut: corp-leadership takes ucforum-like's lane in this pool,
+    # so the bucket is 64 x 256 (ucforum-like's 38,853 per-step engine
+    # steps cost ~170 s on the card)
+    drive_per_step("resident=False run_batch 64x256 unicode+corp",
+                   [bench["unicode-like"], bench["corp-leadership"]], k1)
     drive_per_step("resident=False run_batch 512x2048 dblp+corp",
-                   [bench["dblp-like"], bench["corp-leadership"]], unroll=16)
+                   [bench["dblp-like"], bench["corp-leadership"]], k1)
+
+    # slice 2: the compact engine (K4 prefix + K1 prefix2 through K6 on
+    # the kernel path, K5 gathered on the unfused path)
+    compact_kernels = ("fused_select_gathered_prefix",
+                       "fused_check_gathered_prefix2")
+    c = drive("compact stream", MBEOptions(engine="compact"), stream)
+    for k in compact_kernels:
+        require(c[k] > 0, f"{k} not launched on the compact stream")
+    c = drive("compact bench spc=16",
+              MBEOptions(engine="compact", steps_per_call=16),
+              [bench["unicode-like"], bench["dblp-like"]], one_by_one=True)
+    for k in compact_kernels:
+        require(c[k] > 0, f"{k} not launched (compact spc=16)")
+    c = drive("compact unfused impl=pallas",
+              MBEOptions(engine="compact", kernel_impl="jnp", impl="pallas"),
+              stream)
+    require(c["intersect_count"] > 0 and k4_k1_launches(c) == 0,
+            f"compact unfused impl=pallas: launches {nonzero(c)}")
+    # the dense paths K4 packed and K5 unblock
+    label = "dense deg_nocache resident=False"
+    drive_per_step(label, [bench["unicode-like"]], "fused_select_packed",
+                   order_mode="deg_nocache")
+    drive_per_step(label, [bench["dblp-like"], bench["corp-leadership"]],
+                   "fused_select_packed", order_mode="deg_nocache")
+    drive_per_step("dense unfused impl=pallas", [bench["unicode-like"]],
+                   "intersect_count", kernel_impl="jnp", impl="pallas")
     for row in per_graph:
         log("  per-graph " + json.dumps(row))
     return by_path
@@ -429,9 +629,13 @@ def main_path(dev):
 
 # each kernel's own path: the drive whose count is the record's `launches`
 KERNEL_PATH = {
-    "fused_check": "resident=False run_batch 128x256 unicode+ucforum",
+    "fused_check_packed": "resident=False run_batch 512x2048 dblp+corp",
     "resident_pool": "default stream",
     "resident_step": "resident_lanes=0 stream",
+    "fused_select_packed": "dense deg_nocache resident=False",
+    "fused_select_gathered_prefix": "compact stream",
+    "fused_check_gathered_prefix2": "compact stream",
+    "intersect_count": "compact unfused impl=pallas",
 }
 
 
@@ -529,10 +733,10 @@ def times(dev, by_path, errs):
                                                        resident_state_bytes)
     from repro_torch.kernels.resident_step.ref import resident_segment_ref
     out = []
-    # K1 at its path's shapes: 2-lane pools with per-lane adjacency and
-    # counts on (order_mode 'deg'), buckets 128 x 256 (the record) and
-    # 512 x 2048 (logged)
-    for lanes, n, w in ((2, 128, 8), (2, 512, 64)):
+    # K1 (packed) at its path's shapes: 2-lane pools with per-lane
+    # adjacency and counts on (order_mode 'deg'), buckets 512 x 2048 (the
+    # record) and 128 x 256 (logged, PR 11's record shape)
+    for lanes, n, w in ((2, 512, 64), (2, 128, 8)):
         args = k1_lane_inputs(lanes, n, w, 7, dev)
 
         def k1():
@@ -546,15 +750,15 @@ def times(dev, by_path, errs):
         b, kind = bound(4 * lanes * (n * w + w + 1 + 2 * nw
                                      + 1 + 3 * nw + n), 2 * lanes * n * w)
         shape = f"lanes={lanes} N={n} W={w} per-lane adj, with_counts"
-        if n == 128:
+        if n == 512:
             out.append(record(
-                "fused_check", by_path, errs,
+                "fused_check_packed", by_path, errs,
                 source="src/repro_torch/csrc/fused_check.cu",
                 replaces="src/repro/kernels/fused_check/kernel.py:81",
                 ms=ms, plain_ms=plain, bound_ms=b, bound_by=kind,
                 library_ms=None, device_ms=dms, shape=shape))
         else:
-            log(f"  fused_check at {shape}: {ms:.4f} ms/call (device "
+            log(f"  fused_check_packed at {shape}: {ms:.4f} ms/call (device "
                 f"{dms} ms), plain {plain:.4f} ms, bound {b:.6f} ms "
                 f"({kind})")
     # K3 / K2 at the default path's dblp-like pool: bucket 512 x 2048,
@@ -611,6 +815,7 @@ def times(dev, by_path, errs):
         else:
             log(f"  resident_step at spc=16: {ms2:.4f} ms/launch (device "
                 f"{dms2} ms), plain {plain2:.3f} ms")
+    out += slice2_times(dev, by_path, errs)
     # the device's busy share over two main-path windows
     from repro_torch import MBEClient, MBEOptions
     bench = dataset_suite("bench")
@@ -629,6 +834,131 @@ def times(dev, by_path, errs):
     return out
 
 
+NO_LIBRARY = ("no single PyTorch call computes it: torch has no popcount "
+              "op, so an AND + popcount row reduction is several calls")
+
+
+def slice2_times(dev, by_path, errs):
+    """K4 (packed), K6 (the gathered K4 prefix and K1 prefix2 kinds) and
+    K5 at their own paths' shapes, bucket 512 x 2048 (N = 512, W = 64)
+    with per-lane adjacency: the compact kernels on one dblp-like lane,
+    their operands (P, Q, L, the level pointers) taken from a mid-run
+    compact state, and the packed select on the 2-lane deg_nocache pool
+    (dblp-like + corp-leadership) mid-run.  ``bound_ms`` counts the rows
+    each call's function needs from this run's operands (read through
+    ``idx`` once each), the index and activity operands and the outputs;
+    its operations are one AND + one popcount per word read."""
+    import torch
+    from repro_torch.core import bitset
+    from repro_torch.core import engine_dense as ed
+    from repro_torch.core.engine import COMPACT
+    from repro_torch.data.generators import dataset_suite
+    from repro_torch.kernels import fused_check as fc
+    from repro_torch.kernels import fused_select as fs
+    from repro_torch.kernels.intersect_count.ops import intersect_count
+    bench = dataset_suite("bench")
+    out = []
+    # the lane right after the init task of the middle root: level 0 with
+    # half of U in Q and half in P, the forced root's step next
+    g = bench["dblp-like"].canonical()
+    cfg, ctx, s0 = bucket_pool([g], dev, engine="compact")
+    s = COMPACT.run_batch(ctx, cfg, s0._replace(
+        tpos=torch.full_like(s0.tpos, g.n_u // 2)), max_steps=1,
+        ctx_batched=True)
+    ar = torch.arange(1, device=dev)
+    lvl = s.lvl.clamp(min=0)
+    L = s.lmask[ar, lvl]
+    p = s.p_ptr[ar, lvl]
+    q_hi = s.q_ptr[ar, lvl]
+    Lp = L & ctx.adj[ar, s.forced_x.clamp(min=0)]
+    nLp = bitset.count(Lp)
+    idx2 = torch.cat([s.Q, s.P], dim=-1)
+    p_work = p                              # the root is forced: no pop
+    n, w = cfg.n_u, cfg.wv
+    pv, qv, pw = int(p[0]), int(q_hi[0]), int(p_work[0])
+    shape = (f"bucket 512x2048, 1 lane, per-lane adj, dblp-like's state "
+             f"after the init task of root {g.n_u // 2}")
+    row_b = 4 * w
+    specs = [
+        ("fused_select_gathered_prefix", "fused_select_kernel",
+         lambda impl: fs.fused_select_gathered_prefix(ctx.adj, s.P, L, p,
+                                                      impl=impl),
+         # rows [0, p) through idx, idx[0:p], mask, p; (idx, val) out
+         (pv * (row_b + 4) + row_b + 4 + 8, pv * w),
+         "src/repro_torch/csrc/fused_select.cu",
+         "src/repro/kernels/fused_select/kernel.py:67",
+         f"{shape}, prefix p = {pv} of N = {n}"),
+        ("fused_check_gathered_prefix2", "fused_check_kernel",
+         lambda impl: fc.fused_check_gathered_prefix2(
+             ctx.adj, idx2, Lp, nLp, q_hi, p_work, impl=impl),
+         # nz needs every one of the 2N rows: rows + idx, mask, |L'|,
+         # bounds; viol + 3 bool flags per row out
+         (2 * n * (row_b + 4) + row_b + 12 + 4 + 3 * 2 * n, 2 * n * w),
+         "src/repro_torch/csrc/fused_check.cu",
+         "src/repro/kernels/fused_check/kernel.py:81",
+         f"{shape}, prefix2 over 2N = {2 * n} rows [Q ++ P], q_hi = {qv}, "
+         f"p_hi = {pw}"),
+        ("intersect_count", "intersect_count_kernel",
+         lambda impl: intersect_count(ctx.adj, L, idx=s.P, impl=impl),
+         # every row through idx, idx, mask; counts out
+         (n * (row_b + 4) + row_b + 4 * n, n * w),
+         "src/repro_torch/csrc/intersect_count.cu",
+         "src/repro/kernels/intersect_count/kernel.py:32",
+         f"{shape}, gathered through P (N = {n})"),
+    ]
+    # the packed select on its own path's pool, each lane right after the
+    # init task of its middle root
+    pair = [bench["dblp-like"], bench["corp-leadership"]]
+    dcfg, dctx, d0 = bucket_pool(pair, dev, order_mode="deg_nocache",
+                                 resident=False)
+    mid = torch.tensor([x.canonical().n_u // 2 for x in pair],
+                       dtype=torch.int32, device=dev)
+    d = ed.run_batch(dctx, dcfg, d0._replace(tpos=mid), max_steps=1,
+                     ctx_batched=True)
+    ar2 = torch.arange(2, device=dev)
+    dl = d.lvl.clamp(min=0)
+    dL, pm = d.lmask[ar2, dl], d.pmask[ar2, dl]
+    act_rows = int(bitset.count(pm).sum())
+    specs.append((
+        "fused_select_packed", "fused_select_kernel",
+        lambda impl: fs.fused_select_packed(dctx.adj, dL, pm, impl=impl),
+        # active rows of both lanes, masks, activity words; 2 x 8 B out
+        (act_rows * row_b + 2 * (row_b + 4 * dcfg.wu + 8), act_rows * w),
+        "src/repro_torch/csrc/fused_select.cu",
+        "src/repro/kernels/fused_select/kernel.py:67",
+        f"bucket 512x2048, 2 lanes (dblp-like + corp-leadership) per-lane "
+        f"adj, deg_nocache resident=False, after the init task of each "
+        f"lane's middle root, {act_rows} active rows"))
+    for name, kname, fn, (nbytes, nwords), src, rep, shp in specs:
+        got, want = fn("pallas"), fn("jnp")
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max_err(got, want)
+        require(err == 0, f"{name} differs at its path's shape ({err})")
+        errs[name] = max(errs[name], err)
+        ms = cuda_ms(lambda: fn("pallas"))
+        plain = cuda_ms(lambda: fn("jnp"))
+        dms = device_ms(lambda: fn("pallas"), kname)
+        b, kind = bound(nbytes, 2 * nwords)
+        out.append(record(name, by_path, errs, source=src, replaces=rep,
+                          ms=ms, plain_ms=plain, bound_ms=b, bound_by=kind,
+                          library_ms=None, library_note=NO_LIBRARY,
+                          device_ms=dms, shape=shp))
+    # the device's busy share over a compact request's window: the
+    # dblp-like lane's engine loop, steps_per_call = 16, 256 steps from the
+    # state above
+    wall, busy, by_kernel = profile_window(lambda: COMPACT.run_batch(
+        ctx, cfg, s, max_steps=256, ctx_batched=True, unroll=16))
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:4]
+    share = None if busy is None else busy / wall
+    log(f"  profile compact dblp-like spc=16 (256 steps from root "
+        f"{g.n_u // 2}): wall {wall:.4f} s, device busy {busy} s, "
+        f"busy share {share}, {sum(v[1] for v in by_kernel.values())} "
+        f"kernels; top kernels " + json.dumps(
+            [(k[:60], round(v[0], 6), v[1]) for k, v in top]))
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -636,6 +966,7 @@ def main() -> int:
         print("chip_smoke.py: src/repro_torch not found next to the script",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, SRC)
     import torch
     if not torch.cuda.is_available():
@@ -661,15 +992,19 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             log("  ptxas " + line.strip())
     t0 = time.perf_counter()
-    errs = dict(fused_check=check_fused_check(dev, seed=0))
+    errs = dict(fused_check_packed=check_fused_check(dev, seed=0))
     n, errs["resident_pool"], errs["resident_step"] = check_resident(dev)
+    errs.update(check_slice2_kernels(dev))
     log(f"[kernels] {n} pool configurations + lanes bit-exact, max |err| "
         f"{errs}, {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     by_path = main_path(dev)
     log(f"[main] {time.perf_counter() - t0:.1f} s, launches by path "
-        f"{json.dumps(by_path)}")
+        f"{json.dumps({k: nonzero(c) for k, c in by_path.items()})}")
+    t0 = time.perf_counter()
     rec = times(dev, by_path, errs)
+    log(f"[times] {time.perf_counter() - t0:.1f} s; [total] "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(smi_line)
     log(json.dumps({"kernels": rec}))
     print(json.dumps({"ok": True, "device": {

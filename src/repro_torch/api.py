@@ -13,12 +13,12 @@ port-only field, ``device`` (default ``"cuda"``), threaded through the
 server, the executor and the engine.  ``device="cuda"`` without a card
 raises; nothing continues on the CPU in its place.
 
-This slice ports the dense engine on the local route.  Options that need
-unported parts raise ``NotImplementedError`` naming the ROADMAP Queue 1
-item that ports them when set to anything but their default: ``engine``
-other than ``"dense"`` (item 7), ``mesh`` and ``big_graph_threshold``
-(item 8), ``admission`` and ``trace_path`` (item 9), ``retry`` and
-``fault_injector`` (item 10).
+The port serves the ``dense`` and ``compact`` engines on the local route.
+Options that need unported parts raise ``NotImplementedError`` naming the
+ROADMAP Queue 1 item that ports them when set to anything but their
+default: ``engine`` ``"count"`` or ``"mce"`` (item 7), ``mesh`` and
+``big_graph_threshold`` (item 8), ``admission`` and ``trace_path``
+(item 9), ``retry`` and ``fault_injector`` (item 10).
 """
 from __future__ import annotations
 
@@ -35,10 +35,12 @@ from repro_torch.serving.cache import ExecutableCache
 from repro_torch.serving.executor import LocalExecutor
 from repro_torch.serving.scheduler import MBEServer, imbalance
 
-# (option, ROADMAP Queue 1 item) of the reference options this slice does
+# (option, ROADMAP Queue 1 item) of the reference options the port does
 # not serve yet: any value but the default raises
 _NOT_YET = (("mesh", 8), ("big_graph_threshold", 8), ("admission", 9),
             ("trace_path", 9), ("retry", 10), ("fault_injector", 10))
+# reference engines still to port (ROADMAP Queue 1 item 7)
+_ENGINES_NOT_YET = ("count", "mce")
 
 
 def engines() -> list[str]:
@@ -98,10 +100,10 @@ class MBEOptions:
     #                               fallback), the tests pass 'cpu'
 
     def __post_init__(self):
-        if self.engine != "dense":
+        if self.engine in _ENGINES_NOT_YET:
             raise NotImplementedError(
                 f"engine {self.engine!r} is not ported yet (ROADMAP "
-                f"Queue 1 item 7); this slice serves engine='dense'")
+                f"Queue 1 item 7); the port serves {list_engines()}")
         get_engine(self.engine)
         for name, item in _NOT_YET:
             if getattr(self, name) is not None:

@@ -47,8 +47,10 @@ def to_u32(x) -> np.ndarray:
 def from_u32(a, device=None) -> torch.Tensor:
     """NumPy uint32 (or any int array holding 32-bit words) -> int32 bit
     pattern tensor on ``device``."""
-    a = np.ascontiguousarray(np.asarray(a).astype(np.uint32, copy=False))
-    return torch.from_numpy(a.view(np.int32).copy()).to(device)
+    # np.array, not np.ascontiguousarray: the latter turns a 0-d leaf
+    # (``cs``) into shape (1,)
+    a = np.array(np.asarray(a).astype(np.uint32, copy=False), order="C")
+    return torch.from_numpy(a.view(np.int32)).to(device)
 
 
 def shr(words: torch.Tensor, k: int) -> torch.Tensor:

@@ -4,8 +4,15 @@ Twin of ``src/repro/core/engine.py``.  The serving stack drives engines
 only through the ``Engine`` ABC: constructors (``make_context``,
 ``init_state``, ``dummy_context``, ``config``), the resumable stepper
 (``run``/``run_batch``) and the result schema (``finish``/``partial``/
-``counters``/``make_result``).  Only ``dense`` is registered in this
-slice; ``compact``, ``count`` and ``mce`` are ROADMAP Queue 1 item 7.
+``counters``/``make_result``).  Registered: ``dense`` (bitmask stacks,
+with resident kernels) and ``compact`` (the paper's compact array); the
+``count`` and ``mce`` engines are still to port (ROADMAP Queue 1 item 7).
+
+``Engine.run``/``run_batch`` are the twin of the reference's generic
+``lax.while_loop`` driver: the shared lane-batched host loop
+(``engine_dense._torch_loop``: one ``any(active)`` read per segment of
+``unroll`` guarded steps) over the engine's ``step_lanes``.  Engines with
+resident kernels (``dense``) override them.
 
 Device: constructors take the ``device`` their tensors go to (the card
 unless the caller asks for the CPU; ``"cuda"`` without a card raises);
@@ -20,6 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import engine_compact as ec
 from repro_torch.core import engine_dense as ed
 from repro_torch.core.engine_dense import EngineConfig
 from repro_torch.core.graph import BipartiteGraph
@@ -78,16 +86,29 @@ class Engine(abc.ABC):
         return s._replace(tasks=torch.from_numpy(pad).to(device))
 
     # -- execution ------------------------------------------------------
-    @abc.abstractmethod
+    def step_lanes(self, ctx, cfg: EngineConfig, s, act: torch.Tensor,
+                   batched: bool) -> None:
+        """In place: one guarded engine step on every lane of the batched
+        state ``s`` whose ``act`` flag is set (``batched``: ``ctx``
+        carries the lane dim too)."""
+        raise NotImplementedError(f"engine {self.name!r} has no step_lanes")
+
     def run(self, ctx, cfg: EngineConfig, s, max_steps: int | None = None,
             unroll: int = 1):
-        """Run until done or the step budget expires."""
+        """Run one lane until done or the step budget expires (resumable):
+        segments of ``unroll`` guarded steps, one host read each."""
+        return ed._unlane(self.run_batch(ctx, cfg, ed._lanes(s),
+                                         max_steps=max_steps, unroll=unroll))
 
-    @abc.abstractmethod
     def run_batch(self, ctx, cfg: EngineConfig, s,
                   max_steps: int | None = None, ctx_batched: bool = False,
                   unroll: int = 1):
-        """``run`` over a leading lane dim."""
+        """``run`` over a leading lane dim (``ctx_batched=True``: one graph
+        per lane, the serving layout; False: one shared graph)."""
+        budget = cfg.max_steps if max_steps is None else max_steps
+        return ed._torch_loop(ctx, cfg, s, budget, unroll,
+                              batched=ctx_batched,
+                              step_lanes=self.step_lanes)
 
     def pool_lanes(self, cfg: EngineConfig, batch: int, device) -> int:
         """Pool width of a multi-lane kernel for ``batch`` lanes on
@@ -191,6 +212,34 @@ class DenseEngine(Engine):
         return ed.pool_lanes(cfg, batch, device)
 
 
+class CompactEngine(Engine):
+    """Paper-faithful compact-array engine (``engine_compact``); no
+    resident kernel, so it runs on the shared lane loop."""
+
+    name = "compact"
+
+    def make_context(self, g, cfg, device="cuda"):
+        return ec.make_context(g, cfg, device)
+
+    def init_state(self, cfg, tasks, device="cuda"):
+        return ec.init_state(cfg, tasks, device)
+
+    def dummy_context(self, cfg, device="cuda"):
+        device = check_device(device)
+
+        def z(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=device)
+        return ec.CompactContext(adj=z(cfg.n_u, cfg.wv), order=z(cfg.n_u),
+                                 p_static=z(cfg.n_u), lk_static=z(cfg.n_u),
+                                 q_static=z(cfg.n_u), l_root=z(cfg.wv))
+
+    def step(self, ctx, cfg, s):
+        return ec.step(ctx, cfg, s)
+
+    def step_lanes(self, ctx, cfg, s, act, batched):
+        ec._step_lanes(ctx, cfg, s, act, batched)
+
+
 # ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
@@ -226,3 +275,4 @@ def list_engines() -> list[str]:
 
 
 DENSE = register_engine(DenseEngine())
+COMPACT = register_engine(CompactEngine())

@@ -32,9 +32,12 @@ What changed in the translation:
   entry point clones its input state first, so callers see functional
   semantics.
 
-The three hand-written CUDA kernels on this engine's paths are
+The hand-written CUDA kernels on this engine's paths are
 ``fused_check`` (the per-step check pass when residency is off),
-``resident_step`` (``run``) and ``resident_pool`` (``run_batch`` pools).
+``fused_select`` (its packed kind: ``deg_nocache`` selection when
+residency is off), ``intersect_count`` (the unfused path with
+``impl="pallas"``), ``resident_step`` (``run``) and ``resident_pool``
+(``run_batch`` pools).
 """
 from __future__ import annotations
 
@@ -196,9 +199,7 @@ def _leaf_to_torch(name: str, a, device) -> torch.Tensor:
     a = np.asarray(a)
     if name in WORD_LEAVES:
         return bitset.from_u32(a, device)
-    return torch.from_numpy(
-        np.ascontiguousarray(a.astype(np.int32, copy=False)).copy()
-    ).to(device)
+    return torch.from_numpy(np.array(a, dtype=np.int32, order="C")).to(device)
 
 
 def context_from_numpy(leaves, device="cuda") -> GraphContext:
@@ -436,14 +437,18 @@ def guarded_steps(g, cfg: EngineConfig, s, *, start, budget, n_steps: int,
     return _unlane(st) if single else st
 
 
-def _torch_loop(g, cfg, s, budget, unroll: int, batched: bool):
+def _torch_loop(g, cfg, s, budget, unroll: int, batched: bool,
+                step_lanes=None):
     """The torch-op run loop over a batched state: segments of ``unroll``
-    guarded steps, one host read of ``any(active)`` per segment."""
+    guarded steps, one host read of ``any(active)`` per segment.  Every
+    engine without a resident kernel runs on it with its own
+    ``step_lanes`` (this engine's ``_step_lanes`` by default)."""
+    step_lanes = step_lanes or _step_lanes
     st = _owned(s)
     start = st.steps.clone()
     while bool(_active(st, start, budget).any()):
         for _ in range(unroll):
-            _step_lanes(g, cfg, st, _active(st, start, budget), batched)
+            step_lanes(g, cfg, st, _active(st, start, budget), batched)
     return st
 
 

@@ -92,8 +92,21 @@ def _declare(lib: ctypes.CDLL) -> None:
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.rt_fused_check.restype = I
     lib.rt_fused_check.argtypes = [
-        P, LL, P, P, P, P,              # adj, adj stride, mask, nmask, q, p
+        P, LL, I, P, P, P,              # adj, adj stride, n_adj, mask,
+        #                                 nmask, idx
+        P, P, I, I,                     # q, p, kind, split
         P, P, P, P, P,                  # viol, full, part, nz, counts
+        I, I, I, I, I, P]               # batch, n, w, threads, group, stream
+    lib.rt_fused_select.restype = I
+    lib.rt_fused_select.argtypes = [
+        P, LL, I, P, P, P, I,           # adj, adj stride, n_adj, mask, idx,
+        #                                 act, kind
+        P, P,                           # out idx, out val
+        I, I, I, I, I, P]               # batch, n, w, threads, group, stream
+    lib.rt_intersect_count.restype = I
+    lib.rt_intersect_count.argtypes = [
+        P, LL, I, P, P, P,              # adj, adj stride, n_adj, mask, idx,
+        #                                 counts
         I, I, I, I, I, P]               # batch, n, w, threads, group, stream
     lane_args = [
         P, P, P, P, P, P, I,            # scal_in, adj, order, rank, rc, lroot,
@@ -137,3 +150,8 @@ def check(rc: int, what: str) -> None:
 def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def ptr(t) -> int | None:
+    """Device address of an optional tensor operand (None -> NULL)."""
+    return None if t is None else t.data_ptr()

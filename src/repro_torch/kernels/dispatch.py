@@ -14,7 +14,9 @@ the tensors instead of the JAX default backend:
 ``plan_blocks`` is the Hopper launch plan of the row-accumulate kernels:
 threads per block, the thread group that reduces one adjacency row
 (``group`` lanes, a power of two up to a warp), and the shared memory a
-block needs.
+block needs.  ``expect`` and ``lane_layout`` are the operand checks every
+wrapper makes before a launch; ``take_rows`` is the gather rule of the
+``idx`` (compact-array) kinds.
 """
 from __future__ import annotations
 
@@ -55,6 +57,45 @@ def check_device(device) -> torch.device:
             f"device {device!r} requested but no CUDA device is present; "
             f"pass device='cpu' to run the plain torch-op path")
     return dev
+
+
+def take_rows(adj: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``adj[idx]`` under JAX's gather rule (a negative index wraps once,
+    then the index is clamped into range) for a shared (N, W) or a
+    per-lane (..., N, W) adjacency with ``idx`` (..., M) -> (..., M, W).
+    The plain versions of the gathered kernels read rows through it, and
+    the kernels apply the same rule to each index."""
+    n = adj.shape[-2]
+    i = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1).to(torch.int64)
+    if adj.dim() == 2:
+        return adj[i]
+    return torch.gather(adj, -2, i[..., None].expand(*i.shape, adj.shape[-1]))
+
+
+def expect(t: torch.Tensor, what: str, name: str, dtype, shape,
+           device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` (every wrapper checks its operands before a launch)."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or t.device != device or not t.is_contiguous():
+        raise ValueError(
+            f"{what}: {name} must be a contiguous {dtype} tensor of shape "
+            f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} "
+            f"on {t.device}")
+
+
+def lane_layout(adj: torch.Tensor, lead: tuple, what: str) -> tuple[int, int]:
+    """(lanes, adjacency stride in words) of a lane-batched launch: the
+    adjacency is shared (N, W) (stride 0) or per lane (*lead, N, W)."""
+    batch = 1
+    for d in lead:
+        batch *= d
+    if adj.dim() == 2:
+        return batch, 0
+    if tuple(adj.shape[:-2]) == lead:
+        return batch, adj.shape[-2] * adj.shape[-1]
+    raise ValueError(f"{what}: adj {tuple(adj.shape)} does not match lane "
+                     f"dims {lead}")
 
 
 class LaunchPlan(NamedTuple):

@@ -2,9 +2,10 @@
 package's: the same ``random_graph_stream`` through both clients gives
 equal payloads (``n_max``, ``cs``, decoded bicliques, ``truncated``),
 statuses, per-request ``steps`` and ``nodes``, routing decisions and
-cache ``misses`` (tolerance: exact).  Also the ``stats()`` schema, the
-import firewall (no JAX, no ``repro``) and the options this slice does
-not serve yet."""
+cache ``misses`` (tolerance: exact), for the dense and the compact
+engine.  Also the ``stats()`` schema, the import firewall (no JAX, no
+``repro``) and the options the port does not serve yet."""
+import dataclasses
 import os
 import pathlib
 import re
@@ -44,6 +45,31 @@ def test_stream_through_both_clients(kw):
         assert ts[k] == js[k], k
 
 
+def test_compact_stream_through_both_clients():
+    """engine='compact' served end to end: equal payloads, statuses,
+    steps/nodes, routing, the full stats() key set and engine-qualified
+    cache keys (compact entries can never collide with dense ones)."""
+    kw = dict(engine="compact", collect=True, collect_cap=16, max_batch=2)
+    jc = repro.MBEClient(repro.MBEOptions(**kw))
+    tc = repro_torch.MBEClient(repro_torch.MBEOptions(device="cpu", **kw))
+    jres = jc.enumerate_many(STREAM)
+    tres = tc.enumerate_many(STREAM)
+    assert [_payload(r) for r in tres] == [_payload(r) for r in jres]
+    assert tc.routing_log == jc.routing_log
+    js, ts = jc.stats(), tc.stats()
+    assert set(ts) == set(STATS_SCHEMA)
+    for k in ("engine", "misses", "hits", "entries", "batches", "lanes",
+              "pad_lanes", "busy_steps", "total_lane_steps", "launches",
+              "admitted"):
+        assert ts[k] == js[k], k
+    assert ts["engine"] == "compact"
+    keys = list(tc.server.cache._entries)
+    assert keys and all(k[0][0] == "compact" for k in keys)
+    assert [(k[0][0], dataclasses.astuple(k[0][1])) + k[1:] for k in keys] \
+        == [(k[0][0], dataclasses.astuple(k[0][1])) + k[1:]
+            for k in jc.server.cache._entries]
+
+
 def test_stats_schema_and_types():
     c = repro_torch.MBEClient(repro_torch.MBEOptions(device="cpu"))
     c.enumerate_many(STREAM[:2])
@@ -69,6 +95,7 @@ def test_import_firewall():
     names ``jax`` or the ``repro`` package in an import."""
     code = ("import sys; sys.modules['jax'] = None; "
             "import repro_torch, repro_torch.core.engine_dense, "
+            "repro_torch.core.engine_compact, "
             "repro_torch.serving.scheduler; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules)")
@@ -83,7 +110,7 @@ def test_import_firewall():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(engine="compact"), "item 7"), (dict(mesh=2), "item 8"),
+    (dict(engine="mce"), "item 7"), (dict(mesh=2), "item 8"),
     (dict(big_graph_threshold=8), "item 8"), (dict(trace_path="t"), "item 9"),
     (dict(retry=object()), "item 10")])
 def test_unported_options_raise(kw, item):
@@ -103,8 +130,9 @@ def _default_device_calls():
     """Every public constructor that places tensors, called without a
     device: each must aim at the card."""
     import numpy as np
+    from repro_torch.core import engine_compact as tec
     from repro_torch.core import engine_dense as ted
-    from repro_torch.core.engine import DENSE
+    from repro_torch.core.engine import COMPACT, DENSE
     from repro_torch.serving.cache import ExecutableCache
     g = STREAM[0].canonical()
     cfg = ted.make_config(g)
@@ -113,6 +141,10 @@ def _default_device_calls():
         ted.make_context(g, cfg, "cpu")))
     st = ted.DenseState(**ted.state_to_numpy(
         ted.init_state(cfg, tasks, "cpu")))
+    cctx = tec.CompactContext(**tec.state_to_numpy(
+        tec.make_context(g, cfg, "cpu")))
+    cst = tec.CompactState(**tec.state_to_numpy(
+        tec.init_state(cfg, tasks, "cpu")))
     return {
         "make_context": lambda: ted.make_context(g, cfg),
         "init_state": lambda: ted.init_state(cfg, tasks),
@@ -125,6 +157,16 @@ def _default_device_calls():
         "ExecutableCache.get_round":
             lambda: ExecutableCache().get_round(cfg, 2, 8),
         "ExecutableCache.get": lambda: ExecutableCache().get(cfg, 2),
+        "compact.make_context": lambda: tec.make_context(g, cfg),
+        "compact.init_state": lambda: tec.init_state(cfg, tasks),
+        "compact.context_from_numpy": lambda: tec.context_from_numpy(cctx),
+        "compact.state_from_numpy": lambda: tec.state_from_numpy(cst),
+        "compact.enumerate_compact": lambda: tec.enumerate_compact(g),
+        "CompactEngine.dummy_context": lambda: COMPACT.dummy_context(cfg),
+        "CompactEngine.fresh_lane_state":
+            lambda: COMPACT.fresh_lane_state(cfg, 2),
+        "ExecutableCache.get_round compact":
+            lambda: ExecutableCache().get_round(cfg, 2, 8, engine=COMPACT),
     }
 
 

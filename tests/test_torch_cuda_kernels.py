@@ -17,8 +17,11 @@ from repro_torch.core import bitset
 from repro_torch.core import engine_dense as ed
 from repro_torch.core.engine import DENSE
 from repro_torch.data.generators import dataset_suite, random_graph_stream
+from repro_torch.kernels import fused_check as fc
+from repro_torch.kernels import fused_select as fs
 from repro_torch.kernels.fused_check import (fused_check_packed,
                                              fused_check_packed_ref)
+from repro_torch.kernels.intersect_count import intersect_count
 from repro_torch.kernels.resident_pool import (resident_pool_segment,
                                                resident_pool_segment_ref)
 from repro_torch.kernels.resident_step import (resident_segment,
@@ -149,14 +152,126 @@ def test_per_step_fused_check_pool_equals_cpu(card, mode):
     _equal(ed.DenseState(*[x.cpu() for x in on_card]), cpu, "per-step")
 
 
-def test_unported_kernel_paths_raise_on_the_card(card):
+@pytest.mark.parametrize("kw", [
+    dict(order_mode="deg_nocache", kernel_impl="pallas", resident=False),
+    dict(kernel_impl="jnp", impl="pallas")])
+def test_k4_k5_dense_paths_equal_cpu(card, kw):
+    """The dense paths that need K4 (packed selection, residency off) and
+    K5 (unfused, impl='pallas') run on the card and equal the same path on
+    the CPU (the kernel path's plain versions)."""
     g = dataset_suite("test")["corp-leadership"]
-    with pytest.raises(NotImplementedError, match="K4"):
-        ed.enumerate_dense(g, order_mode="deg_nocache", resident=False,
-                           device="cuda")
-    with pytest.raises(NotImplementedError, match="K5"):
-        ed.enumerate_dense(g, kernel_impl="jnp", impl="pallas",
-                           device="cuda")
+    on_card = ed.enumerate_dense(g, device="cuda", **kw)
+    cpu = ed.enumerate_dense(g, device="cpu", **kw)
+    _equal(ed.DenseState(*[x.cpu() for x in on_card]), cpu, str(kw))
+
+
+def _rows(n, w, seed, dev):
+    rng = np.random.default_rng(seed)
+    adj = rng.integers(0, 1 << 32, size=(n, w), dtype=np.uint64) \
+        & rng.integers(0, 1 << 32, size=(n, w), dtype=np.uint64)
+    mask = rng.integers(0, 1 << 32, size=(w,), dtype=np.uint64)
+    adj[::3] |= mask
+    adj[1::7] = 0
+    return (bitset.from_u32(adj.astype(np.uint32), dev),
+            bitset.from_u32(mask.astype(np.uint32), dev),
+            torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev),
+            torch.from_numpy((rng.random(n) < 0.4).astype(np.int32)).to(dev))
+
+
+SHAPES = [(100, 5), (128, 8), (512, 64), (1024, 128)]
+
+
+@pytest.mark.parametrize("n,w", SHAPES)
+def test_intersect_count_matches_plain(card, n, w):
+    adj, mask, idx, _ = _rows(n, w, n + w, card)
+    for i in (None, idx, torch.stack([idx, idx.flip(0)])):
+        m = mask if i is None or i.dim() == 1 else torch.stack([mask, ~mask])
+        got = intersect_count(adj, m, idx=i, impl="pallas")
+        want = intersect_count(adj.cpu(), m.cpu(),
+                               idx=None if i is None else i.cpu())
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("n,w", SHAPES)
+@pytest.mark.parametrize("tied", [False, True])
+def test_fused_select_matches_plain(card, n, w, tied):
+    adj, mask, idx, act = _rows(n, w, 2 * n + w, card)
+    if tied:
+        adj = adj[:1].expand(n, w).contiguous()
+    words = bitset.from_bool(act > 0)
+    adj8 = torch.stack([adj, adj.flip(0)] * 4)
+    for lanes, a in ((1, adj), (8, adj), (8, adj8)):
+        def rep(t):
+            return t if lanes == 1 else torch.stack([t] * lanes)
+        p = torch.tensor(n // 3, dtype=torch.int32, device=card)
+        calls = {
+            fs.fused_select: (a, rep(mask), rep(act)),
+            fs.fused_select_packed: (a, rep(mask), rep(words)),
+            fs.fused_select_prefix: (a, rep(mask), rep(p)),
+            fs.fused_select_gathered: (a, rep(idx), rep(mask), rep(act)),
+            fs.fused_select_gathered_prefix: (a, rep(idx), rep(mask),
+                                              rep(p)),
+        }
+        for fn, args in calls.items():
+            got = fn(*args, impl="pallas")
+            want = fn(*[x.cpu() for x in args])
+            assert all(torch.equal(x.cpu(), y) for x, y in zip(got, want)), \
+                fn.__name__
+    # nothing active: the (-1, INT32_MAX) sentinel
+    zero = torch.zeros((), dtype=torch.int32, device=card)
+    for got in (fs.fused_select_prefix(adj, mask, zero, impl="pallas"),
+                fs.fused_select(adj, mask, torch.zeros_like(act),
+                                impl="pallas")):
+        assert (int(got[0]), int(got[1])) == (-1, 0x7FFFFFFF)
+
+
+@pytest.mark.parametrize("n,w", SHAPES)
+@pytest.mark.parametrize("with_counts", [False, True])
+def test_fused_check_other_kinds_match_plain(card, n, w, with_counts):
+    adj, mask, idx, act = _rows(n, w, 3 * n + w, card)
+    nlp = bitset.count(mask)
+    qa, pa = act, 1 - act
+    idx2 = torch.cat([idx.flip(0), idx])
+    q_hi = torch.tensor(n // 2, dtype=torch.int32, device=card)
+    p_hi = torch.tensor(n - 3, dtype=torch.int32, device=card)
+    calls = {
+        fc.fused_check: ((adj, mask, nlp, qa, pa), {}),
+        fc.fused_check_prefix2: ((adj, mask, nlp, q_hi, p_hi),
+                                 dict(split=n // 2)),
+        fc.fused_check_gathered: ((adj, idx, mask, nlp, qa, pa), {}),
+        fc.fused_check_gathered_prefix2: (
+            (adj, idx2, mask, nlp, q_hi, p_hi), {}),
+    }
+    for fn, (args, kw) in calls.items():
+        got = fn(*args, impl="pallas", with_counts=with_counts, **kw)
+        want = fn(*[x.cpu() for x in args], with_counts=with_counts, **kw)
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or torch.equal(a.cpu(), b), \
+                fn.__name__
+    # 8 lanes, per-lane adjacency, through the compact engine's layout
+    adj8 = torch.stack([adj, adj.flip(0)] * 4)
+    m8 = torch.stack([mask, adj[3], mask & ~adj[5], adj[0]] * 2)
+    args = (adj8, torch.stack([idx2] * 8), m8, bitset.count(m8),
+            torch.arange(8, dtype=torch.int32, device=card) * (n // 8),
+            torch.arange(8, 0, -1, dtype=torch.int32, device=card) * (n // 8))
+    got = fc.fused_check_gathered_prefix2(*args, impl="pallas",
+                                          with_counts=with_counts)
+    want = fc.fused_check_gathered_prefix2(*[x.cpu() for x in args],
+                                           with_counts=with_counts)
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(kernel_impl="jnp",
+                                              impl="pallas")])
+def test_compact_engine_on_the_card_equals_cpu(card, kw):
+    graphs = random_graph_stream(8, seed=1)
+    opts = MBEOptions(engine="compact", steps_per_call=4, **kw)
+    on_card = MBEClient(opts).enumerate_many(graphs)
+    cpu = MBEClient(dataclasses.replace(opts, device="cpu")) \
+        .enumerate_many(graphs)
+    assert [(r.n_max, r.cs, r.steps, r.nodes) for r in on_card] == \
+        [(r.n_max, r.cs, r.steps, r.nodes) for r in cpu]
 
 
 def test_client_on_the_card_equals_cpu(card):

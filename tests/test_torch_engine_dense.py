@@ -35,7 +35,8 @@ def _assert_leaves(j, t, msg):
     a, b = _jax_np(j), ted.state_to_numpy(t)
     for f in a:
         assert a[f].dtype == b[f].dtype, f"{msg}:{f} dtype"
-        np.testing.assert_array_equal(a[f], b[f], err_msg=f"{msg}:{f}")
+        np.testing.assert_array_equal(a[f], b[f], err_msg=f"{msg}:{f}",
+                                      strict=True)
 
 
 def _lockstep(name, seg_steps=40, unroll=1, **cfg_kw):
