@@ -17,5 +17,7 @@ on first use (``_build``).
                     launch (``csrc/resident_step.cu``; K2)
   resident_pool   — the same lane body over a grid of lanes, plus the
                     scoreboard (``csrc/resident_pool.cu``; K3)
+  flash_attention — the flash-attention forward, o and lse, bf16 on the
+                    tensor cores or fp32 (``csrc/flash_fwd.cu``; K7 fwd)
 """
 from repro_torch.kernels.dispatch import resolve_impl  # noqa: F401

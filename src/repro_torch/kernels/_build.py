@@ -122,6 +122,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rt_resident_pool.restype = I
     lib.rt_resident_pool.argtypes = [P] + lane_args[:-1] + [I, P]
     #                                 board first, then lanes before stream
+    lib.rt_flash_fwd.restype = I
+    lib.rt_flash_fwd.argtypes = [
+        P, P, P, P, P, I,               # q, k, v, o, lse, dtype
+        I, I, I, I, I, I, I,            # heads, G, Sqp, Skp, sq, sk, hd
+        ctypes.c_float, I, P]           # scale, causal, stream
     lib.rt_error_string.restype = ctypes.c_char_p
     lib.rt_error_string.argtypes = [I]
 
