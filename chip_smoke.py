@@ -25,8 +25,11 @@ makes the script exit non-zero):
               and (100, 5), shared and per-lane adjacency, 1 and 8 lanes,
               random rows, all rows tied, nothing active (p = 0) and
               |L'| = 0; flash_fwd (K7) against its plain version at the
-              qwen3-1.7b prefill shapes, bf16 and fp32, causal, ragged and
-              non-causal (tolerances at K7_TOL);
+              qwen3-1.7b prefill layer shapes (1, 4096), (4, 4096) and
+              (1, 32768) (its first and last 512 query rows), bf16 and
+              fp32, causal, ragged and non-causal, element-wise and per
+              query row (tolerances at K7_TOL, K7_ROW_RTOL), and two
+              planted faults the check must flag;
 4. main     — the port's main paths against the oracle, each drive with
               the launch counters set to 0 just before it and read just
               after: ``MBEClient`` at default options (a 32-graph stream
@@ -37,13 +40,17 @@ makes the script exit non-zero):
               512 x 2048); the compact engine (the stream; unicode-like
               and dblp-like at steps_per_call=16; the stream unfused with
               impl='pallas'); the dense deg_nocache path with residency
-              off (fused_select packed) and the dense unfused path with
+              off (fused_select packed; unicode-like, and the 2-lane
+              512 x 2048 pool) and the dense unfused path with
               impl='pallas' (intersect_count); every n_max and cs against
               the oracle, every kernel's launch count > 0 on its path;
               then the LM paths of qwen3-1.7b at full width (random
               weights from seed 0): ``make_prefill_step`` with
               attn_impl='pallas' at (1, 32768) and (4, 4096), exactly one
-              K7 launch per layer, logits against attn_impl='xla';
+              K7 launch per layer, logits against attn_impl='xla' at
+              the last position and at every position, every K7 call of
+              the checked forward against its plain version, and a
+              planted K7 fault that both checks must flag;
               decode == prefill in fp32; the LM ``serve`` loop;
 5. times    — per-kernel CUDA-event and profiler times at each kernel's
               own path's shapes beside the plain version and the bound
@@ -57,6 +64,7 @@ before the last is the ``{"kernels": [...]}`` record; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -437,65 +445,135 @@ def check_slice2_kernels(dev):
     return errs
 
 
-# K7 fwd at the prefill shapes of qwen3-1.7b (KV 8, G 2, hd 128) and two
-# ragged / non-causal ones: (B, S, H, KV, hd, dtype, causal)
+# K7 fwd at the prefill shapes of qwen3-1.7b (KV 8, G 2, hd 128) and
+# ragged / non-causal ones: (B, S, H, KV, hd, dtype, causal, rows).  The
+# (1, 32768) layer is held on its first and last K7_SPAN query rows
+# against all keys (the plain version's S x S scores would take 69 GB);
+# every other case on all rows.
+K7_SPAN = 512
 K7_CASES = (
-    (1, 4096, 16, 8, 128, "bfloat16", True),
-    (2, 1000, 16, 8, 128, "bfloat16", True),      # ragged: S % 64 != 0
-    (2, 256, 8, 2, 128, "bfloat16", False),
-    (1, 512, 16, 8, 128, "float32", True),
+    (1, 4096, 16, 8, 128, "bfloat16", True, None),
+    (4, 4096, 16, 8, 128, "bfloat16", True, None),
+    (1, 32768, 16, 8, 128, "bfloat16", True, "ends"),
+    (2, 1000, 16, 8, 128, "bfloat16", True, None),  # ragged: S % 64 != 0
+    (2, 256, 8, 2, 128, "bfloat16", False, None),
+    (1, 512, 16, 8, 128, "float32", True, None),
 )
-# tolerances: bf16 o 3e-2 abs/rel (tests/test_flash_kernel.py: bf16 keeps
-# ~3 decimal digits, and the kernel rounds p at its running maximum where
-# the plain version rounds it at the final one); fp32 o 1e-4 (the same
-# fp32 arithmetic summed in another order, TF32 off); lse 1e-4 relative
+# Tolerances.  Element-wise, bf16 o 3e-2 abs/rel (tests/test_flash_kernel.py:
+# bf16 keeps ~3 decimal digits, and the kernel rounds p at its running
+# maximum where the plain version rounds it at the final one); fp32 o 1e-4
+# (the same fp32 arithmetic summed in another order, TF32 off); lse 1e-4
+# relative.  With scores ~N(0, 1), row i of o is a mean over ~i keys, of
+# rms ~sqrt(e / (i + 1)) (0.026 at row 4095), so past the first few
+# hundred rows the element-wise bf16 limit is as large as the values and
+# a fault on the P V side passes it.  Per query row, ||o - ref|| / ||ref||
+# is scale-free: bf16 1e-2 against the sound kernel's 4.4e-3 at most
+# over K7_CASES (bf16 rounding of o and p), fp32 1e-5 against its 6.6e-7
+# (PERF.md, PR 13); a planted fault reads 1.2-1.5.
 K7_TOL = {"bfloat16": 3e-2, "float32": 1e-4}
+K7_ROW_RTOL = {"bfloat16": 1e-2, "float32": 1e-5}
 K7_LSE_RTOL = 1e-4
 
 
 def k7_operands(B, S, H, KV, hd, dtype, dev, seed):
-    """Packed, padded K7 operands as the model's prefill builds them:
-    ``_fwd`` pads both sequences to a multiple of min(1024, max(S, 8))
-    (``attn_chunk_q/k`` = 1024 at full width)."""
+    """Packed K7 operands as the model's prefill builds them (contiguous,
+    unpadded)."""
     import torch
-    from repro_torch.kernels.flash_attention.ops import _pack, _pad_seq
+    from repro_torch.kernels.flash_attention.ops import _pack
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = (torch.randn(B, S, n, hd, generator=g, device=dev)
                .to(getattr(torch, dtype)) for n in (H, KV, KV))
-    qp, kp, vp = _pack(q, k, v)
-    blk = min(1024, max(S, 8))
-    return _pad_seq(qp, 3, blk), _pad_seq(kp, 2, blk), _pad_seq(vp, 2, blk)
+    return tuple(x.contiguous() for x in _pack(q, k, v))
+
+
+def k7_spans(S, rows):
+    return ([(0, S)] if rows is None else
+            [(0, min(K7_SPAN, S)), (max(S - K7_SPAN, 0), S)])
+
+
+def k7_errors(qp, kp, vp, o, lse, *, causal, scale, sq, sk, spans):
+    """K7's (o, lse) against ``flash_fwd_ref`` on the query-row spans:
+    {abs: max |o err|, bad: elements past K7_TOL, row: max per-row
+    ||o err|| / ||ref||, lse: max relative lse err, finite}."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_fwd_ref
+    tol = K7_TOL[str(qp.dtype).split(".")[1]]
+    e = dict(abs=0.0, bad=0, row=0.0, lse=0.0, finite=True)
+    for a, b in spans:
+        b = min(b, sq)
+        ro, rl = flash_fwd_ref(qp[..., a:b, :], kp, vp, causal=causal,
+                               scale=scale, sq=sq, sk=sk, q0=a)
+        x, ro = o[..., a:b, :].float(), ro.float()
+        d = (x - ro).abs()
+        e["abs"] = max(e["abs"], float(d.max()))
+        e["bad"] += int((d > tol + tol * ro.abs()).sum())
+        e["row"] = max(e["row"], float(((x - ro).norm(dim=-1) / ro.norm(
+            dim=-1).clamp(min=1e-30)).max()))
+        e["lse"] = max(e["lse"], float(((lse[..., a:b] - rl).abs()
+                                        / rl.abs().clamp(min=1.0)).max()))
+        e["finite"] &= bool(torch.isfinite(x).all()
+                            and torch.isfinite(lse[..., a:b]).all())
+        del ro, rl, x, d
+    return e
+
+
+def k7_ok(e, dtype) -> bool:
+    return (e["finite"] and e["bad"] == 0 and e["row"] <= K7_ROW_RTOL[dtype]
+            and e["lse"] <= K7_LSE_RTOL)
+
+
+def late_v_tiles_misplaced(v, axis=-2, first=K7_SPAN, tile=64):
+    """Planted fault (control): every key from ``first`` on (along
+    ``axis``) reads the V row one 64-key tile earlier (wrapping inside
+    [first, Sk)), as a P V loop that misplaces its later V tiles would."""
+    bad = v.clone()
+    n = v.shape[axis] - first
+    bad.narrow(axis, first, n).copy_(v.narrow(axis, first, n).roll(
+        tile, dims=axis))
+    return bad
 
 
 def check_k7(dev):
-    """K7 fwd against ``flash_fwd_ref`` on the card at K7_CASES; returns
-    the largest max |err| of o over the cases."""
+    """K7 fwd against ``flash_fwd_ref`` on the card at K7_CASES, then two
+    planted faults that the check must flag; returns the largest max
+    |err| of o over the cases."""
     import torch
-    from repro_torch.kernels.flash_attention import flash_fwd, flash_fwd_ref
+    from repro_torch.kernels.flash_attention import flash_fwd
     worst = 0.0
-    for i, (B, S, H, KV, hd, dt, causal) in enumerate(K7_CASES):
+    for i, (B, S, H, KV, hd, dt, causal, rows) in enumerate(K7_CASES):
         qp, kp, vp = k7_operands(B, S, H, KV, hd, dt, dev, seed=100 + i)
-        sc = hd ** -0.5
-        o, lse = flash_fwd(qp, kp, vp, causal=causal, scale=sc, sq=S, sk=S)
+        kw = dict(causal=causal, scale=hd ** -0.5, sq=S, sk=S)
+        o, lse = flash_fwd(qp, kp, vp, **kw)
         torch.cuda.synchronize()
-        ro, rl = flash_fwd_ref(qp, kp, vp, causal=causal, scale=sc, sq=S,
-                               sk=S)
-        o, ro = o[..., :S, :].float(), ro[..., :S, :].float()
-        lse, rl = lse[..., :S], rl[..., :S]
-        tol = K7_TOL[dt]
-        err_o = float((o - ro).abs().max())
-        bad_o = int(((o - ro).abs() > tol + tol * ro.abs()).sum())
-        err_lse = float(((lse - rl).abs() / rl.abs().clamp(min=1.0)).max())
-        require(bool(torch.isfinite(o).all() and torch.isfinite(lse).all()),
-                f"K7 {K7_CASES[i]}: non-finite output")
-        require(bad_o == 0 and err_lse <= K7_LSE_RTOL,
-                f"K7 {K7_CASES[i]}: o max |err| {err_o} ({bad_o} elements "
-                f"past {tol} abs/rel), lse rel err {err_lse}")
-        worst = max(worst, err_o)
+        e = k7_errors(qp, kp, vp, o, lse, spans=k7_spans(S, rows), **kw)
         log(f"  flash_fwd (B,S,H,KV,hd)={(B, S, H, KV, hd)} {dt} causal="
-            f"{causal}: o max |err| {err_o:.3g} (tol {tol}), lse rel err "
-            f"{err_lse:.3g} (tol {K7_LSE_RTOL})")
-        del o, ro, lse, rl, qp, kp, vp
+            f"{causal} rows={rows or 'all'}: o max |err| {e['abs']:.3g} "
+            f"({e['bad']} past {K7_TOL[dt]} abs/rel), row rel err "
+            f"{e['row']:.3g} (tol {K7_ROW_RTOL[dt]}), lse rel err "
+            f"{e['lse']:.3g} (tol {K7_LSE_RTOL})")
+        require(k7_ok(e, dt), f"K7 {K7_CASES[i]}: {e}")
+        worst = max(worst, e["abs"])
+        if i == 0:
+            # controls: the kernel with a planted fault, held against the
+            # plain version of the right function, must come out wrong
+            for what, args, ckw in (
+                    ("late V tiles misplaced",
+                     (qp, kp, late_v_tiles_misplaced(vp)), kw),
+                    ("non-causal mask", (qp, kp, vp),
+                     dict(kw, causal=False))):
+                co, cl = flash_fwd(*args, **ckw)
+                ce = k7_errors(qp, kp, vp, co, cl, spans=k7_spans(S, rows),
+                               **kw)
+                log(f"  control ({what}) at {K7_CASES[i][:5]}: o max |err| "
+                    f"{ce['abs']:.3g} ({ce['bad']} past {K7_TOL[dt]}), row "
+                    f"rel err {ce['row']:.3g}, lse rel err {ce['lse']:.3g}: "
+                    f"flagged {not k7_ok(ce, dt)} (element-wise alone: "
+                    f"{ce['bad'] > 0})")
+                require(not k7_ok(ce, dt), f"K7 check passes a planted "
+                                           f"fault ({what}): {ce}")
+                del co, cl
+        del o, lse, qp, kp, vp
+    torch.cuda.empty_cache()
     return worst
 
 
@@ -690,11 +768,10 @@ def main_path(dev):
             f"compact unfused impl=pallas: launches {nonzero(c)}")
     # the dense paths K4 packed and K5 unblock
     label = "dense deg_nocache resident=False"
-    # depth cut, for the LM phases' time: the 512 x 2048 pool (dblp-like +
-    # corp-leadership, 13,837 steps, 56-85 s) left this path; phase 5
-    # still times K4 packed on that pool's operands
     drive_per_step(label, [bench["unicode-like"]], "fused_select_packed",
                    order_mode="deg_nocache")
+    drive_per_step(label, [bench["dblp-like"], bench["corp-leadership"]],
+                   "fused_select_packed", order_mode="deg_nocache")
     drive_per_step("dense unfused impl=pallas", [bench["unicode-like"]],
                    "intersect_count", kernel_impl="jnp", impl="pallas")
     for row in per_graph:
@@ -713,15 +790,140 @@ LM_PREFILL = ((1, 32_768), (4, 4_096))
 # the served loop at the reference serve()'s defaults
 LM_SERVE = ["--arch", LM_ARCH, "--slots", "4", "--requests", "8",
             "--prompt-len", "16", "--max-new", "24", "--max-seq", "128"]
-# bf16 logits of the K7 path against the blockwise torch-op path.  At
-# random init the last-position logits are ~N(0, 1) (RMS-normed hidden
-# state times a 1/sqrt(d) lm head); the two paths agree to bf16 rounding
-# in every layer's attention output (~2^-8 relative) and 28 layers carry
-# that into the hidden state, so a quarter of the logits' unit scale
-# separates that noise from a wiring fault, which moves logits by O(1)
+# bf16 logits of the K7 path against the blockwise torch-op path
+# (attn_impl='xla'), both from ``M.forward`` at every position.  The two
+# paths round p and o differently in every layer's attention (~2^-8
+# relative) and 28 layers carry that into the logits (~N(0, 1) at random
+# init: RMS-normed hidden state times a 1/sqrt(d) lm head).  Two limits:
+# the last position's max |dlogit| (what prefill returns) and, at every
+# position, ||dlogit|| / ||logit||.  At the last position of a long
+# prompt the attention output is a mean over thousands of keys and
+# barely moves the residual stream, so the per-position limit, which
+# sees the early positions too, is the one a K7 fault has to pass; a
+# planted fault (K7 reading misplaced late V tiles in every layer) must
+# fail it.  Readings on the card (PERF.md, PR 13), sound against
+# planted fault: last position 0.09-0.11 against 3.8-4.0, every position
+# 0.025-0.026 against 0.86-0.92.
 LM_LOGIT_TOL = 0.25
+LM_LOGIT_RTOL = 0.1
 # decode == prefill in fp32: tests/test_archs.py:67
 LM_DECODE_TOL = 2e-3
+
+
+@contextlib.contextmanager
+def k7_held(fault=None):
+    """Hold every K7 call that the model makes inside the block against
+    ``flash_fwd_ref`` on its first and last K7_SPAN query rows; yields
+    the list of ``k7_errors``, one per call.  ``fault`` (a control)
+    rewrites the V operand the kernel gets, not the one it is held to."""
+    from repro_torch.kernels.flash_attention import ops
+    real, seen = ops._fwd, []
+
+    def held(q, k, v, causal, scale):
+        o, lse = real(q, k, v if fault is None else fault(v, axis=1),
+                      causal, scale)
+        qp, kp, vp = (x.contiguous() for x in ops._pack(q, k, v))
+        S = q.shape[1]
+        seen.append(k7_errors(
+            qp, kp, vp, ops._pack(o, k, v)[0], lse, causal=causal,
+            scale=q.shape[-1] ** -0.5 if scale is None else scale, sq=S,
+            sk=k.shape[1], spans=k7_spans(S, "ends")))
+        return o, lse
+    ops._fwd = held
+    try:
+        yield seen
+    finally:
+        ops._fwd = real
+
+
+def worst_k7(seen) -> dict:
+    return dict(calls=len(seen), abs=max(e["abs"] for e in seen),
+                bad=sum(e["bad"] for e in seen),
+                row=max(e["row"] for e in seen),
+                lse=max(e["lse"] for e in seen),
+                finite=all(e["finite"] for e in seen))
+
+
+def logit_errors(lp, lx, chunk=1024) -> dict:
+    """Logits (B, S, V) of the K7 path against the torch-op path: the max
+    over positions of ||lp - lx|| / ||lx|| (and where), its median, and
+    the last position's max |dlogit|."""
+    import torch
+    B, S, _ = lx.shape
+    rel = torch.empty(B, S, device=lx.device)
+    for a in range(0, S, chunk):
+        x, y = lp[:, a:a + chunk].float(), lx[:, a:a + chunk].float()
+        rel[:, a:a + chunk] = (x - y).norm(dim=-1) / y.norm(dim=-1)
+        del x, y
+    return dict(rel=float(rel.max()), rel_at=divmod(int(rel.argmax()), S),
+                rel_median=float(rel.median()),
+                last_abs=float((lp[:, -1].float() - lx[:, -1].float())
+                               .abs().max()))
+
+
+def lm_held(pal, xla, params, toks, nxt, label) -> dict:
+    """The prefill's checks: the K7 path's last-position logits against
+    the torch-op path's (max |dlogit|, argmax) and its token; both paths'
+    logits at every position; every K7 call held against its plain
+    version; then the control, K7 with misplaced late V tiles in every
+    layer, which both the kernel check and the logits check must flag."""
+    import torch
+    from repro_torch.models import model as M
+    L = pal.n_layers
+    with torch.no_grad():
+        lp = M.forward(pal, params, toks, last_only=True)[0][:, -1].float()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lx_all = M.forward(xla, params, toks)[0]
+        torch.cuda.synchronize()
+        wall_x = time.perf_counter() - t
+        with k7_held() as seen:
+            lp_all = M.forward(pal, params, toks)[0]
+        sound = logit_errors(lp_all, lx_all)
+        del lp_all
+        with k7_held(late_v_tiles_misplaced) as seen_c:
+            lc_all = M.forward(pal, params, toks)[0]
+        control = logit_errors(lc_all, lx_all)
+        lx = lx_all[:, -1].float()
+        del lc_all, lx_all
+    k7, k7c = worst_k7(seen), worst_k7(seen_c)
+    top2 = lx.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    same = (lp.argmax(-1) == lx.argmax(-1)) | (gap < LM_LOGIT_TOL)
+    d = float((lp - lx).abs().max())
+    out = dict(xla_wall_s=wall_x, max_dlogit=d, logit_std=float(lx.std()),
+               argmax_equal=int((lp.argmax(-1) == lx.argmax(-1)).sum()),
+               logits_all=sound, k7_held=k7, control_logits=control,
+               control_k7=k7c)
+    log(f"  {label}: K7 logits vs torch-op path ({wall_x:.3f} s): last "
+        f"position max |dlogit| {d:.4g} (tol {LM_LOGIT_TOL}, logit std "
+        f"{out['logit_std']:.3f}), argmax equal {out['argmax_equal']}/"
+        f"{len(lx)}; every position: " + json.dumps(sound)
+        + f" (tol {LM_LOGIT_RTOL}); K7 calls held: " + json.dumps(k7))
+    k7_flagged = not all(k7_ok(e, "bfloat16") for e in seen_c)
+    lm_flagged = (control["rel"] > LM_LOGIT_RTOL
+                  or control["last_abs"] > LM_LOGIT_TOL)
+    log(f"  {label} control (K7 reads misplaced late V tiles): logits "
+        + json.dumps(control) + ", K7 calls " + json.dumps(k7c)
+        + f"; flagged by the kernel check {k7_flagged}, by the logits "
+        f"check {lm_flagged} (last position alone "
+        f"{control['last_abs'] > LM_LOGIT_TOL})")
+    require(bool(torch.isfinite(lp).all() and torch.isfinite(lx).all()),
+            f"{label}: non-finite logits")
+    require(torch.equal(nxt.long(), lp.argmax(-1)),
+            f"{label}: prefill_step tokens != argmax of its logits")
+    require(d <= LM_LOGIT_TOL and bool(same.all()),
+            f"{label}: max |dlogit| {d} (tol {LM_LOGIT_TOL}), argmax "
+            f"pallas {lp.argmax(-1).tolist()} xla {lx.argmax(-1).tolist()}"
+            f" top-2 gaps {gap.tolist()}")
+    require(sound["rel"] <= LM_LOGIT_RTOL, f"{label}: logits differ at "
+                                           f"some position: {sound}")
+    require(k7["calls"] == L and all(k7_ok(e, "bfloat16") for e in seen),
+            f"{label}: K7 calls against the plain version: {k7}")
+    require(k7_flagged and lm_flagged,
+            f"{label}: the planted K7 fault passed (kernel check flagged "
+            f"{k7_flagged}, logits check {lm_flagged})")
+    return out
 
 
 def lm_path(dev, by_path):
@@ -762,34 +964,11 @@ def lm_path(dev, by_path):
         by_path[label] = c = counters()
         require(c["flash_fwd"] == L and sum(c.values()) == L,
                 f"{label}: launches {nonzero(c)}, expected {L} flash_fwd")
-        with torch.no_grad():
-            lp = M.forward(pal, params, toks, last_only=True)[0][:, -1]
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            lx = M.forward(xla, params, toks, last_only=True)[0][:, -1]
-            torch.cuda.synchronize()
-            wall_x = time.perf_counter() - t
-        lp, lx = lp.float(), lx.float()
-        require(bool(torch.isfinite(lp).all() and torch.isfinite(lx).all()),
-                f"{label}: non-finite logits")
-        require(torch.equal(nxt.long(), lp.argmax(-1)),
-                f"{label}: prefill_step tokens != argmax of its logits")
-        d = float((lp - lx).abs().max())
-        top2 = lx.topk(2, dim=-1).values
-        gap = top2[:, 0] - top2[:, 1]
-        same = (lp.argmax(-1) == lx.argmax(-1)) | (gap < LM_LOGIT_TOL)
-        require(d <= LM_LOGIT_TOL and bool(same.all()),
-                f"{label}: max |dlogit| {d} (tol {LM_LOGIT_TOL}), argmax "
-                f"pallas {lp.argmax(-1).tolist()} xla {lx.argmax(-1).tolist()}"
-                f" top-2 gaps {gap.tolist()}")
-        row = info["prefill"][f"{B}x{S}"] = dict(
-            wall_s=wall, tok_per_s=B * S / wall, xla_wall_s=wall_x,
-            max_dlogit=d, logit_std=float(lx.std()),
-            argmax_equal=int((lp.argmax(-1) == lx.argmax(-1)).sum()))
         log(f"  {label}: {wall:.3f} s ({B * S / wall:,.0f} tok/s), launches "
-            f"{nonzero(c)}; K7 logits vs torch-op path ({wall_x:.3f} s): max "
-            f"|dlogit| {d:.4g} (tol {LM_LOGIT_TOL}, logit std "
-            f"{row['logit_std']:.3f}), argmax equal {row['argmax_equal']}/{B}")
+            f"{nonzero(c)}")
+        info["prefill"][f"{B}x{S}"] = dict(
+            wall_s=wall, tok_per_s=B * S / wall,
+            **lm_held(pal, xla, params, toks, nxt, label))
         if (B, S) == LM_PREFILL[0]:
             # the device's busy share over one prefill call
             pw, busy, by_kernel = profile_window(lambda: prefill(params,
@@ -804,7 +983,7 @@ def lm_path(dev, by_path):
                 * 1e3 if k7 else None,
                 top=[(k[:60], v[0], v[1]) for k, v in top])
             log(f"  profile {label}: " + json.dumps(info["profile"]))
-        del toks, batch, lp, lx, nxt
+        del toks, batch, nxt
     del params
     # decode == prefill in fp32 at full width (the forward through K7)
     f32 = dataclasses.replace(pal, dtype="float32")
@@ -1105,11 +1284,14 @@ def k7_times(dev, by_path, errs, lm):
         small = S == K7_TIME_SHAPES[0][1]
         r = rows[S]
         r["library_ms"] = cuda_ms(lib, 20 if small else 5)
-        r["sdpa_max_abs_diff"] = float((lib().float() - k7()[0].flatten(
-            1, 2).float()).abs().max())
-        # the same function: each is within K7_TOL of the exact result
-        require(r["sdpa_max_abs_diff"] <= K7_TOL["bfloat16"] * 2,
-                f"SDPA and K7 disagree at S={S}: {r['sdpa_max_abs_diff']}")
+        x, y = lib().float(), k7()[0].flatten(1, 2).float()
+        r["sdpa_max_abs_diff"] = float((x - y).abs().max())
+        r["sdpa_row_rel_diff"] = float(((x - y).norm(dim=-1)
+                                        / x.norm(dim=-1)).max())
+        del x, y
+        # the same function: each is within K7_ROW_RTOL of the exact result
+        require(r["sdpa_row_rel_diff"] <= K7_ROW_RTOL["bfloat16"] * 2,
+                f"SDPA and K7 disagree at S={S}: {r['sdpa_row_rel_diff']}")
         r["plain_ms"] = cuda_ms(plain, reps=3) if small else None
         log(f"  flash_fwd at {(B, S, H, KV, hd)} bf16 causal: " + json.dumps(r))
     del calls

@@ -3,8 +3,9 @@
 Twin of ``src/repro/configs/__init__.py``.  Each module defines CONFIG
 (the exact published config) and SMOKE (a reduced same-family config for
 CPU tests); the modules are copies of the reference's, pure data.
-``input_specs`` (the dry-run's abstract inputs) waits for the dry run
-(ROADMAP Queue 1 item 12), and ``cumbe`` for the distributed runner whose
+``input_specs`` (the dry-run's abstract inputs) and the cache sizing
+``round_up`` / ``cache_len`` wait for the dry run (ROADMAP Queue 1
+item 12), and ``cumbe`` for the distributed runner whose
 ``DistConfig`` it holds (Queue 1 item 8).
 """
 from __future__ import annotations
@@ -47,12 +48,3 @@ def get_config(arch: str) -> ModelConfig:
 def get_smoke(arch: str) -> ModelConfig:
     return _mod(arch).SMOKE
 
-
-def round_up(x: int, mult: int) -> int:
-    return (x + mult - 1) // mult * mult
-
-
-def cache_len(cfg: ModelConfig, shape: ShapeSpec) -> int:
-    """Decode KV-cache capacity: seq (+ vlm patch prefix), padded so any
-    sequence sharding in the production meshes divides."""
-    return round_up(shape.seq_len + cfg.patch_tokens, 1024)

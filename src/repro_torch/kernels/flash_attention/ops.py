@@ -6,10 +6,12 @@ Pallas kernel ``src/repro/kernels/flash_attention/kernel.py:_fwd_kernel``
 
 ``flash_attention(q, k, v)`` takes the public (B, S, H, hd) /
 (B, S, KV, hd) layout, packs the GQA heads to (B, KV, G, S, hd) (query
-head ``h = kv * G + g``), pads both sequence dims to multiples of the
-reference's block sizes (``_fwd``: ``bq = min(block_q, max(Sq, 8))``) and
-calls ``flash_fwd``.  The CUDA kernel picks its own tiles and masks the
-ragged tails itself, so the block sizes only set that padding.
+head ``h = kv * G + g``) and calls ``flash_fwd``.  The reference pads
+both sequence dims to multiples of its VMEM block sizes; the CUDA kernel
+picks its own tiles and masks the ragged tails itself, so nothing is
+padded here and ``block_q`` / ``block_k`` are taken only for the
+reference's signature.  ``flash_fwd`` still takes padded operands
+(``sq <= Sqp``, ``sk <= Skp``), as ``flash_fwd_pallas`` does.
 
 ``flash_fwd`` launches the kernel on a CUDA tensor (or raises) and runs
 ``flash_fwd_ref`` on a CPU one; every launch adds one to
@@ -21,7 +23,6 @@ Queue 2).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import expect
@@ -40,15 +41,6 @@ def _pack(q, k, v):
     kp = k.permute(0, 2, 1, 3)
     vp = v.permute(0, 2, 1, 3)
     return qp, kp, vp
-
-
-def _pad_seq(x, axis, mult):
-    """Zero-pad dim ``axis`` up to a multiple of ``mult`` (contiguous)."""
-    pad = (-x.shape[axis]) % mult
-    if pad:
-        widths = [0, 0] * (x.ndim - axis - 1) + [0, pad]
-        x = F.pad(x, widths)
-    return x.contiguous()
 
 
 def flash_fwd(qp, kp, vp, *, causal: bool, scale: float, sq: int, sk: int):
@@ -99,18 +91,13 @@ def flash_fwd(qp, kp, vp, *, causal: bool, scale: float, sq: int, sk: int):
 flash_fwd.launches = 0
 
 
-def _fwd(q, k, v, causal, block_q, block_k, scale):
+def _fwd(q, k, v, causal, scale):
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
     sc = scale if scale is not None else 1.0 / (hd ** 0.5)
-    qp, kp, vp = _pack(q, k, v)
-    bq = min(block_q, max(Sq, 8))
-    bk = min(block_k, max(Sk, 8))
-    qp = _pad_seq(qp, 3, bq)
-    kp = _pad_seq(kp, 2, bk)
-    vp = _pad_seq(vp, 2, bk)
+    qp, kp, vp = (x.contiguous() for x in _pack(q, k, v))
     o, lse = flash_fwd(qp, kp, vp, causal=causal, scale=sc, sq=Sq, sk=Sk)
-    return o[:, :, :, :Sq].permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd), lse
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd), lse
 
 
 def flash_attention(q, k, v, causal=True, block_q=512, block_k=512,
@@ -122,5 +109,5 @@ def flash_attention(q, k, v, causal=True, block_q=512, block_k=512,
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} are not "
                          f"(B, Sq, H, hd) and (B, Sk, KV, hd) with KV | H")
-    o, _ = _fwd(q, k, v, causal, block_q, block_k, scale)
+    o, _ = _fwd(q, k, v, causal, scale)
     return o

@@ -33,10 +33,13 @@ def attention_ref(q, k, v, *, causal: bool = True,
 
 
 def flash_fwd_ref(qp, kp, vp, *, causal: bool, scale: float, sq: int,
-                  sk: int):
+                  sk: int, q0: int = 0):
     """The K7 forward in the kernel's layout: qp (B, KV, G, Sqp, hd),
     kp/vp (B, KV, Skp, hd), padded past the real lengths ``sq``/``sk``.
-    Returns ``(o, lse)``: o like qp, lse (B, KV, G, Sqp) fp32.
+    Returns ``(o, lse)``: o like qp, lse (B, KV, G, Sqp) fp32.  ``qp``
+    may be a slice of the query rows that starts at position ``q0``
+    (its rows are positions ``q0 ..``; ``sq`` stays the whole length),
+    which checks a long sequence without its S x S scores.
 
     The arithmetic of ``_fwd_kernel`` (``kernel.py:47``) without the
     tiling: fp32 scores, the mask ``(kpos < sk) & (qpos < sq) & (kpos <=
@@ -47,7 +50,7 @@ def flash_fwd_ref(qp, kp, vp, *, causal: bool, scale: float, sq: int,
     Sqp, Skp = qp.shape[3], kp.shape[2]
     dev = qp.device
     s = torch.einsum("bvgqd,bvkd->bvgqk", qp.float(), kp.float()) * scale
-    qpos = torch.arange(Sqp, device=dev)[:, None]
+    qpos = q0 + torch.arange(Sqp, device=dev)[:, None]
     kpos = torch.arange(Skp, device=dev)[None, :]
     mask = (kpos < sk) & (qpos < sq)
     if causal:

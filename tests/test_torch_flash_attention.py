@@ -12,6 +12,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels.flash_attention.kernel import flash_fwd_pallas
 from repro.kernels.flash_attention.ops import flash_attention_pallas
@@ -20,7 +21,7 @@ from repro.models import attention as j_attn
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention, flash_fwd,
                                                  flash_fwd_ref)
-from repro_torch.kernels.flash_attention.ops import _pack, _pad_seq
+from repro_torch.kernels.flash_attention.ops import _pack
 from repro_torch.models import attention as t_attn
 from repro_torch.models.weights import _tensor
 
@@ -46,6 +47,13 @@ def _qkv(B, Sq, Sk, H, KV, hd, seed=0):
 
 def _t(x, dtype=torch.float32):
     return torch.from_numpy(x).to(dtype)
+
+
+def _pad_seq(x, axis, mult):
+    """Zero-pad dim ``axis`` up to a multiple of ``mult``, as the
+    reference's ``_fwd`` does for its VMEM blocks (contiguous)."""
+    pad = (-x.shape[axis]) % mult
+    return F.pad(x, [0, 0] * (x.ndim - axis - 1) + [0, pad]).contiguous()
 
 
 def _np(x):
@@ -96,6 +104,26 @@ def test_flash_fwd_ref_matches_jax_kernel_o_and_lse(B, Sq, Sk, H, KV, hd,
                                    atol=1e-5)
         np.testing.assert_allclose(lse[..., :Sq].numpy(),
                                    _np(jl)[..., :Sq], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("rows", [(0, 8), (13, 29), (24, 40)])
+def test_flash_fwd_ref_on_a_slice_of_query_rows(causal, rows):
+    """``q0``: the plain version on query rows [a, b) of a padded layout
+    equals those rows of the whole (how a 32k sequence is checked on the
+    card without its S x S scores)."""
+    q, k, v = _qkv(2, 37, 37, 4, 2, 16, seed=9)
+    qp, kp, vp = (_pad_seq(x, ax, 8) for x, ax in
+                  zip(_pack(_t(q), _t(k), _t(v)), (3, 2, 2)))
+    a, b = rows
+    kw = dict(causal=causal, scale=0.25, sq=37, sk=37)
+    o, lse = flash_fwd_ref(qp, kp, vp, **kw)
+    so, slse = flash_fwd_ref(qp[..., a:b, :], kp, vp, q0=a, **kw)
+    real = min(b, 37) - a
+    torch.testing.assert_close(so[..., :real, :], o[..., a:a + real, :],
+                               rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(slse[..., :real], lse[..., a:a + real],
+                               rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("causal", [True, False])
