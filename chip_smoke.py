@@ -29,7 +29,12 @@ makes the script exit non-zero):
               (1, 32768) (its first and last 512 query rows), bf16 and
               fp32, causal, ragged and non-causal, element-wise and per
               query row (tolerances at K7_TOL, K7_ROW_RTOL), and two
-              planted faults the check must flag;
+              planted faults the check must flag; K7 dq and dkv against
+              ``flash_bwd_ref`` at the training layer shapes (1, 4096)
+              and (2, 4096), bf16 and fp32, causal, ragged and
+              non-causal, per output row and scaled (K7B_ROW_RTOL,
+              K7B_SCALED_TOL), and two planted faults (lse offset past
+              row 512, dD zeroed) the check must flag;
 4. main     — the port's main paths against the oracle, each drive with
               the launch counters set to 0 just before it and read just
               after: ``MBEClient`` at default options (a 32-graph stream
@@ -51,12 +56,23 @@ makes the script exit non-zero):
               the last position and at every position, every K7 call of
               the checked forward against its plain version, and a
               planted K7 fault that both checks must flag;
-              decode == prefill in fp32; the LM ``serve`` loop;
+              decode == prefill in fp32; the LM ``serve`` loop; then
+              the training paths of qwen3-1.7b at full width: the train
+              step's fp32 grads (remat on, microbatch (2, 4096) from the
+              port's SyntheticSource) with attn_impl='pallas' against
+              'xla' per parameter, in bf16 at 28 layers (with a planted
+              K7 bwd fault that must be flagged) and in fp32 at 2 layers
+              (TRAIN_GRAD_RTOL); 3 AdamW steps with accum=2 on (4, 4096)
+              (per step 112 K7 fwd, 56 dq, 56 dkv; finite loss and grad
+              norm; params moved; peak memory) and a profiled step; the
+              launcher ``repro_torch.launch.train`` at the smoke config
+              with an injected failure, resumed at its checkpointed data
+              step;
 5. times    — per-kernel CUDA-event and profiler times at each kernel's
               own path's shapes beside the plain version and the bound
               (and for K7 the time of ``F.scaled_dot_product_attention``
-              on the same operands), and the device's busy share over
-              main-path windows.
+              on the same operands, and for K7 dq / dkv of its backward),
+              and the device's busy share over main-path windows.
 
 Every phase runs on every call; the script takes no arguments.  The line
 before the last is the ``{"kernels": [...]}`` record; the last line is
@@ -577,6 +593,125 @@ def check_k7(dev):
     return worst
 
 
+# K7 dq and dkv at the qwen3-1.7b training layer shapes (B, 4096) with H 16,
+# KV 8, hd 128 (the main path's microbatch is B = 2), bf16 and fp32,
+# causal, plus a ragged and a non-causal case: (B, S, H, KV, hd, dtype,
+# causal).  The operands are the forward kernel's o and lse, a random do
+# and dD = rowsum(do * o), the path's own.
+K7B_CASES = (
+    (1, 4096, 16, 8, 128, "bfloat16", True),
+    (2, 4096, 16, 8, 128, "bfloat16", True),
+    (1, 4096, 16, 8, 128, "float32", True),
+    (2, 4096, 16, 8, 128, "float32", True),
+    (2, 1000, 16, 8, 128, "bfloat16", True),    # ragged: S % 64 != 0
+    (2, 256, 8, 2, 128, "bfloat16", False),
+)
+# Tolerances, per output row (query rows of dq, key rows of dk and dv),
+# ||x - ref|| / ||ref||, and max |x - ref| / max |ref| over the output.
+# Rows whose ref norm is under 1e-2 of the median row's are left to the
+# second measure: their exact value is ~0 (dq's first causal row: its one
+# key gives ds = p (do.v - do.o) = 0) and both sides hold rounding noise
+# of the terms there.  bf16: the kernels and the plain version round p
+# and ds to bf16 at the same points, from fp32 scores summed in another
+# order, and round the outputs to bf16; fp32: the same arithmetic summed
+# in another order.  Limits at ~2-3x the sound kernels' largest readings
+# over K7B_CASES on the card (PERF.md section 6: bf16 row 5.7e-3, scaled
+# 3.9e-3; fp32 row 6.2e-7, scaled 3.1e-7); the planted faults read
+# row >= 0.5 and scaled >= 0.047.
+K7B_ROW_RTOL = {"bfloat16": 1e-2, "float32": 2e-6}
+K7B_SCALED_TOL = {"bfloat16": 1e-2, "float32": 1e-6}
+K7B_FAULT_ROW = 512
+
+
+def k7b_operands(B, S, H, KV, hd, dtype, causal, dev, seed):
+    """(qp, kp, vp, dop, lse, dD, kwargs) as the training path builds
+    them: the forward kernel's o and lse, a random do."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_fwd
+    qp, kp, vp = k7_operands(B, S, H, KV, hd, dtype, dev, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    dop = torch.randn(qp.shape, generator=g, device=dev).to(qp.dtype)
+    kw = dict(causal=causal, scale=hd ** -0.5, sq=S, sk=S)
+    o, lse = flash_fwd(qp, kp, vp, **kw)
+    dD = (dop.float() * o.float()).sum(-1)
+    return qp, kp, vp, dop, lse, dD, kw
+
+
+def k7b_errors(got, want) -> dict:
+    """{dq|dk|dv: {row, scaled, abs, finite}} of the kernels' outputs
+    against the plain version's (K7B_ROW_RTOL's two measures)."""
+    import torch
+    out = {}
+    for name, x, ref in zip(("dq", "dk", "dv"), got, want):
+        x, ref = x.float(), ref.float()
+        rn = ref.norm(dim=-1)
+        keep = rn >= 1e-2 * rn.median()
+        d = x - ref
+        out[name] = dict(row=float((d.norm(dim=-1)[keep] / rn[keep]).max()),
+                         scaled=float(d.abs().max() / ref.abs().max()),
+                         abs=float(d.abs().max()),
+                         finite=bool(torch.isfinite(x).all()))
+        del x, ref, d
+    return out
+
+
+def k7b_ok(e, dtype) -> bool:
+    return all(v["finite"] and v["row"] <= K7B_ROW_RTOL[dtype]
+               and v["scaled"] <= K7B_SCALED_TOL[dtype] for v in e.values())
+
+
+def k7b_brief(e) -> str:
+    return ", ".join(f"{k} row {v['row']:.3g} scaled {v['scaled']:.3g}"
+                     for k, v in e.items())
+
+
+def check_k7_bwd(dev):
+    """K7 dq and dkv against ``flash_bwd_ref`` on the card at K7B_CASES,
+    then two planted faults (the lse of query rows from K7B_FAULT_ROW on
+    offset by +0.7; dD zeroed) that the check must flag; returns the
+    largest max |err| of (dq, dk + dv) over the bf16 and fp32 cases."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_bwd, flash_bwd_ref
+    worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    readings = {}
+    for i, (B, S, H, KV, hd, dt, causal) in enumerate(K7B_CASES):
+        qp, kp, vp, dop, lse, dD, kw = k7b_operands(B, S, H, KV, hd, dt,
+                                                    causal, dev, 200 + i)
+        got = flash_bwd(qp, kp, vp, dop, lse, dD, **kw)
+        torch.cuda.synchronize()
+        want = flash_bwd_ref(qp, kp, vp, dop, lse, dD, **kw)
+        e = k7b_errors(got, want)
+        readings[str(K7B_CASES[i])] = e
+        log(f"  flash_bwd (B,S,H,KV,hd)={(B, S, H, KV, hd)} {dt} causal="
+            f"{causal}: {k7b_brief(e)} (tols {K7B_ROW_RTOL[dt]} / "
+            f"{K7B_SCALED_TOL[dt]})")
+        require(k7b_ok(e, dt), f"K7 bwd {K7B_CASES[i]}: {e}")
+        worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], e["dq"]["abs"])
+        worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], e["dk"]["abs"],
+                                     e["dv"]["abs"])
+        del got
+        if i == 0:
+            # controls: the kernels given a wrong operand, held against the
+            # plain version on the right ones, must come out wrong
+            bad_lse = lse.clone()
+            bad_lse[..., K7B_FAULT_ROW:] += 0.7
+            for what, args in (
+                    (f"lse + 0.7 from row {K7B_FAULT_ROW}",
+                     (qp, kp, vp, dop, bad_lse, dD)),
+                    ("dD zeroed", (qp, kp, vp, dop, lse,
+                                   torch.zeros_like(dD)))):
+                ce = k7b_errors(flash_bwd(*args, **kw), want)
+                flagged = not k7b_ok(ce, dt)
+                readings[f"control: {what}"] = ce
+                log(f"  control ({what}) at {K7B_CASES[i][:5]}: "
+                    f"{k7b_brief(ce)}: flagged {flagged}")
+                require(flagged, f"K7 bwd check passes a planted fault "
+                                 f"({what}): {ce}")
+        del qp, kp, vp, dop, lse, dD, want
+        torch.cuda.empty_cache()
+    return worst, readings
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -603,38 +738,43 @@ def check_results(results, graphs, truth, what):
 
 
 def counted():
-    """{record name: wrapper} of every kernel wrapper that counts its
-    launches: the eight entry points of the ``kernels`` line first, then
-    the kinds no main path launches (their counts must stay 0 there)."""
+    """{record name: (wrapper, counter attribute)} of every kernel wrapper
+    that counts its launches: the ten entry points of the ``kernels``
+    line first, then the kinds no main path launches (their counts must
+    stay 0 there)."""
     from repro_torch.kernels import fused_check as fc
     from repro_torch.kernels import fused_select as fs
     from repro_torch.kernels.intersect_count.ops import intersect_count
     from repro_torch.kernels.resident_pool.ops import resident_pool_segment
-    from repro_torch.kernels.flash_attention.ops import flash_fwd
+    from repro_torch.kernels.flash_attention.ops import flash_bwd, flash_fwd
     from repro_torch.kernels.resident_step.ops import resident_segment
-    return {"fused_check_packed": fc.fused_check_packed,
-            "resident_pool": resident_pool_segment,
-            "resident_step": resident_segment,
-            "fused_select_packed": fs.fused_select_packed,
-            "fused_select_gathered_prefix": fs.fused_select_gathered_prefix,
-            "fused_check_gathered_prefix2": fc.fused_check_gathered_prefix2,
-            "intersect_count": intersect_count,
-            "flash_fwd": flash_fwd,
-            "fused_select": fs.fused_select,
-            "fused_select_prefix": fs.fused_select_prefix,
-            "fused_select_gathered": fs.fused_select_gathered,
-            "fused_check": fc.fused_check,
-            "fused_check_prefix2": fc.fused_check_prefix2,
-            "fused_check_gathered": fc.fused_check_gathered}
+    one = {"fused_check_packed": fc.fused_check_packed,
+           "resident_pool": resident_pool_segment,
+           "resident_step": resident_segment,
+           "fused_select_packed": fs.fused_select_packed,
+           "fused_select_gathered_prefix": fs.fused_select_gathered_prefix,
+           "fused_check_gathered_prefix2": fc.fused_check_gathered_prefix2,
+           "intersect_count": intersect_count,
+           "flash_fwd": flash_fwd,
+           "flash_bwd_dq": (flash_bwd, "dq_launches"),
+           "flash_bwd_dkv": (flash_bwd, "dkv_launches"),
+           "fused_select": fs.fused_select,
+           "fused_select_prefix": fs.fused_select_prefix,
+           "fused_select_gathered": fs.fused_select_gathered,
+           "fused_check": fc.fused_check,
+           "fused_check_prefix2": fc.fused_check_prefix2,
+           "fused_check_gathered": fc.fused_check_gathered}
+    return {k: (v if isinstance(v, tuple) else (v, "launches"))
+            for k, v in one.items()}
 
 
 def reset_counters():
-    for f in counted().values():
-        f.launches = 0
+    for f, attr in counted().values():
+        setattr(f, attr, 0)
 
 
 def counters():
-    return {k: f.launches for k, f in counted().items()}
+    return {k: getattr(f, attr) for k, (f, attr) in counted().items()}
 
 
 def nonzero(c) -> dict:
@@ -820,15 +960,15 @@ def k7_held(fault=None):
     real, seen = ops._fwd, []
 
     def held(q, k, v, causal, scale):
-        o, lse = real(q, k, v if fault is None else fault(v, axis=1),
-                      causal, scale)
+        o, saved = real(q, k, v if fault is None else fault(v, axis=1),
+                        causal, scale)
         qp, kp, vp = (x.contiguous() for x in ops._pack(q, k, v))
         S = q.shape[1]
         seen.append(k7_errors(
-            qp, kp, vp, ops._pack(o, k, v)[0], lse, causal=causal,
+            qp, kp, vp, saved[3], saved[4], causal=causal,
             scale=q.shape[-1] ** -0.5 if scale is None else scale, sq=S,
             sk=k.shape[1], spans=k7_spans(S, "ends")))
-        return o, lse
+        return o, saved
     ops._fwd = held
     try:
         yield seen
@@ -1030,6 +1170,258 @@ def lm_path(dev, by_path):
     return info
 
 
+# ---------------------------------------------------------------------------
+# phase 4 (training): qwen3-1.7b train step at full width
+# ---------------------------------------------------------------------------
+
+# the train_4k shape (models/config.py SHAPES): seq 4096, its global batch
+# of 256 cut to microbatches of 2 rows to fit one card
+TRAIN_SEQ = 4_096
+TRAIN_MICRO = 2
+TRAIN_ACCUM = 2
+TRAIN_STEPS = 3
+# per-parameter ||g_kernel - g_torch_op|| / ||g_torch_op|| of the train
+# step's fp32 grads, K7 path against the blockwise torch-op attention
+# path.  bf16 (full width, 28 layers): the two attention paths round p, o
+# and the grads differently in every layer and the backward carries that
+# through 28 layers; fp32 (full width, 2 layers): the same arithmetic
+# summed in another order.  Limits at ~2.2-2.6x the sound readings on
+# the card (PERF.md section 6: bf16 0.039 at most, median 0.033; fp32
+# 4.5e-6); a planted K7 bwd fault (dD zeroed in every layer) reads 2.05
+# (median 1.18) and must fail the bf16 one.
+TRAIN_GRAD_RTOL = {"bfloat16": 0.1, "float32": 1e-5}
+# the launcher on the card at the smoke config: 20 steps, a failure after
+# step 7, a checkpoint every 5 steps, so the restart resumes at data step 5
+TRAIN_LAUNCH = ["--arch", LM_ARCH, "--smoke", "--steps", "20", "--fail-at",
+                "7", "--ckpt-every", "5", "--batch", "8", "--seq", "128"]
+
+
+def grad_probe():
+    """Optimizer whose state becomes the step's averaged fp32 grads (the
+    reference test's grad probe, ``tests/test_training.py:72-86``, with
+    the grads kept exactly instead of added to the params)."""
+    import torch
+    from repro_torch.training.optimizer import Optimizer, global_norm
+
+    def update(g, st, params):
+        zero = torch.zeros((), device=next(iter(g.values())).device)
+        return ({k: zero for k in g}, g,
+                dict(lr=zero, grad_norm=global_norm(g)))
+    return Optimizer(init=lambda p: None, update=update)
+
+
+@contextlib.contextmanager
+def k7_bwd_fault():
+    """Control: every K7 backward call of the block gets dD zeroed (the
+    kernels still launch and count)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    real = ops.flash_bwd
+
+    def faulty(qp, kp, vp, dop, lse, dD, **kw):
+        return real(qp, kp, vp, dop, lse, torch.zeros_like(dD), **kw)
+    faulty.dq_launches = real.dq_launches
+    faulty.dkv_launches = real.dkv_launches
+    ops.flash_bwd = faulty
+    try:
+        yield
+    finally:
+        ops.flash_bwd = real
+        real.dq_launches = faulty.dq_launches
+        real.dkv_launches = faulty.dkv_launches
+
+
+def grad_errors(g, ref) -> dict:
+    """Per parameter ||g - ref|| / ||ref||: the largest (and where) and
+    the median."""
+    rel = {k: float((g[k] - r).norm() / r.norm().clamp(min=1e-30))
+           for k, r in ref.items()}
+    worst = max(rel, key=rel.get)
+    vals = sorted(rel.values())
+    return dict(max=rel[worst], at=worst, median=vals[len(vals) // 2])
+
+
+def train_batch(cfg, rows, step, dev):
+    """Rows ``rows`` of the port's SyntheticSource batch ``step`` at
+    TRAIN_SEQ, on the card."""
+    import torch
+    from repro_torch.datapipe import DataConfig, SyntheticSource
+    src = SyntheticSource(DataConfig(batch=rows, seq_len=TRAIN_SEQ,
+                                     vocab=cfg.vocab, seed=0))
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in src.batch(step).items()}
+
+
+def probe_grads(cfg, master, batch, fault=False):
+    """(fp32 grads of one train step, launch counts of the step)."""
+    import torch
+    from repro_torch.training.step import make_train_step
+    opt = grad_probe()
+    reset_counters()
+    with k7_bwd_fault() if fault else contextlib.nullcontext():
+        _, g, m = make_train_step(cfg, opt)(master, None, batch)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(m["loss"]) and torch.isfinite(
+        m["grad_norm"])), f"{cfg.name}: loss {m['loss']} grad norm "
+                          f"{m['grad_norm']}")
+    return g, counters()
+
+
+def check_train_grads(cfg, master, batch, dtype, label, by_path,
+                      control=False):
+    """The train step's grads, K7 path against the torch-op path; with
+    ``control`` also the planted K7 bwd fault, which must be flagged."""
+    import torch
+    L = cfg.n_layers
+    pal = dataclasses.replace(cfg, attn_impl="pallas", dtype=dtype)
+    xla = dataclasses.replace(cfg, attn_impl="xla", dtype=dtype)
+    t = time.perf_counter()
+    gx, cx = probe_grads(xla, master, batch)
+    wall_x = time.perf_counter() - t
+    t = time.perf_counter()
+    gp, cp = probe_grads(pal, master, batch)
+    wall_p = time.perf_counter() - t
+    by_path[label] = cp
+    require((cp["flash_fwd"], cp["flash_bwd_dq"], cp["flash_bwd_dkv"]) ==
+            (2 * L, L, L) and sum(cp.values()) == 4 * L and not any(
+                cx.values()),
+            f"{label}: launches {nonzero(cp)}, torch-op path {nonzero(cx)};"
+            f" expected {2 * L} flash_fwd (remat), {L} dq, {L} dkv")
+    sound = grad_errors(gp, gx)
+    del gp
+    out = dict(wall_s=wall_p, xla_wall_s=wall_x, grads=sound,
+               launches=nonzero(cp))
+    log(f"  {label}: {wall_p:.3f} s (torch-op path {wall_x:.3f} s), "
+        f"launches {nonzero(cp)}; grads vs torch-op path: "
+        + json.dumps(sound) + f" (tol {TRAIN_GRAD_RTOL[dtype]})")
+    if control:
+        gc, _ = probe_grads(pal, master, batch, fault=True)
+        out["control"] = grad_errors(gc, gx)
+        del gc
+        flagged = out["control"]["max"] > TRAIN_GRAD_RTOL[dtype]
+        log(f"  {label} control (K7 bwd with dD zeroed in every layer): "
+            + json.dumps(out["control"]) + f"; flagged {flagged}")
+        require(flagged, f"{label}: the planted K7 bwd fault passed: "
+                         f"{out['control']}")
+    del gx
+    torch.cuda.empty_cache()
+    require(sound["max"] <= TRAIN_GRAD_RTOL[dtype],
+            f"{label}: grads differ from the torch-op path: {sound}")
+    return out
+
+
+def train_path(dev, by_path):
+    """Drive the training paths of qwen3-1.7b at full width; adds each
+    one's launch counts to ``by_path`` and returns what phase 5 reports."""
+    import shutil
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.train import train
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import init_params
+    from repro_torch.training.optimizer import adamw
+    from repro_torch.training.step import make_train_step
+    cfg = dataclasses.replace(configs.get_config(LM_ARCH), remat=True,
+                              attn_impl="pallas")
+    L = cfg.n_layers
+    info = {}
+    torch.cuda.reset_peak_memory_stats()
+    master = init_params(M.param_specs(cfg), 0, device=dev)
+    micro = train_batch(cfg, TRAIN_MICRO, 0, dev)
+    # (a) bf16, 28 layers: grads against the torch-op path, and a control
+    info["grads_bf16"] = check_train_grads(
+        cfg, master, micro, "bfloat16",
+        f"train grads ({TRAIN_MICRO}, {TRAIN_SEQ}) bf16", by_path,
+        control=True)
+    del master
+    torch.cuda.empty_cache()
+    # (b) fp32, 2 layers at full width
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    master2 = init_params(M.param_specs(cfg2), 0, device=dev)
+    info["grads_fp32"] = check_train_grads(
+        cfg2, master2, micro, "float32",
+        f"train grads ({TRAIN_MICRO}, {TRAIN_SEQ}) fp32 2 layers", by_path)
+    del master2, micro
+    torch.cuda.empty_cache()
+    # (c) AdamW steps, accum 2, through make_train_step
+    B = TRAIN_MICRO * TRAIN_ACCUM
+    label = f"train ({B}, {TRAIN_SEQ}) accum={TRAIN_ACCUM}"
+    opt = adamw(peak_lr=3e-4, warmup=1, total_steps=TRAIN_STEPS + 1)
+    step = make_train_step(cfg, opt, accum=TRAIN_ACCUM)
+    params = init_params(M.param_specs(cfg), 0, device=dev)
+    state = opt.init(params)
+    before = {k: params[k][..., :64].clone() for k in ("layers/attn/wq",
+                                                       "lm_head/w")}
+    batches = [train_batch(cfg, B, i, dev) for i in range(TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    walls, hist = [], []
+    for i in range(TRAIN_STEPS):
+        n = counters()
+        t = time.perf_counter()
+        params, state, m = step(params, state, batches[i])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        c = counters()
+        per = {k: c[k] - n[k] for k in c}
+        want = (2 * L * TRAIN_ACCUM, L * TRAIN_ACCUM, L * TRAIN_ACCUM)
+        require((per["flash_fwd"], per["flash_bwd_dq"],
+                 per["flash_bwd_dkv"]) == want and sum(per.values()) ==
+                sum(want), f"{label} step {i}: launches {nonzero(per)}, "
+                           f"expected {want}")
+        hist.append(dict(loss=float(m["loss"]), grad_norm=float(
+            m["grad_norm"]), lr=float(m["lr"]), tokens=float(m["tokens"])))
+        require(all(map(lambda x: x == x and abs(x) != float("inf"),
+                        hist[-1].values())), f"{label}: {hist[-1]}")
+    by_path[label] = c = counters()
+    peak = torch.cuda.max_memory_allocated()
+    moved = {k: float((params[k][..., :64] - v).abs().max())
+             for k, v in before.items()}
+    require(all(x > 0 for x in moved.values()) and int(state.step) ==
+            TRAIN_STEPS, f"{label}: params moved {moved}, step "
+                         f"{int(state.step)}")
+    wall = sum(walls[1:]) / len(walls[1:])
+    info["steps"] = dict(history=hist, walls_s=walls, wall_s=wall,
+                         tok_per_s=B * TRAIN_SEQ / wall, peak_gb=peak / 1e9,
+                         moved=moved, launches=nonzero(c))
+    log(f"  {label}: {TRAIN_STEPS} AdamW steps, " + json.dumps(
+        info["steps"]))
+    # the device's busy share over one more step (not counted)
+    pw, busy, by_kernel = profile_window(
+        lambda: step(params, state, batches[TRAIN_STEPS]))
+    k7 = {k: v for k, v in by_kernel.items() if "flash_" in k}
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
+    info["profile"] = dict(
+        wall_s=pw, busy_s=busy,
+        busy_share=None if busy is None else busy / pw,
+        k7_s=sum(v[0] for v in k7.values()),
+        k7_share=None if not busy else sum(v[0] for v in k7.values()) / busy,
+        k7_by_kernel={k[:48]: v for k, v in k7.items()},
+        top=[(k[:60], v[0], v[1]) for k, v in top])
+    log(f"  profile {label}: " + json.dumps(info["profile"]))
+    del params, state, batches, step
+    torch.cuda.empty_cache()
+    # (d) the launcher at the smoke config, with a failure and a restart
+    ckpt = os.path.join(HERE, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    reset_counters()
+    t = time.perf_counter()
+    out = train(TRAIN_LAUNCH + ["--ckpt-dir", ckpt], device=str(dev))
+    wall = time.perf_counter() - t
+    by_path["launcher --smoke"] = counters()
+    losses = [x for _, x in out["history"]]
+    require(out["restarts"] == 1 and out["starts"] == [0, 5] and losses
+            and all(x == x and abs(x) != float("inf") for x in losses),
+            f"launcher: {out}")
+    info["launcher"] = dict(wall_s=wall, restarts=out["restarts"],
+                            starts=out["starts"], history=out["history"])
+    log(f"  launcher {' '.join(TRAIN_LAUNCH)}: " + json.dumps(
+        info["launcher"]))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return info
+
+
 # each kernel's own path: the drive whose count is the record's `launches`
 KERNEL_PATH = {
     "fused_check_packed": "resident=False run_batch 512x2048 dblp+corp",
@@ -1040,6 +1432,10 @@ KERNEL_PATH = {
     "fused_check_gathered_prefix2": "compact stream",
     "intersect_count": "compact unfused impl=pallas",
     "flash_fwd": f"prefill {LM_PREFILL[0]} pallas",
+    "flash_bwd_dq": f"train ({TRAIN_MICRO * TRAIN_ACCUM}, {TRAIN_SEQ}) "
+                    f"accum={TRAIN_ACCUM}",
+    "flash_bwd_dkv": f"train ({TRAIN_MICRO * TRAIN_ACCUM}, {TRAIN_SEQ}) "
+                     f"accum={TRAIN_ACCUM}",
 }
 
 
@@ -1312,6 +1708,104 @@ def k7_times(dev, by_path, errs, lm):
     return [rec]
 
 
+# one qwen3-1.7b layer's K7 backward at the training shapes: (B, S, H, KV,
+# hd); the main path's microbatch is the second
+K7B_TIME_SHAPES = ((1, 4_096, 16, 8, 128), (2, 4_096, 16, 8, 128))
+
+
+def k7_bwd_times(dev, by_path, errs, train):
+    """K7 dq and K7 dkv at K7B_TIME_SHAPES, bf16 causal: each kernel's
+    launch (CUDA events) and device time (profiler), its bound (the
+    causal pairs' FLOPs, 6 hd a pair for dq and 8 hd for dkv with the
+    recomputed scores, over the bf16 peak, against the bytes each must
+    move), the plain version (dq, dk and dv in one call) and the library
+    call: ``torch.autograd.grad`` through ``F.scaled_dot_product_attention(
+    is_causal=True, enable_gqa=True)`` minus its forward, which computes
+    dq, dk and dv together."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_bwd_ref
+    from repro_torch.kernels.flash_attention.ops import launch_dkv, launch_dq
+    rows = {}
+    for B, S, H, KV, hd in K7B_TIME_SHAPES:
+        qp, kp, vp, dop, lse, dD, kw = k7b_operands(
+            B, S, H, KV, hd, "bfloat16", True, dev, seed=S + B)
+        dq, dk, dv = (torch.empty_like(x) for x in (qp, kp, vp))
+        ops = (qp, kp, vp, dop, lse, dD)
+
+        def k_dq():
+            launch_dq(*ops, dq, **kw)
+
+        def k_dkv():
+            launch_dkv(*ops, dk, dv, **kw)
+        pairs = B * H * S * (S + 1) // 2              # causal (q, k) pairs
+        rq = 2 * B * S * hd * H                      # one q-shaped bf16 tensor
+        rk = 2 * B * S * hd * KV
+        r = {}
+        for name, fn, kname, flops, nbytes in (
+                ("flash_bwd_dq", k_dq, "flash_dq_bf16", 6 * hd * pairs,
+                 3 * rq + 2 * rk + 8 * B * H * S),
+                ("flash_bwd_dkv", k_dkv, "flash_dkv_bf16", 8 * hd * pairs,
+                 2 * rq + 4 * rk + 8 * B * H * S)):
+            b, kind = bound(nbytes, flops, H100_BF16_FLOPS)
+            ms = cuda_ms(fn)
+            r[name] = dict(ms=ms, device_ms=device_ms(fn, kname), bound_ms=b,
+                           bound_by=kind, tflops=flops / (ms * 1e9))
+        r["plain_ms"] = cuda_ms(lambda: flash_bwd_ref(*ops, **kw), reps=3)
+        # the library: SDPA's backward (fwd + bwd, minus the fwd)
+        qs, ks, vs = (x.detach().requires_grad_() for x in
+                      (qp.flatten(1, 2), kp, vp))
+        dos = dop.flatten(1, 2)
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                  enable_gqa=True)
+
+        def sdpa_fwd_bwd():
+            return torch.autograd.grad(sdpa_fwd(), (qs, ks, vs), dos)
+        r["library_fwd_bwd_ms"] = cuda_ms(sdpa_fwd_bwd)
+        r["library_fwd_ms"] = cuda_ms(sdpa_fwd)
+        r["library_ms"] = r["library_fwd_bwd_ms"] - r["library_fwd_ms"]
+        # the same function: SDPA's dq per query row against K7 dq's
+        k_dq()
+        sq = sdpa_fwd_bwd()[0].float()
+        x = dq.flatten(1, 2).float()
+        rn = sq.norm(dim=-1)
+        keep = rn >= 1e-2 * rn.median()
+        r["sdpa_dq_row_rel_diff"] = float(((x - sq).norm(dim=-1)[keep]
+                                           / rn[keep]).max())
+        require(r["sdpa_dq_row_rel_diff"] <= 2 * K7B_ROW_RTOL["bfloat16"],
+                f"SDPA and K7 dq disagree at {(B, S)}: "
+                f"{r['sdpa_dq_row_rel_diff']}")
+        del sq, x, qs, ks, vs, dos, dq, dk, dv, ops, qp, kp, vp, dop
+        rows[(B, S)] = r
+        log(f"  flash_bwd at {(B, S, H, KV, hd)} bf16 causal: "
+            + json.dumps(r))
+    torch.cuda.empty_cache()
+    main = rows[K7B_TIME_SHAPES[1][:2]]
+    other = rows[K7B_TIME_SHAPES[0][:2]]
+    shape = (f"(B, S, H, KV, hd) = {K7B_TIME_SHAPES[1]} bf16 causal, one "
+             f"qwen3-1.7b layer of the train step's microbatch")
+    out = []
+    for name, line in (("flash_bwd_dq", 91), ("flash_bwd_dkv", 131)):
+        k = main[name]
+        out.append(record(
+            name, by_path, errs, source="src/repro_torch/csrc/flash_bwd.cu",
+            replaces=f"src/repro/kernels/flash_attention/kernel.py:{line}",
+            ms=k["ms"], plain_ms=main["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=main["library_ms"],
+            library_call="torch.autograd.grad through F.scaled_dot_product_"
+                         "attention(is_causal=True, enable_gqa=True), minus "
+                         "its forward",
+            library_note="SDPA's backward computes dq, dk and dv in one "
+                         "call; compare it with dq + dkv",
+            plain_note="flash_bwd_ref computes dq, dk and dv in one call",
+            device_ms=k["device_ms"], tflops=k["tflops"], shape=shape,
+            at_1x4096=other[name],
+            **({"train": train} if name == "flash_bwd_dq" else {})))
+    return out
+
+
 NO_LIBRARY = ("no single PyTorch call computes it: torch has no popcount "
               "op, so an AND + popcount row reduction is several calls")
 
@@ -1477,15 +1971,19 @@ def main() -> int:
     n, errs["resident_pool"], errs["resident_step"] = check_resident(dev)
     errs.update(check_slice2_kernels(dev))
     errs["flash_fwd"] = check_k7(dev)
+    bwd_errs, _ = check_k7_bwd(dev)
+    errs.update(bwd_errs)
     log(f"[kernels] {n} pool configurations + lanes bit-exact, max |err| "
         f"{errs}, {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     by_path = main_path(dev)
     lm = lm_path(dev, by_path)
+    train = train_path(dev, by_path)
     log(f"[main] {time.perf_counter() - t0:.1f} s, launches by path "
         f"{json.dumps({k: nonzero(c) for k, c in by_path.items()})}")
     t0 = time.perf_counter()
-    rec = times(dev, by_path, errs) + k7_times(dev, by_path, errs, lm)
+    rec = (times(dev, by_path, errs) + k7_times(dev, by_path, errs, lm)
+           + k7_bwd_times(dev, by_path, errs, train))
     log(f"[times] {time.perf_counter() - t0:.1f} s; [total] "
         f"{time.perf_counter() - t_start:.1f} s")
     log(smi_line)

@@ -32,21 +32,16 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
-constexpr float NEG = -1e30f;
-
-__device__ __forceinline__ bool live(int qpos, int kpos, int sq, int sk,
-                                     int causal) {
-  return kpos < sk && qpos < sq && (!causal || kpos <= qpos);
-}
-
-// number of keys a q tile [q0, q0 + bq) must visit (0 for padded rows)
-__device__ __forceinline__ int key_end(int q0, int bq, int sq, int sk,
-                                       int causal) {
-  if (q0 >= sq) return 0;
-  return causal ? min(sk, min(q0 + bq, sq)) : sk;
-}
+using flash::NEG;
+using flash::PAD16;
+using flash::key_end;
+using flash::live;
+using flash::mma16816;
+using flash::pack_bf16;
 
 // ---------------------------------------------------------------------------
 // bf16: mma.sync m16n8k16
@@ -54,22 +49,6 @@ __device__ __forceinline__ int key_end(int q0, int bq, int sq, int sk,
 
 constexpr int BQ16 = 64;    // q rows per block (4 warps x 16)
 constexpr int BK16 = 64;    // keys per tile
-constexpr int PAD16 = 8;    // bf16 row padding in shared memory
-
-__device__ __forceinline__ void mma16816(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
 
 template <int HD>
 __global__ void __launch_bounds__(128)
@@ -195,19 +174,13 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < BK16 / 16; ++kk) {
       uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      flash::acc_to_a(s, kk, pa);
       const int key = kk * 16 + tig * 2;
 #pragma unroll
       for (int n = 0; n < ND; ++n) {
         const int d = n * 8 + gid;
-        const uint32_t b0 = static_cast<uint32_t>(Vh[key * LD + d]) |
-                            (static_cast<uint32_t>(Vh[(key + 1) * LD + d]) << 16);
-        const uint32_t b1 = static_cast<uint32_t>(Vh[(key + 8) * LD + d]) |
-                            (static_cast<uint32_t>(Vh[(key + 9) * LD + d]) << 16);
-        mma16816(oacc[n], pa, b0, b1);
+        mma16816(oacc[n], pa, flash::col_pair(Vh, LD, key, d),
+                 flash::col_pair(Vh, LD, key + 8, d));
       }
     }
     __syncthreads();

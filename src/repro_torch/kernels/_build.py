@@ -127,6 +127,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         P, P, P, P, P, I,               # q, k, v, o, lse, dtype
         I, I, I, I, I, I, I,            # heads, G, Sqp, Skp, sq, sk, hd
         ctypes.c_float, I, P]           # scale, causal, stream
+    bwd_tail = [I, I, I, I, I, I, I,   # dtype, heads, G, Sqp, Skp, sq, sk
+                I, ctypes.c_float, I, P]  # hd, scale, causal, stream
+    lib.rt_flash_bwd_dq.restype = I
+    lib.rt_flash_bwd_dq.argtypes = [
+        P, P, P, P, P, P, P] + bwd_tail  # q, k, v, do, lse, dD, dq
+    lib.rt_flash_bwd_dkv.restype = I
+    lib.rt_flash_bwd_dkv.argtypes = [
+        P, P, P, P, P, P, P, P] + bwd_tail  # q, k, v, do, lse, dD, dk, dv
     lib.rt_error_string.restype = ctypes.c_char_p
     lib.rt_error_string.argtypes = [I]
 

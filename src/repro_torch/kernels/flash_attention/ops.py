@@ -1,24 +1,27 @@
-"""Dispatch wrapper for the flash-attention forward (K7 fwd).
+"""Dispatch and autodiff wrapper for flash attention (K7 fwd, dq, dkv).
 
 Twin of ``src/repro/kernels/flash_attention/ops.py``.  It replaces the
-Pallas kernel ``src/repro/kernels/flash_attention/kernel.py:_fwd_kernel``
-(``flash_fwd_pallas``) with ``csrc/flash_fwd.cu``.
+Pallas kernels of ``src/repro/kernels/flash_attention/kernel.py``:
+``_fwd_kernel`` (``flash_fwd_pallas``) with ``csrc/flash_fwd.cu``, and
+``_dq_kernel`` / ``_dkv_kernel`` (``flash_bwd_pallas``) with
+``csrc/flash_bwd.cu``.
 
 ``flash_attention(q, k, v)`` takes the public (B, S, H, hd) /
 (B, S, KV, hd) layout, packs the GQA heads to (B, KV, G, S, hd) (query
-head ``h = kv * G + g``) and calls ``flash_fwd``.  The reference pads
-both sequence dims to multiples of its VMEM block sizes; the CUDA kernel
-picks its own tiles and masks the ragged tails itself, so nothing is
-padded here and ``block_q`` / ``block_k`` are taken only for the
-reference's signature.  ``flash_fwd`` still takes padded operands
-(``sq <= Sqp``, ``sk <= Skp``), as ``flash_fwd_pallas`` does.
+head ``h = kv * G + g``) and runs ``_FlashAttention``, the twin of the
+reference's ``jax.custom_vjp``: its forward is ``flash_fwd`` and its
+backward ``flash_bwd``.  The reference pads both sequence dims to
+multiples of its VMEM block sizes; the CUDA kernels pick their own tiles
+and mask the ragged tails themselves, so nothing is padded here and
+``block_q`` / ``block_k`` are taken only for the reference's signature.
+``flash_fwd`` and ``flash_bwd`` still take padded operands (``sq <=
+Sqp``, ``sk <= Skp``), as the Pallas calls do.
 
-``flash_fwd`` launches the kernel on a CUDA tensor (or raises) and runs
-``flash_fwd_ref`` on a CPU one; every launch adds one to
-``flash_fwd.launches``.  There is no backward yet: on a CUDA tensor that
-requires grad the wrapper raises instead of differentiating through the
-plain version (the dq/dkv kernels come with the training path, ROADMAP
-Queue 2).
+``flash_fwd`` and ``flash_bwd`` launch their kernels on CUDA tensors (or
+raise) and run ``flash_fwd_ref`` / ``flash_bwd_ref`` on CPU ones; every
+launch adds one to ``flash_fwd.launches``, ``flash_bwd.dq_launches`` or
+``flash_bwd.dkv_launches``.  There is no fallback: a CUDA tensor that
+requires grad goes through the kernels both ways.
 """
 from __future__ import annotations
 
@@ -26,9 +29,11 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import expect
-from repro_torch.kernels.flash_attention.ref import flash_fwd_ref
+from repro_torch.kernels.flash_attention.ref import (_acc, flash_bwd_ref,
+                                                     flash_fwd_ref)
 
-# the head dims the kernel is instantiated for (csrc/flash_fwd.cu)
+# the head dims the kernels are instantiated for (csrc/flash_fwd.cu,
+# csrc/flash_bwd.cu)
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -43,19 +48,9 @@ def _pack(q, k, v):
     return qp, kp, vp
 
 
-def flash_fwd(qp, kp, vp, *, causal: bool, scale: float, sq: int, sk: int):
-    """qp (B, KV, G, Sqp, hd); kp/vp (B, KV, Skp, hd), padded past the
-    real lengths ``sq <= Sqp``, ``sk <= Skp``.  Returns ``(o, lse)``: o
-    like qp, lse (B, KV, G, Sqp) fp32; padded query rows hold junk."""
-    if qp.device.type != "cuda":
-        return flash_fwd_ref(qp, kp, vp, causal=causal, scale=scale, sq=sq,
-                             sk=sk)
-    what = "flash_fwd"
-    if qp.requires_grad or kp.requires_grad or vp.requires_grad:
-        raise NotImplementedError(
-            f"{what}: no backward kernel yet (K7 dq/dkv come with the "
-            f"training slice, ROADMAP Queue 2); call it under "
-            f"torch.no_grad() or on detached tensors")
+def _check(what, qp, kp, vp, sq, sk, dop=None, lse=None, dD=None):
+    """Raise unless the packed operands are what the kernels take; returns
+    (B, KV, G, Sqp, hd)."""
     if qp.dim() != 5:
         raise ValueError(f"{what}: q must be (B, KV, G, Sq, hd), got "
                          f"{tuple(qp.shape)}")
@@ -71,17 +66,36 @@ def flash_fwd(qp, kp, vp, *, causal: bool, scale: float, sq: int, sk: int):
     expect(qp, what, "q", qp.dtype, qp.shape, dev)
     expect(kp, what, "k", qp.dtype, (B, KV, Skp, hd), dev)
     expect(vp, what, "v", qp.dtype, (B, KV, Skp, hd), dev)
-    if any(t.data_ptr() % 16 for t in (qp, kp, vp)):
-        raise ValueError(f"{what}: q, k and v must start on 16-byte "
-                         f"boundaries (the kernel reads 16-byte chunks)")
+    rows = []
+    if dop is not None:
+        expect(dop, what, "do", qp.dtype, qp.shape, dev)
+        expect(lse, what, "lse", torch.float32, qp.shape[:4], dev)
+        expect(dD, what, "dD", torch.float32, qp.shape[:4], dev)
+        rows = [dop]
+    if any(t.data_ptr() % 16 for t in (qp, kp, vp, *rows)):
+        raise ValueError(f"{what}: q, k, v and do must start on 16-byte "
+                         f"boundaries (the kernels read 16-byte chunks)")
     if not (0 < sq <= Sqp and 0 < sk <= Skp):
         raise ValueError(f"{what}: real lengths sq={sq}, sk={sk} outside "
                          f"the padded ({Sqp}, {Skp})")
+    return B, KV, G, Sqp, hd
+
+
+def flash_fwd(qp, kp, vp, *, causal: bool, scale: float, sq: int, sk: int):
+    """qp (B, KV, G, Sqp, hd); kp/vp (B, KV, Skp, hd), padded past the
+    real lengths ``sq <= Sqp``, ``sk <= Skp``.  Returns ``(o, lse)``: o
+    like qp, lse (B, KV, G, Sqp) fp32; padded query rows hold junk."""
+    if qp.device.type != "cuda":
+        return flash_fwd_ref(qp, kp, vp, causal=causal, scale=scale, sq=sq,
+                             sk=sk)
+    B, KV, G, Sqp, hd = _check("flash_fwd", qp, kp, vp, sq, sk)
+    dev = qp.device
     o = torch.empty_like(qp)
     lse = torch.empty((B, KV, G, Sqp), dtype=torch.float32, device=dev)
     rc = _build.library().rt_flash_fwd(
         qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), DTYPES[qp.dtype], B * KV * G, G, Sqp, Skp, sq, sk,
+        lse.data_ptr(), DTYPES[qp.dtype], B * KV * G, G, Sqp, kp.shape[2],
+        sq, sk,
         hd, float(scale), int(bool(causal)), _build.stream_ptr(dev))
     _build.check(rc, "flash_fwd launch")
     flash_fwd.launches += 1
@@ -91,23 +105,100 @@ def flash_fwd(qp, kp, vp, *, causal: bool, scale: float, sq: int, sk: int):
 flash_fwd.launches = 0
 
 
+def flash_bwd(qp, kp, vp, dop, lse, dD, *, causal: bool, scale: float,
+              sq: int, sk: int):
+    """K7 dq then K7 dkv.  qp / dop (B, KV, G, Sqp, hd); kp / vp (B, KV,
+    Skp, hd); lse (the forward's) and dD = rowsum(do * o), (B, KV, G,
+    Sqp) fp32.  Returns ``(dq, dk, dv)`` like qp, kp, vp."""
+    if qp.device.type != "cuda":
+        return flash_bwd_ref(qp, kp, vp, dop, lse, dD, causal=causal,
+                             scale=scale, sq=sq, sk=sk)
+    _check("flash_bwd", qp, kp, vp, sq, sk, dop, lse, dD)
+    ops = (qp, kp, vp, dop, lse, dD)
+    kw = dict(causal=causal, scale=scale, sq=sq, sk=sk)
+    dq = torch.empty_like(qp)
+    launch_dq(*ops, dq, **kw)
+    dk, dv = torch.empty_like(kp), torch.empty_like(vp)
+    launch_dkv(*ops, dk, dv, **kw)
+    return dq, dk, dv
+
+
+def _bwd_args(qp, kp, sq, sk, causal, scale):
+    B, KV, G, Sqp, hd = qp.shape
+    return (DTYPES[qp.dtype], B * KV * G, G, Sqp, kp.shape[2], sq, sk, hd,
+            float(scale), int(bool(causal)), _build.stream_ptr(qp.device))
+
+
+def launch_dq(qp, kp, vp, dop, lse, dD, dq, *, causal, scale, sq, sk):
+    """Launch K7 dq into ``dq`` on operands ``flash_bwd`` has checked."""
+    rc = _build.library().rt_flash_bwd_dq(
+        *(t.data_ptr() for t in (qp, kp, vp, dop, lse, dD, dq)),
+        *_bwd_args(qp, kp, sq, sk, causal, scale))
+    _build.check(rc, "flash_bwd dq launch")
+    flash_bwd.dq_launches += 1
+
+
+def launch_dkv(qp, kp, vp, dop, lse, dD, dk, dv, *, causal, scale, sq, sk):
+    """Launch K7 dkv into ``dk``, ``dv`` on checked operands."""
+    rc = _build.library().rt_flash_bwd_dkv(
+        *(t.data_ptr() for t in (qp, kp, vp, dop, lse, dD, dk, dv)),
+        *_bwd_args(qp, kp, sq, sk, causal, scale))
+    _build.check(rc, "flash_bwd dkv launch")
+    flash_bwd.dkv_launches += 1
+
+
+flash_bwd.dq_launches = 0
+flash_bwd.dkv_launches = 0
+
+
 def _fwd(q, k, v, causal, scale):
+    """The packed forward: (o (B, Sq, H, hd), (qp, kp, vp, op, lse))."""
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
     sc = scale if scale is not None else 1.0 / (hd ** 0.5)
     qp, kp, vp = (x.contiguous() for x in _pack(q, k, v))
     o, lse = flash_fwd(qp, kp, vp, causal=causal, scale=sc, sq=Sq, sk=Sk)
-    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd), lse
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd), (qp, kp, vp, o,
+                                                            lse)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Twin of the reference's ``jax.custom_vjp`` (``ops.py:39-98``):
+    forward ``flash_fwd``, backward ``flash_bwd`` with dD = rowsum(do * o)
+    in fp32 outside the kernels, as the reference computes it; the grads
+    come back in the inputs' dtype (the kernels take one dtype for q, k
+    and v and write their grads in it)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, saved = _fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(*saved)
+        ctx.causal = causal
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        qp, kp, vp, op, lse = ctx.saved_tensors
+        B, KV, G, Sq, hd = qp.shape
+        Sk = kp.shape[2]
+        sc = ctx.scale if ctx.scale is not None else 1.0 / (hd ** 0.5)
+        dop = do.reshape(B, Sq, KV, G, hd).permute(0, 2, 3, 1, 4).contiguous()
+        dD = (_acc(dop) * _acc(op)).sum(-1)
+        dq, dk, dv = flash_bwd(qp, kp, vp, dop, lse, dD, causal=ctx.causal,
+                               scale=sc, sq=Sq, sk=Sk)
+        dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, KV * G, hd)
+        return dq, dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3), None, None
 
 
 def flash_attention(q, k, v, causal=True, block_q=512, block_k=512,
                     scale=None):
-    """q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd) -> (B, Sq, H, hd)."""
+    """q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd) -> (B, Sq, H, hd);
+    differentiable through ``_FlashAttention``."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3] \
             or q.shape[2] % k.shape[2]:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} are not "
                          f"(B, Sq, H, hd) and (B, Sk, KV, hd) with KV | H")
-    o, _ = _fwd(q, k, v, causal, scale)
-    return o
+    return _FlashAttention.apply(q, k, v, causal, scale)

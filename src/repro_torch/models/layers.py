@@ -94,3 +94,20 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     rot = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return rot.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-token CE in fp32. labels < 0 are masked. Returns (loss, n_tok)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1,
+                      labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    nll = (lse - ll) * mask
+    n = torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(nll) / n, n

@@ -7,7 +7,11 @@ The other families (moe, vlm, audio, hybrid, ssm) raise
 
 Params are a flat ``dict[str, torch.Tensor]`` with the reference's names
 and layout; stacked layer params carry a leading layer dim and the layer
-loop walks it (the reference's ``lax.scan``).  ``param_specs(cfg)`` is the
+loop walks it (the reference's ``lax.scan``).  ``forward`` is
+differentiable; with ``cfg.remat`` and grad enabled each layer's block
+runs under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``
+in ``_maybe_remat``): only the layer's input is kept, and the block is
+recomputed in the backward pass.  ``param_specs(cfg)`` is the
 single source of truth for shapes.  The reference's sharding constraints
 (``constrain``) are no-ops without a mesh and are dropped here.
 
@@ -25,6 +29,7 @@ Entry points:
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels.dispatch import check_device
 from repro_torch.models.attention import decode_attention, flash_attention
@@ -117,8 +122,12 @@ def _subtree(params: dict, prefix: str) -> dict:
     return {k[len(pl):]: v for k, v in params.items() if k.startswith(pl)}
 
 
-def _layer(p: dict, i: int) -> dict:
-    return {k: v[i] for k, v in p.items()}
+def _layers(p: dict, n: int) -> list[dict]:
+    """Per-layer views of stacked params (one ``unbind`` per leaf: its
+    backward stacks the layers' grads once, where indexing would build a
+    full-size zero grad per layer)."""
+    rows = {k: v.unbind(0) for k, v in p.items()}
+    return [{k: r[i] for k, r in rows.items()} for i in range(n)]
 
 
 def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
@@ -204,11 +213,20 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     x = _embed(cfg, params, tokens, dtype)
     S = x.shape[1]
     pos = torch.arange(S, device=x.device)[None, :]
-    attn_p = _subtree(params, "layers/attn")
-    ff_p = _subtree(params, "layers/mlp")
-    for i in range(cfg.n_layers):
-        x = x + _attn_apply(cfg, _layer(attn_p, i), x, pos)
-        x = x + _mlp_apply(cfg, _layer(ff_p, i), x)
+    attn_p = _layers(_subtree(params, "layers/attn"), cfg.n_layers)
+    ff_p = _layers(_subtree(params, "layers/mlp"), cfg.n_layers)
+
+    def block(x, ap, fp):
+        x = x + _attn_apply(cfg, ap, x, pos)
+        return x + _mlp_apply(cfg, fp, x)
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for ap, fp in zip(attn_p, ff_p):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(block, x, ap, fp,
+                                                  use_reentrant=False)
+        else:
+            x = block(x, ap, fp)
     if last_only:
         x = x[:, -1:]
     x = rms_norm(x, params["final_norm/scale"], cfg.norm_eps)
@@ -245,11 +263,10 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     x = params["embed/tok"][tokens.long()].to(dtype)
     B = x.shape[0]
     pos = torch.as_tensor(pos, device=x.device).long().expand(B)
-    attn_p = _subtree(params, "layers/attn")
-    ff_p = _subtree(params, "layers/mlp")
-    for i in range(cfg.n_layers):
-        x = x + _attn_decode(cfg, _layer(attn_p, i), x, cache["k"][i],
-                             cache["v"][i], pos)
-        x = x + _mlp_apply(cfg, _layer(ff_p, i), x)
+    attn_p = _layers(_subtree(params, "layers/attn"), cfg.n_layers)
+    ff_p = _layers(_subtree(params, "layers/mlp"), cfg.n_layers)
+    for i, (ap, fp) in enumerate(zip(attn_p, ff_p)):
+        x = x + _attn_decode(cfg, ap, x, cache["k"][i], cache["v"][i], pos)
+        x = x + _mlp_apply(cfg, fp, x)
     x = rms_norm(x, params["final_norm/scale"], cfg.norm_eps)
     return _lm_head(cfg, params, x), cache

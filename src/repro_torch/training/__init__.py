@@ -1,2 +1,3 @@
-"""Serving steps of the LM stack (twin of ``src/repro/training``); the
-loss and the train step come with the training slice (ROADMAP Queue 2)."""
+"""Training and serving steps of the LM stack (twin of
+``src/repro/training``): the loss, AdamW, the train / eval steps, the
+prefill / decode steps, and the int8 gradient codec."""

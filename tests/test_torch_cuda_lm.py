@@ -19,8 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import configs
-from repro_torch.kernels.flash_attention import (flash_attention, flash_fwd,
-                                                 flash_fwd_ref)
+from repro_torch.kernels.flash_attention import (flash_attention, flash_bwd,
+                                                 flash_fwd, flash_fwd_ref)
 from repro_torch.kernels.flash_attention.ops import _pack
 from repro_torch.models import model as M
 from repro_torch.models.layers import init_params
@@ -87,8 +87,20 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
         flash_attention(q.half(), k.half(), k.half())
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q[..., :96], k[..., :96], k[..., :96])
-    with pytest.raises(NotImplementedError, match="training slice"):
-        flash_attention(q.requires_grad_(), k, k)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_bwd(*(x[..., :96].contiguous() for x in _pack(q, k, k)),
+                  _pack(q, k, k)[0][..., :96].contiguous(),
+                  torch.zeros(1, 2, 2, 64, device=card),
+                  torch.zeros(1, 2, 2, 64, device=card), causal=True,
+                  scale=0.1, sq=64, sk=64)
+    # a tensor that requires grad goes through the kernels both ways
+    n = (flash_fwd.launches, flash_bwd.dq_launches, flash_bwd.dkv_launches)
+    qg = q.clone().requires_grad_()
+    flash_attention(qg, k, k).sum().backward()
+    torch.cuda.synchronize()
+    assert (flash_fwd.launches, flash_bwd.dq_launches,
+            flash_bwd.dkv_launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    assert qg.grad.dtype == torch.bfloat16 and torch.isfinite(qg.grad).all()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

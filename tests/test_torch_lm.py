@@ -23,7 +23,9 @@ from repro.models import model as JM
 from repro.training.step import make_prefill_step as j_prefill_step
 from repro.training.step import make_serve_step as j_serve_step
 from repro_torch import configs as t_configs
+from repro_torch.checkpoint import restore
 from repro_torch.launch.serve import serve, serve_lm
+from repro_torch.launch.train import train
 from repro_torch.models import layers as t_layers
 from repro_torch.models import model as TM
 from repro_torch.models.weights import params_from_jax
@@ -285,6 +287,8 @@ def _default_device_calls():
             {"w": np.zeros((2, 2), np.float32)}),
         "serve": lambda: serve(["--arch", ARCH, "--smoke", "--requests",
                                 "1"]),
+        "train": lambda: train(["--arch", ARCH, "--smoke", "--steps", "1"]),
+        "restore": lambda: restore(".", {"params": {}}),
     }
 
 
