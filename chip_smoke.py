@@ -29,12 +29,15 @@ makes the script exit non-zero):
               (1, 32768) (its first and last 512 query rows), bf16 and
               fp32, causal, ragged and non-causal, element-wise and per
               query row (tolerances at K7_TOL, K7_ROW_RTOL), and two
-              planted faults the check must flag; K7 dq and dkv against
-              ``flash_bwd_ref`` at the training layer shapes (1, 4096)
-              and (2, 4096), bf16 and fp32, causal, ragged and
+              planted faults the check must flag; the K7 backward
+              (bf16: the fused dq / dk / dv kernel; fp32: K7 dq and dkv)
+              against ``flash_bwd_ref`` at the training layer shapes
+              (1, 4096) and (2, 4096), bf16 and fp32, causal, ragged and
               non-causal, per output row and scaled (K7B_ROW_RTOL,
-              K7B_SCALED_TOL), and two planted faults (lse offset past
-              row 512, dD zeroed) the check must flag;
+              K7B_SCALED_TOL), dk / dv bit-identical across two runs and
+              dq within K7B_DQ_RERUN_RTOL (its atomics), and three
+              planted faults (lse offset past row 512, dD zeroed, a
+              non-zero dq accumulator) the check must flag;
 4. main     — the port's main paths against the oracle, each drive with
               the launch counters set to 0 just before it and read just
               after: ``MBEClient`` at default options (a 32-graph stream
@@ -63,7 +66,7 @@ makes the script exit non-zero):
               'xla' per parameter, in bf16 at 28 layers (with a planted
               K7 bwd fault that must be flagged) and in fp32 at 2 layers
               (TRAIN_GRAD_RTOL); 3 AdamW steps with accum=2 on (4, 4096)
-              (per step 112 K7 fwd, 56 dq, 56 dkv; finite loss and grad
+              (per step 112 K7 fwd, 56 fused bwd; finite loss and grad
               norm; params moved; peak memory) and a profiled step; the
               launcher ``repro_torch.launch.train`` at the smoke config
               with an injected failure, resumed at its checkpointed data
@@ -71,7 +74,8 @@ makes the script exit non-zero):
 5. times    — per-kernel CUDA-event and profiler times at each kernel's
               own path's shapes beside the plain version and the bound
               (and for K7 the time of ``F.scaled_dot_product_attention``
-              on the same operands, and for K7 dq / dkv of its backward),
+              on the same operands, and for the K7 backward SDPA's
+              backward),
               and the device's busy share over main-path windows.
 
 Every phase runs on every call; the script takes no arguments.  The line
@@ -96,6 +100,8 @@ H100_INT_OPS_PER_S = 67e12      # CUDA-core 32-bit rate (NVIDIA's published
 #                                 FP32 non-tensor peak), for AND/popcount
 #                                 words
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor-core peak (data sheet)
+H100_FP32_FLOPS = 67e12         # FP32 CUDA-core (non-tensor) peak, the
+#                                 fp32 K7 dq / dkv's rate
 
 
 def log(*a):
@@ -593,7 +599,7 @@ def check_k7(dev):
     return worst
 
 
-# K7 dq and dkv at the qwen3-1.7b training layer shapes (B, 4096) with H 16,
+# The K7 backward at the qwen3-1.7b training layer shapes (B, 4096) with H 16,
 # KV 8, hd 128 (the main path's microbatch is B = 2), bf16 and fp32,
 # causal, plus a ragged and a non-causal case: (B, S, H, KV, hd, dtype,
 # causal).  The operands are the forward kernel's o and lse, a random do
@@ -613,14 +619,20 @@ K7B_CASES = (
 # key gives ds = p (do.v - do.o) = 0) and both sides hold rounding noise
 # of the terms there.  bf16: the kernels and the plain version round p
 # and ds to bf16 at the same points, from fp32 scores summed in another
-# order, and round the outputs to bf16; fp32: the same arithmetic summed
-# in another order.  Limits at ~2-3x the sound kernels' largest readings
-# over K7B_CASES on the card (PERF.md section 6: bf16 row 5.7e-3, scaled
-# 3.9e-3; fp32 row 6.2e-7, scaled 3.1e-7); the planted faults read
-# row >= 0.5 and scaled >= 0.047.
+# order, and round the outputs to bf16 (the fused kernel's dq partials
+# meet in an fp32 accumulator through atomics, another order again);
+# fp32: the same arithmetic summed in another order.  Limits at ~2-3x the
+# sound kernels' largest readings over K7B_CASES on the card (PERF.md
+# section 6: bf16 row 5.7e-3, scaled 3.9e-3; fp32 row 6.2e-7, scaled
+# 3.1e-7); the planted faults read row >= 0.5 and scaled >= 0.047.
 K7B_ROW_RTOL = {"bfloat16": 1e-2, "float32": 2e-6}
 K7B_SCALED_TOL = {"bfloat16": 1e-2, "float32": 1e-6}
 K7B_FAULT_ROW = 512
+# dq of the fused kernel, one run against another on the same operands,
+# per row: its fp32 partials are added in whatever order the atomics land,
+# so an element may round to the neighbouring bf16 value: one bf16 ulp,
+# at most 2^-7 of the value; dk and dv must be bit-identical.
+K7B_DQ_RERUN_RTOL = 2 ** -7
 
 
 def k7b_operands(B, S, H, KV, hd, dtype, causal, dev, seed):
@@ -666,13 +678,19 @@ def k7b_brief(e) -> str:
 
 
 def check_k7_bwd(dev):
-    """K7 dq and dkv against ``flash_bwd_ref`` on the card at K7B_CASES,
-    then two planted faults (the lse of query rows from K7B_FAULT_ROW on
-    offset by +0.7; dD zeroed) that the check must flag; returns the
-    largest max |err| of (dq, dk + dv) over the bf16 and fp32 cases."""
+    """The K7 backward against ``flash_bwd_ref`` on the card at K7B_CASES
+    (bf16: the fused kernel; fp32: K7 dq and dkv), the fused kernel's
+    determinism (dk, dv bit-identical across two runs; dq within
+    K7B_DQ_RERUN_RTOL), then three planted faults that the check must
+    flag: the lse of query rows from K7B_FAULT_ROW on offset by +0.7, dD
+    zeroed, and the dq accumulator handed to the kernel filled with
+    non-zero values.  Returns the largest max |err| of each kernel over
+    its cases, and the readings."""
     import torch
     from repro_torch.kernels.flash_attention import flash_bwd, flash_bwd_ref
-    worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    from repro_torch.kernels.flash_attention.ops import launch_bwd
+    worst = {"flash_bwd_fused": 0.0, "flash_bwd_dq": 0.0,
+             "flash_bwd_dkv": 0.0}
     readings = {}
     for i, (B, S, H, KV, hd, dt, causal) in enumerate(K7B_CASES):
         qp, kp, vp, dop, lse, dD, kw = k7b_operands(B, S, H, KV, hd, dt,
@@ -686,27 +704,55 @@ def check_k7_bwd(dev):
             f"{causal}: {k7b_brief(e)} (tols {K7B_ROW_RTOL[dt]} / "
             f"{K7B_SCALED_TOL[dt]})")
         require(k7b_ok(e, dt), f"K7 bwd {K7B_CASES[i]}: {e}")
-        worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], e["dq"]["abs"])
-        worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], e["dk"]["abs"],
-                                     e["dv"]["abs"])
+        if dt == "bfloat16":
+            worst["flash_bwd_fused"] = max(worst["flash_bwd_fused"],
+                                           *(v["abs"] for v in e.values()))
+            again = flash_bwd(qp, kp, vp, dop, lse, dD, **kw)
+            same = (torch.equal(again[1], got[1])
+                    and torch.equal(again[2], got[2]))
+            rerun = k7b_errors(again, got)["dq"]["row"]
+            readings[f"rerun {K7B_CASES[i]}"] = dict(dk_dv_identical=same,
+                                                      dq_row=rerun)
+            log(f"  rerun: dk, dv bit-identical {same}; dq per row {rerun:.3g}"
+                f" (tol {K7B_DQ_RERUN_RTOL:.3g})")
+            require(same and rerun <= K7B_DQ_RERUN_RTOL,
+                    f"K7 bwd {K7B_CASES[i]} rerun: dk/dv identical {same}, "
+                    f"dq per row {rerun}")
+            del again
+        else:
+            worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], e["dq"]["abs"])
+            worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"],
+                                         e["dk"]["abs"], e["dv"]["abs"])
         del got
         if i == 0:
-            # controls: the kernels given a wrong operand, held against the
-            # plain version on the right ones, must come out wrong
+            # controls: the fused kernel given a wrong operand, held against
+            # the plain version on the right ones, must come out wrong
+            require(dt == "bfloat16", "the controls run the fused kernel")
             bad_lse = lse.clone()
             bad_lse[..., K7B_FAULT_ROW:] += 0.7
-            for what, args in (
+            g = torch.Generator(device=dev).manual_seed(7)
+            bad_acc = (torch.randn(qp.shape, generator=g, device=dev)
+                       * float(want[0].float().abs().mean()))
+
+            def dirty_acc():
+                dk, dv = torch.empty_like(kp), torch.empty_like(vp)
+                launch_bwd(qp, kp, vp, dop, lse, dD, bad_acc, dk, dv, **kw)
+                return bad_acc.to(qp.dtype), dk, dv
+            for what, run in (
                     (f"lse + 0.7 from row {K7B_FAULT_ROW}",
-                     (qp, kp, vp, dop, bad_lse, dD)),
-                    ("dD zeroed", (qp, kp, vp, dop, lse,
-                                   torch.zeros_like(dD)))):
-                ce = k7b_errors(flash_bwd(*args, **kw), want)
+                     lambda: flash_bwd(qp, kp, vp, dop, bad_lse, dD, **kw)),
+                    ("dD zeroed",
+                     lambda: flash_bwd(qp, kp, vp, dop, lse,
+                                       torch.zeros_like(dD), **kw)),
+                    ("dq accumulator not zeroed", dirty_acc)):
+                ce = k7b_errors(run(), want)
                 flagged = not k7b_ok(ce, dt)
                 readings[f"control: {what}"] = ce
                 log(f"  control ({what}) at {K7B_CASES[i][:5]}: "
                     f"{k7b_brief(ce)}: flagged {flagged}")
                 require(flagged, f"K7 bwd check passes a planted fault "
                                  f"({what}): {ce}")
+            del bad_lse, bad_acc
         del qp, kp, vp, dop, lse, dD, want
         torch.cuda.empty_cache()
     return worst, readings
@@ -739,7 +785,7 @@ def check_results(results, graphs, truth, what):
 
 def counted():
     """{record name: (wrapper, counter attribute)} of every kernel wrapper
-    that counts its launches: the ten entry points of the ``kernels``
+    that counts its launches: the eleven entry points of the ``kernels``
     line first, then the kinds no main path launches (their counts must
     stay 0 there)."""
     from repro_torch.kernels import fused_check as fc
@@ -756,6 +802,7 @@ def counted():
            "fused_check_gathered_prefix2": fc.fused_check_gathered_prefix2,
            "intersect_count": intersect_count,
            "flash_fwd": flash_fwd,
+           "flash_bwd_fused": (flash_bwd, "fused_launches"),
            "flash_bwd_dq": (flash_bwd, "dq_launches"),
            "flash_bwd_dkv": (flash_bwd, "dkv_launches"),
            "fused_select": fs.fused_select,
@@ -1220,15 +1267,16 @@ def k7_bwd_fault():
 
     def faulty(qp, kp, vp, dop, lse, dD, **kw):
         return real(qp, kp, vp, dop, lse, torch.zeros_like(dD), **kw)
-    faulty.dq_launches = real.dq_launches
-    faulty.dkv_launches = real.dkv_launches
+    counts = ("fused_launches", "dq_launches", "dkv_launches")
+    for c in counts:
+        setattr(faulty, c, getattr(real, c))
     ops.flash_bwd = faulty
     try:
         yield
     finally:
         ops.flash_bwd = real
-        real.dq_launches = faulty.dq_launches
-        real.dkv_launches = faulty.dkv_launches
+        for c in counts:
+            setattr(real, c, getattr(faulty, c))
 
 
 def grad_errors(g, ref) -> dict:
@@ -1282,11 +1330,15 @@ def check_train_grads(cfg, master, batch, dtype, label, by_path,
     gp, cp = probe_grads(pal, master, batch)
     wall_p = time.perf_counter() - t
     by_path[label] = cp
-    require((cp["flash_fwd"], cp["flash_bwd_dq"], cp["flash_bwd_dkv"]) ==
-            (2 * L, L, L) and sum(cp.values()) == 4 * L and not any(
-                cx.values()),
+    # remat: two K7 fwd a layer; the backward is the fused kernel in bf16,
+    # K7 dq + dkv in fp32
+    bwd = ((L, 0, 0) if dtype == "bfloat16" else (0, L, L))
+    want = (2 * L,) + bwd
+    require((cp["flash_fwd"], cp["flash_bwd_fused"], cp["flash_bwd_dq"],
+             cp["flash_bwd_dkv"]) == want and sum(cp.values()) == sum(want)
+            and not any(cx.values()),
             f"{label}: launches {nonzero(cp)}, torch-op path {nonzero(cx)};"
-            f" expected {2 * L} flash_fwd (remat), {L} dq, {L} dkv")
+            f" expected (fwd, fused, dq, dkv) = {want}")
     sound = grad_errors(gp, gx)
     del gp
     out = dict(wall_s=wall_p, xla_wall_s=wall_x, grads=sound,
@@ -1365,11 +1417,11 @@ def train_path(dev, by_path):
         walls.append(time.perf_counter() - t)
         c = counters()
         per = {k: c[k] - n[k] for k in c}
-        want = (2 * L * TRAIN_ACCUM, L * TRAIN_ACCUM, L * TRAIN_ACCUM)
-        require((per["flash_fwd"], per["flash_bwd_dq"],
-                 per["flash_bwd_dkv"]) == want and sum(per.values()) ==
-                sum(want), f"{label} step {i}: launches {nonzero(per)}, "
-                           f"expected {want}")
+        want = (2 * L * TRAIN_ACCUM, L * TRAIN_ACCUM)
+        require((per["flash_fwd"], per["flash_bwd_fused"]) == want
+                and sum(per.values()) == sum(want),
+                f"{label} step {i}: launches {nonzero(per)}, expected "
+                f"(fwd, fused) = {want}")
         hist.append(dict(loss=float(m["loss"]), grad_norm=float(
             m["grad_norm"]), lr=float(m["lr"]), tokens=float(m["tokens"])))
         require(all(map(lambda x: x == x and abs(x) != float("inf"),
@@ -1432,10 +1484,11 @@ KERNEL_PATH = {
     "fused_check_gathered_prefix2": "compact stream",
     "intersect_count": "compact unfused impl=pallas",
     "flash_fwd": f"prefill {LM_PREFILL[0]} pallas",
-    "flash_bwd_dq": f"train ({TRAIN_MICRO * TRAIN_ACCUM}, {TRAIN_SEQ}) "
-                    f"accum={TRAIN_ACCUM}",
-    "flash_bwd_dkv": f"train ({TRAIN_MICRO * TRAIN_ACCUM}, {TRAIN_SEQ}) "
-                     f"accum={TRAIN_ACCUM}",
+    "flash_bwd_fused": f"train ({TRAIN_MICRO * TRAIN_ACCUM}, {TRAIN_SEQ}) "
+                       f"accum={TRAIN_ACCUM}",
+    "flash_bwd_dq": f"train grads ({TRAIN_MICRO}, {TRAIN_SEQ}) fp32 2 layers",
+    "flash_bwd_dkv": f"train grads ({TRAIN_MICRO}, {TRAIN_SEQ}) fp32 2 "
+                     f"layers",
 }
 
 
@@ -1713,96 +1766,140 @@ def k7_times(dev, by_path, errs, lm):
 K7B_TIME_SHAPES = ((1, 4_096, 16, 8, 128), (2, 4_096, 16, 8, 128))
 
 
-def k7_bwd_times(dev, by_path, errs, train):
-    """K7 dq and K7 dkv at K7B_TIME_SHAPES, bf16 causal: each kernel's
-    launch (CUDA events) and device time (profiler), its bound (the
-    causal pairs' FLOPs, 6 hd a pair for dq and 8 hd for dkv with the
-    recomputed scores, over the bf16 peak, against the bytes each must
-    move), the plain version (dq, dk and dv in one call) and the library
-    call: ``torch.autograd.grad`` through ``F.scaled_dot_product_attention(
-    is_causal=True, enable_gqa=True)`` minus its forward, which computes
-    dq, dk and dv together."""
+def sdpa_backward(qp, kp, vp, dop, reps=20):
+    """The library call for the K7 backward: ``torch.autograd.grad``
+    through ``F.scaled_dot_product_attention(is_causal=True,
+    enable_gqa=True)`` minus its forward, which computes dq, dk and dv
+    together.  Returns ({library_fwd_bwd_ms, library_fwd_ms, library_ms},
+    SDPA's dq in fp32, (B, H, S, hd))."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_bwd_ref
+    qs, ks, vs = (x.detach().requires_grad_() for x in
+                  (qp.flatten(1, 2), kp, vp))
+    dos = dop.flatten(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                              enable_gqa=True)
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd(), (qs, ks, vs), dos)
+    r = dict(library_fwd_bwd_ms=cuda_ms(fwd_bwd, reps),
+             library_fwd_ms=cuda_ms(fwd, reps))
+    r["library_ms"] = r["library_fwd_bwd_ms"] - r["library_fwd_ms"]
+    return r, fwd_bwd()[0].float()
+
+
+def row_rel(x, ref) -> float:
+    """max over rows of ||x - ref|| / ||ref||, rows under 1e-2 of the
+    median row norm left out (K7B_ROW_RTOL's first measure)."""
+    rn = ref.norm(dim=-1)
+    keep = rn >= 1e-2 * rn.median()
+    return float(((x - ref).norm(dim=-1)[keep] / rn[keep]).max())
+
+
+def k7_bwd_times(dev, by_path, errs, train):
+    """The fused K7 backward at K7B_TIME_SHAPES, bf16 causal: the wrapper
+    call (CUDA events; it includes zeroing the fp32 dq accumulator and
+    casting it to bf16) and the kernel's device time (profiler), its
+    bound (10 hd FLOPs a causal (q, k) pair over the bf16 peak, against
+    the bytes it must move), TFLOP/s at 10 hd, the plain version and the
+    library call (``sdpa_backward``).  Then the fp32 K7 dq and dkv at the
+    fp32 grad path's shape (2, 4096): each kernel's launch and device
+    time, its bound (6 hd and 8 hd FLOPs a pair with the recomputed
+    scores, over the FP32 CUDA-core peak), the plain version and SDPA's
+    fp32 backward."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_bwd, flash_bwd_ref
     from repro_torch.kernels.flash_attention.ops import launch_dkv, launch_dq
     rows = {}
     for B, S, H, KV, hd in K7B_TIME_SHAPES:
         qp, kp, vp, dop, lse, dD, kw = k7b_operands(
             B, S, H, KV, hd, "bfloat16", True, dev, seed=S + B)
-        dq, dk, dv = (torch.empty_like(x) for x in (qp, kp, vp))
         ops = (qp, kp, vp, dop, lse, dD)
 
-        def k_dq():
-            launch_dq(*ops, dq, **kw)
-
-        def k_dkv():
-            launch_dkv(*ops, dk, dv, **kw)
+        def call():
+            return flash_bwd(*ops, **kw)
         pairs = B * H * S * (S + 1) // 2              # causal (q, k) pairs
         rq = 2 * B * S * hd * H                      # one q-shaped bf16 tensor
         rk = 2 * B * S * hd * KV
-        r = {}
-        for name, fn, kname, flops, nbytes in (
-                ("flash_bwd_dq", k_dq, "flash_dq_bf16", 6 * hd * pairs,
-                 3 * rq + 2 * rk + 8 * B * H * S),
-                ("flash_bwd_dkv", k_dkv, "flash_dkv_bf16", 8 * hd * pairs,
-                 2 * rq + 4 * rk + 8 * B * H * S)):
-            b, kind = bound(nbytes, flops, H100_BF16_FLOPS)
-            ms = cuda_ms(fn)
-            r[name] = dict(ms=ms, device_ms=device_ms(fn, kname), bound_ms=b,
-                           bound_by=kind, tflops=flops / (ms * 1e9))
+        flops = 10 * hd * pairs
+        b, kind = bound(3 * rq + 4 * rk + 8 * B * H * S, flops,
+                        H100_BF16_FLOPS)
+        ms = cuda_ms(call)
+        r = dict(ms=ms, device_ms=device_ms(call, "flash_bwd_fused"),
+                 bound_ms=b, bound_by=kind, tflops=flops / (ms * 1e9))
         r["plain_ms"] = cuda_ms(lambda: flash_bwd_ref(*ops, **kw), reps=3)
-        # the library: SDPA's backward (fwd + bwd, minus the fwd)
-        qs, ks, vs = (x.detach().requires_grad_() for x in
-                      (qp.flatten(1, 2), kp, vp))
-        dos = dop.flatten(1, 2)
-
-        def sdpa_fwd():
-            return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
-                                                  enable_gqa=True)
-
-        def sdpa_fwd_bwd():
-            return torch.autograd.grad(sdpa_fwd(), (qs, ks, vs), dos)
-        r["library_fwd_bwd_ms"] = cuda_ms(sdpa_fwd_bwd)
-        r["library_fwd_ms"] = cuda_ms(sdpa_fwd)
-        r["library_ms"] = r["library_fwd_bwd_ms"] - r["library_fwd_ms"]
-        # the same function: SDPA's dq per query row against K7 dq's
-        k_dq()
-        sq = sdpa_fwd_bwd()[0].float()
-        x = dq.flatten(1, 2).float()
-        rn = sq.norm(dim=-1)
-        keep = rn >= 1e-2 * rn.median()
-        r["sdpa_dq_row_rel_diff"] = float(((x - sq).norm(dim=-1)[keep]
-                                           / rn[keep]).max())
+        lib, sdpa_dq = sdpa_backward(qp, kp, vp, dop)
+        r.update(lib)
+        # the same function: SDPA's dq per query row against the kernel's
+        r["sdpa_dq_row_rel_diff"] = row_rel(call()[0].flatten(1, 2).float(),
+                                            sdpa_dq)
         require(r["sdpa_dq_row_rel_diff"] <= 2 * K7B_ROW_RTOL["bfloat16"],
-                f"SDPA and K7 dq disagree at {(B, S)}: "
-                f"{r['sdpa_dq_row_rel_diff']}")
-        del sq, x, qs, ks, vs, dos, dq, dk, dv, ops, qp, kp, vp, dop
+                f"SDPA and the fused K7 backward disagree on dq at {(B, S)}:"
+                f" {r['sdpa_dq_row_rel_diff']}")
+        del sdpa_dq, ops, qp, kp, vp, dop, lse, dD
+        torch.cuda.empty_cache()
         rows[(B, S)] = r
-        log(f"  flash_bwd at {(B, S, H, KV, hd)} bf16 causal: "
+        log(f"  flash_bwd fused at {(B, S, H, KV, hd)} bf16 causal: "
             + json.dumps(r))
+    # fp32: K7 dq and dkv, one layer of the fp32 grad path
+    B, S, H, KV, hd = K7B_TIME_SHAPES[1]
+    qp, kp, vp, dop, lse, dD, kw = k7b_operands(
+        B, S, H, KV, hd, "float32", True, dev, seed=S + B)
+    ops = (qp, kp, vp, dop, lse, dD)
+    dq, dk, dv = (torch.empty_like(x) for x in (qp, kp, vp))
+    pairs = B * H * S * (S + 1) // 2
+    rq, rk = 4 * B * S * hd * H, 4 * B * S * hd * KV
+    f32 = {}
+    for name, fn, kname, flops, nbytes in (
+            ("flash_bwd_dq", lambda: launch_dq(*ops, dq, **kw),
+             "flash_dq_f32", 6 * hd * pairs, 3 * rq + 2 * rk + 8 * B * H * S),
+            ("flash_bwd_dkv", lambda: launch_dkv(*ops, dk, dv, **kw),
+             "flash_dkv_f32", 8 * hd * pairs,
+             2 * rq + 4 * rk + 8 * B * H * S)):
+        b, kind = bound(nbytes, flops, H100_FP32_FLOPS)
+        ms = cuda_ms(fn, reps=3)
+        f32[name] = dict(ms=ms, device_ms=device_ms(fn, kname, reps=3),
+                         bound_ms=b, bound_by=kind,
+                         tflops=flops / (ms * 1e9))
+    f32["plain_ms"] = cuda_ms(lambda: flash_bwd_ref(*ops, **kw), reps=2)
+    lib, _ = sdpa_backward(qp, kp, vp, dop, reps=3)
+    f32.update(lib)
+    del ops, qp, kp, vp, dop, lse, dD, dq, dk, dv
     torch.cuda.empty_cache()
+    log(f"  flash_bwd dq / dkv at {(B, S, H, KV, hd)} fp32 causal: "
+        + json.dumps(f32))
     main = rows[K7B_TIME_SHAPES[1][:2]]
-    other = rows[K7B_TIME_SHAPES[0][:2]]
-    shape = (f"(B, S, H, KV, hd) = {K7B_TIME_SHAPES[1]} bf16 causal, one "
-             f"qwen3-1.7b layer of the train step's microbatch")
-    out = []
+    library = dict(
+        library_call="torch.autograd.grad through F.scaled_dot_product_"
+                     "attention(is_causal=True, enable_gqa=True), minus its "
+                     "forward",
+        library_note="SDPA's backward computes dq, dk and dv in one call")
+    kernel_py = "src/repro/kernels/flash_attention/kernel.py"
+    out = [record(
+        "flash_bwd_fused", by_path, errs,
+        source="src/repro_torch/csrc/flash_bwd.cu",
+        replaces=f"{kernel_py}:91",
+        replaces_all=[f"{kernel_py}:91", f"{kernel_py}:131"],
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=main["library_ms"], **library,
+        plain_note="flash_bwd_ref computes dq, dk and dv in one call",
+        device_ms=main["device_ms"], tflops_10hd=main["tflops"],
+        shape=f"(B, S, H, KV, hd) = {K7B_TIME_SHAPES[1]} bf16 causal, one "
+              f"qwen3-1.7b layer of the train step's microbatch",
+        at_1x4096=rows[K7B_TIME_SHAPES[0][:2]], train=train)]
     for name, line in (("flash_bwd_dq", 91), ("flash_bwd_dkv", 131)):
-        k = main[name]
+        k = f32[name]
         out.append(record(
             name, by_path, errs, source="src/repro_torch/csrc/flash_bwd.cu",
-            replaces=f"src/repro/kernels/flash_attention/kernel.py:{line}",
-            ms=k["ms"], plain_ms=main["plain_ms"], bound_ms=k["bound_ms"],
-            bound_by=k["bound_by"], library_ms=main["library_ms"],
-            library_call="torch.autograd.grad through F.scaled_dot_product_"
-                         "attention(is_causal=True, enable_gqa=True), minus "
-                         "its forward",
-            library_note="SDPA's backward computes dq, dk and dv in one "
-                         "call; compare it with dq + dkv",
+            replaces=f"{kernel_py}:{line}", ms=k["ms"],
+            plain_ms=f32["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=f32["library_ms"], **library,
             plain_note="flash_bwd_ref computes dq, dk and dv in one call",
-            device_ms=k["device_ms"], tflops=k["tflops"], shape=shape,
-            at_1x4096=other[name],
-            **({"train": train} if name == "flash_bwd_dq" else {})))
+            device_ms=k["device_ms"], tflops=k["tflops"],
+            shape=f"(B, S, H, KV, hd) = {K7B_TIME_SHAPES[1]} fp32 causal, "
+                  f"one layer of the fp32 grad path"))
     return out
 
 
@@ -1916,6 +2013,27 @@ def slice2_times(dev, by_path, errs):
                           ms=ms, plain_ms=plain, bound_ms=b, bound_by=kind,
                           library_ms=None, library_note=NO_LIBRARY,
                           device_ms=dms, shape=shp))
+    # K1's dense kind through idx (fused_check_gathered): no main path
+    # launches it (its count stays 0 there); timed at the compact lane's
+    # shape over the same 2N rows [Q ++ P] with activity as prefix2 reads
+    # it, for its PERF.md row; logged, not in the kernels line
+    pos = torch.arange(2 * n, device=dev)[None]
+    q_act, p_act = pos < qv, (pos >= n) & (pos < n + pw)
+
+    def k1_dense(impl):
+        return fc.fused_check_gathered(ctx.adj, idx2, Lp, nLp, q_act, p_act,
+                                       impl=impl)
+    err = max_err(k1_dense("pallas"), k1_dense("jnp"))
+    require(err == 0, f"fused_check_gathered differs ({err})")
+    b, kind = bound(2 * n * (row_b + 4) + row_b + 4 + 2 * 2 * n + 3 * 2 * n,
+                    2 * 2 * n * w)
+    k1d = dict(ms=cuda_ms(lambda: k1_dense("pallas")),
+               device_ms=device_ms(lambda: k1_dense("pallas"),
+                                   "fused_check_kernel"),
+               plain_ms=cuda_ms(lambda: k1_dense("jnp")), bound_ms=b,
+               bound_by=kind, max_abs_err=err, library_ms=None)
+    log(f"  fused_check_gathered (K1 dense through idx) at {shape}, 2N = "
+        f"{2 * n} rows: " + json.dumps(k1d))
     # the device's busy share over a compact request's window: the
     # dblp-like lane's engine loop, steps_per_call = 16, 256 steps from the
     # state above
@@ -1964,8 +2082,12 @@ def main() -> int:
     log(f"[build] {time.perf_counter() - t0:.1f} s (nvcc "
         f"{_build.build_seconds if _build.build_seconds else 0:.1f} s)")
     for line in _build.ptxas_log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if ("registers" in line or "Compiling entry" in line
+                or "spill" in line or "C75" in line):
             log("  ptxas " + line.strip())
+    log("  flash_bwd_fused dynamic shared memory (bytes) by head dim: "
+        + json.dumps({hd: _build.library().rt_flash_bwd_fused_smem(hd)
+                      for hd in (16, 32, 64, 128)}))
     t0 = time.perf_counter()
     errs = dict(fused_check_packed=check_fused_check(dev, seed=0))
     n, errs["resident_pool"], errs["resident_step"] = check_resident(dev)

@@ -10,339 +10,437 @@
 // (mask (kpos < sk) & (qpos < sq) & (kpos <= qpos if causal)):
 //   s  = q k^T * scale                       fp32
 //   p  = exp(s - lse)  (0 off the mask: lse of a padded row never reaches
-//                       exp, so no inf or NaN enters a product)
+//                       the result, so no inf or NaN enters a product)
 //   dp = do v^T                              fp32
 //   ds = p * (dp - dD) * scale
 //   dq = sum_k ds k      (ds rounded to k's dtype first)
 //   dv = sum_q p^T do    (p rounded to do's dtype first)
 //   dk = sum_q ds^T q    (ds rounded to q's dtype first)
-// dk and dv sum over the G query heads of a KV group.  Outputs are written
-// in the operands' dtype; padded rows of dq and keys past sk get 0.
+// dk and dv sum over the G query heads of a KV group.  Padded rows of dq
+// and keys past sk get 0.
 // Layouts (contiguous, padded past the real lengths sq / sk):
 //   q, do, dq (B, KV, G, Sqp, HD); k, v, dk, dv (B, KV, Skp, HD);
 //   lse, dD (B, KV, G, Sqp) fp32.
 //
 // Design.  The TPU grids run their reduction axes in order and carry the
 // accumulators in VMEM: dq over (.., nq, nk), dk/dv over (.., nk, G, nq).
-// Hopper blocks run in no order, so each block owns its output tile and
-// loops over the reduction itself, with no atomics (dk and dv are
-// deterministic):
-//  * dq: one block per (b, kv, g, 64-row q tile) loops over 32-key tiles
-//    up to the diagonal; K and V tiles in shared memory, Q and dO as A
-//    fragments in registers for the whole loop.  The heaviest causal q
-//    tiles start first.
-//  * dkv: one block per (b, kv, 64-key tile) loops over the G query heads
-//    and, for each, over the 32-row q tiles from the diagonal on.  It
-//    computes the transposed tiles S^T = K Q^T and dP^T = V dO^T, so that
-//    each warp owns 16 keys: their dK and dV rows stay in registers
-//    (2 x 64 fp32 a thread at hd 128), K, V and the current Q, dO tiles
-//    in shared memory.  Key tile 0 (the heaviest) starts first.
-//  * bf16: mma.sync m16n8k16 (bf16 in, fp32 accumulate) for all four
-//    products; the p / ds accumulator fragments are rounded to bf16 and
-//    re-packed in registers as the A operand of the next product, where
-//    the reference rounds them.
+// On Hopper:
+//  * bf16: one fused kernel computes dq, dk and dv in one pass, so S and
+//    dP are computed once per live pair (10 hd FLOPs a pair: S, dP, dV,
+//    dK, dQ).  One block per (b, kv, 128-key tile), heaviest causal key
+//    tiles first, loops over the G query heads of its group and, for
+//    each, over the 64-row q tiles from the diagonal on.  Two warpgroups,
+//    each owning 64 keys.  K and V are loaded once by TMA; Q, dO, lse and
+//    dD tiles stream through a STAGES-deep ring of shared-memory buffers
+//    tracked by full / empty mbarriers: one thread issues every copy, the
+//    tile of iteration i + STAGES as soon as both warpgroups release
+//    iteration i, so the next tiles' copies overlap this tile's products.
+//    All five products are wgmma (bf16 in, fp32 accumulate), A and B from
+//    shared memory:
+//      S^T = K Q^T, dP^T = V dO^T   64 keys x 64 q rows a warpgroup;
+//      dV += P^T dO, dK += dS^T Q   P^T and dS^T rounded to bf16 and
+//                                   staged in shared memory, B (dO, Q)
+//                                   transposed by its descriptor;
+//      dQ  = dS K                   the dS^T tile read transposed, one
+//                                   iteration later (in the same batch as
+//                                   the next dV, dK), so neither
+//                                   warpgroup waits for the other's dS^T.
+//    dK and dV stay in registers for the whole loop and are written once
+//    in bf16: deterministic.  dQ is split over the warpgroups (by head
+//    dim at hd 128, by key at hd <= 64) and each partial tile is added
+//    into an fp32 accumulator in device memory (red.global.add.v2.f32),
+//    so dq's summation order varies from run to run (the wrapper casts
+//    the accumulator to bf16).  The mask is evaluated only on tiles that
+//    cross the diagonal or the ragged sq / sk edge; the TMA tensor maps
+//    end at sq and sk, so rows past them arrive as zeros.
+//    Registers bound the layout: dK and dV alone take 128 fp32 a thread
+//    at hd 128.  A third, producer warpgroup (setmaxnreg 24 / 240) makes
+//    ptxas budget the whole kernel at 168 registers a thread: it then
+//    spills and serializes every wgmma.  With two warpgroups the budget
+//    is 255 and nothing spills; P^T and dS^T go through shared memory
+//    rather than register A fragments for the same reason.
 //  * fp32 (the tight comparisons): CUDA cores, 256 threads, fp32
-//    throughout.
-// What bounds it: at the training shapes (hd 128, S 4096) the causal work,
-// 2 hd FLOPs for each of the three (dq) or four (dkv) products of a live
-// pair, i.e. 6 hd and 8 hd FLOPs a pair with the recomputed scores,
-// against 989 TFLOP/s bf16: operations, not bytes.  This first version
-// uses neither wgmma nor TMA nor a copy/compute pipeline.
+//    throughout, dq and dkv as two kernels: dq one block per 64-row q
+//    tile looping over 32-key tiles, dkv one block per 32-key tile
+//    looping over G and the q tiles; no atomics.
+// What bounds it: at the training shapes (hd 128, S 4096) the causal
+// work, 10 hd FLOPs a live pair against 989 TFLOP/s bf16: operations, not
+// bytes.
 #include <cstdint>
+#include <type_traits>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using flash::PAD16;
 using flash::key_end;
 using flash::live;
-using flash::mma16816;
+using flash::pack_bf16;
 
 typedef __nv_bfloat16 bf16;
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16
+// bf16: one fused wgmma / TMA kernel
 // ---------------------------------------------------------------------------
 
-constexpr int DQ_BQ = 64;   // dq: q rows per block (4 warps x 16)
-constexpr int DQ_BK = 32;   // dq: keys per tile
-constexpr int KV_BK = 64;   // dkv: keys per block (4 warps x 16)
-constexpr int KV_BQ = 32;   // dkv: q rows per tile
-
-// A fragments (row-major 16 x 16 per k-step) of rows r0, r1 = r0 + 8 of a
-// (rows, HD) bf16 matrix in device memory; rows past `rows` read 0
-template <int HD>
-__device__ __forceinline__ void rows_to_a(const bf16* x, int rows, int r0,
-                                          int tig, uint32_t (*a)[4]) {
-  const uint32_t* x32 = reinterpret_cast<const uint32_t*>(x);
-  const int r1 = r0 + 8;
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    const int c = (ks * 16 + tig * 2) >> 1;
-    a[ks][0] = r0 < rows ? x32[static_cast<long long>(r0) * (HD / 2) + c] : 0u;
-    a[ks][1] = r1 < rows ? x32[static_cast<long long>(r1) * (HD / 2) + c] : 0u;
-    a[ks][2] = r0 < rows ? x32[static_cast<long long>(r0) * (HD / 2) + c + 4] : 0u;
-    a[ks][3] = r1 < rows ? x32[static_cast<long long>(r1) * (HD / 2) + c + 4] : 0u;
-  }
-}
-
-// stage rows [r0, r0 + n) of a (.., HD) bf16 matrix into shared memory
-// (row stride ld), 16 bytes a copy; rows at or past `rows` are zero
-template <int HD>
-__device__ __forceinline__ void stage_rows(bf16* dst, int ld, const bf16* src,
-                                           int r0, int n, int rows) {
-  constexpr int CH = HD / 8;           // 16-byte chunks per row
-  for (int i = threadIdx.x; i < n * CH; i += blockDim.x) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (r0 + r < rows)
-      x = *reinterpret_cast<const uint4*>(
-          src + static_cast<long long>(r0 + r) * HD + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = x;
-  }
-}
-
-// rows r0, r1 of an fp32 accumulator fragment (16 x HD) to bf16 rows
-template <int HD>
-__device__ __forceinline__ void store_rows(bf16* out, int rows, int r0,
-                                           int tig, float (*acc)[4]) {
-  uint32_t* o32 = reinterpret_cast<uint32_t*>(out);
-  const int r1 = r0 + 8;
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    const int c = (n * 8 + tig * 2) >> 1;
-    if (r0 < rows)
-      o32[static_cast<long long>(r0) * (HD / 2) + c] =
-          flash::pack_bf16(acc[n][0], acc[n][1]);
-    if (r1 < rows)
-      o32[static_cast<long long>(r1) * (HD / 2) + c] =
-          flash::pack_bf16(acc[n][2], acc[n][3]);
-  }
-}
+constexpr int BK = 128;          // keys per block (two warpgroups x 64)
+constexpr int BQ = 64;           // q rows per tile
+constexpr int STAGES = 2;        // Q / dO / lse / dD ring depth
+constexpr int NDS = 3;           // dS^T buffers (dQ runs one iteration late)
+constexpr int THREADS = 256;     // two warpgroups
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int HD>
-__global__ void __launch_bounds__(128)
-flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dO,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ dD, bf16* __restrict__ dq,
-                     int G, int Sqp, int Skp, int sq, int sk, float scale,
-                     int causal) {
-  constexpr int LD = HD + PAD16;       // shared row stride, in bf16
-  constexpr int KS = HD / 16;          // k-steps over the head dim
-  constexpr int NT = DQ_BK / 8;        // n-tiles of S and dP
-  constexpr int ND = HD / 8;           // n-tiles of dQ
-  extern __shared__ __align__(16) char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + DQ_BK * LD;
-  const uint16_t* Kh = reinterpret_cast<const uint16_t*>(Ks);
+struct Fused {
+  static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;  // swizzle, bytes
+  static constexpr int AE = SW / 2;        // bf16 per swizzled row
+  static constexpr int NB = HD / AE;       // column blocks of a tile
+  static constexpr int KPA = SW / 32;      // k16 steps per column block
+  // dQ split over the warpgroups: by key at hd <= 64 (each adds all HD
+  // columns over its own 64 keys), by head dim at 128 (each adds 64
+  // columns over all 128 keys)
+  static constexpr bool KEY_SPLIT = HD < 128;
+  static constexpr int NQ = KEY_SPLIT ? HD : HD / 2;   // dQ width
+  static constexpr int KT = BK * HD * 2;   // K or V tile bytes
+  static constexpr int QT = BQ * HD * 2;   // Q or dO tile bytes
+  static constexpr int DS = BK * BQ * 2;   // P^T or dS^T tile bytes
+  //                                          (128 B rows: 64 q columns)
+  static constexpr int VEC = BQ * 4;       // lse or dD tile bytes
+  static constexpr int OFF_K = 0;
+  static constexpr int OFF_V = KT;
+  static constexpr int OFF_Q = 2 * KT;
+  static constexpr int OFF_O = OFF_Q + STAGES * QT;
+  static constexpr int OFF_S = OFF_O + STAGES * QT;   // dS^T, NDS buffers
+  static constexpr int OFF_P = OFF_S + NDS * DS;      // P^T
+  static constexpr int OFF_L = OFF_P + DS;
+  static constexpr int OFF_D = OFF_L + STAGES * VEC;
+  static constexpr int OFF_B = OFF_D + STAGES * VEC;
+  static constexpr int BYTES = OFF_B + (1 + 2 * STAGES + NDS) * 8;
+  static constexpr int SMEM = BYTES + 1024;   // + alignment of the base
+  static_assert(KT % 1024 == 0 && QT % 1024 == 0, "1024-byte tiles");
+};
 
-  const int nq = gridDim.x;
-  const int qt = nq - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int h = blockIdx.y;            // (b * KV + kv) * G + g
-  const long long qbase = static_cast<long long>(h) * Sqp * HD;
-  const long long kbase = static_cast<long long>(h / G) * Skp * HD;
-  const int q0 = qt * DQ_BQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int r0 = q0 + warp * 16 + gid;  // this thread's rows: r0, r0 + 8
-  const int r1 = r0 + 8;
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const __grid_constant__ CUtensorMap tlse,
+                       const __grid_constant__ CUtensorMap tdd,
+                       float* __restrict__ dq, bf16* __restrict__ dk,
+                       bf16* __restrict__ dv, int G, int Sqp, int Slp,
+                       int Skp, int sq, int sk, float scale, int causal) {
+  using F = Fused<HD>;
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  // the tiles start on a 1024-byte boundary (pointer arithmetic on
+  // smem_raw keeps the shared window: 32-bit shared loads and stores)
+  uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* kv_bar = reinterpret_cast<uint64_t*>(sm + F::OFF_B);
+  uint64_t* full = kv_bar + 1;             // [STAGES]: tile landed
+  uint64_t* empty = full + STAGES;         // [STAGES]: tile consumed
+  uint64_t* ds_bar = empty + STAGES;       // [NDS]: dS^T tile written
 
-  uint32_t qa[KS][4], oa[KS][4];       // Q and dO rows, kept for the loop
-  rows_to_a<HD>(q + qbase, Sqp, r0, tig, qa);
-  rows_to_a<HD>(dO + qbase, Sqp, r0, tig, oa);
-  const long long lb = static_cast<long long>(h) * Sqp;
-  const float lse0 = r0 < Sqp ? lse[lb + r0] : 0.f;
-  const float lse1 = r1 < Sqp ? lse[lb + r1] : 0.f;
-  const float dd0 = r0 < Sqp ? dD[lb + r0] : 0.f;
-  const float dd1 = r1 < Sqp ? dD[lb + r1] : 0.f;
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const int hk = blockIdx.x;               // b * KV + kv
+  const int k0 = blockIdx.y * BK;          // key tile 0 (heaviest) first
+  const int nq = (sq + BQ - 1) / BQ;
+  const int qt0 = causal ? k0 / BQ : 0;    // q rows below k0 see no key
+  const int qend = (k0 < sk && qt0 < nq) ? nq : qt0;   // q tiles qt0..qend-1
+  const int n_iter = G * (qend - qt0);
 
-  const int kend = key_end(q0, DQ_BQ, sq, sk, causal);
-  for (int kb = 0; kb < kend; kb += DQ_BK) {
-    stage_rows<HD>(Ks, LD, k + kbase, kb, DQ_BK, sk);
-    stage_rows<HD>(Vs, LD, v + kbase, kb, DQ_BK, sk);
-    __syncthreads();
-    // S = Q K^T and dP = dO V^T: B operands (k = head dim) from K, V rows
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-      const uint32_t* krow =
-          reinterpret_cast<const uint32_t*>(Ks + (j * 8 + gid) * LD);
-      const uint32_t* vrow =
-          reinterpret_cast<const uint32_t*>(Vs + (j * 8 + gid) * LD);
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        mma16816(s[j], qa[ks], krow[ks * 8 + tig], krow[ks * 8 + tig + 4]);
-        mma16816(dp[j], oa[ks], vrow[ks * 8 + tig], vrow[ks * 8 + tig + 4]);
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(kv_bar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], THREADS);
     }
-    // p = exp(s - lse) on the mask, ds = p (dp - dD) scale, into s
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c = kb + j * 8 + tig * 2;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float p0 = live(r0, c + e, sq, sk, causal)
-                             ? __expf(s[j][e] * scale - lse0) : 0.f;
-        const float p1 = live(r1, c + e, sq, sk, causal)
-                             ? __expf(s[j][2 + e] * scale - lse1) : 0.f;
-        s[j][e] = p0 * (dp[j][e] - dd0) * scale;
-        s[j][2 + e] = p1 * (dp[j][2 + e] - dd1) * scale;
-      }
-    }
-    // dQ += dS K: dS (bf16) straight from the fragments, K (k = key,
-    // n = head dim) read as pairs of bf16
-#pragma unroll
-    for (int kk = 0; kk < DQ_BK / 16; ++kk) {
-      uint32_t da[4];
-      flash::acc_to_a(s, kk, da);
-      const int key = kk * 16 + tig * 2;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const int d = n * 8 + gid;
-        mma16816(acc[n], da, flash::col_pair(Kh, LD, key, d),
-                 flash::col_pair(Kh, LD, key + 8, d));
-      }
-    }
-    __syncthreads();
+    for (int b = 0; b < NDS; ++b) mbar_init(&ds_bar[b], THREADS);
+    mbar_fence_init();
   }
-  store_rows<HD>(dq + qbase, Sqp, r0, tig, acc);
-}
+  __syncthreads();
 
-template <int HD>
-__global__ void __launch_bounds__(128)
-flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ dO,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ dD, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, int G, int Sqp, int Skp, int sq,
-                      int sk, float scale, int causal) {
-  constexpr int LD = HD + PAD16;
-  constexpr int KS = HD / 16;          // k-steps over the head dim
-  constexpr int NT = KV_BQ / 8;        // n-tiles (q columns) of S^T, dP^T
-  constexpr int ND = HD / 8;           // n-tiles of dK, dV
-  extern __shared__ __align__(16) char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);   // [KV_BK][LD]
-  bf16* Vs = Ks + KV_BK * LD;                 // [KV_BK][LD]
-  bf16* Qs = Vs + KV_BK * LD;                 // [KV_BQ][LD]
-  bf16* Os = Qs + KV_BQ * LD;                 // [KV_BQ][LD]  (dO)
-  float* Ls = reinterpret_cast<float*>(Os + KV_BQ * LD);  // [KV_BQ]
-  float* Ds = Ls + KV_BQ;                                 // [KV_BQ]
-  const uint32_t* K32 = reinterpret_cast<const uint32_t*>(Ks);
-  const uint32_t* V32 = reinterpret_cast<const uint32_t*>(Vs);
-  const uint16_t* Qh = reinterpret_cast<const uint16_t*>(Qs);
-  const uint16_t* Oh = reinterpret_cast<const uint16_t*>(Os);
-
-  const int k0 = blockIdx.x * KV_BK;
-  const int hk = blockIdx.y;           // b * KV + kv
-  const long long kbase = static_cast<long long>(hk) * Skp * HD;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int kr0 = warp * 16 + gid;     // this thread's keys: kr0, kr0 + 8
-  const int kr1 = kr0 + 8;
-  const int key0 = k0 + kr0, key1 = k0 + kr1;
-
-  float dka[ND][4], dva[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
-    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
+  // warp-uniform in the compiler's eyes (a shuffle from lane 0), so that
+  // the descriptors built on it live in uniform registers
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int per_g = qend - qt0;
+  // thread 0 issues every TMA copy: Q, dO, lse and dD of iteration i into
+  // stage i % STAGES, completing on full[stage]
+  const bool issuer = threadIdx.x == 0;
+  auto load_tile = [&](int i) {
+    const int s = i % STAGES;
+    const int h = hk * G + i / per_g;
+    const int q0 = (qt0 + i % per_g) * BQ;
+    mbar_expect_tx(&full[s], 2 * F::QT + 2 * F::VEC);
+    for (int cb = 0; cb < F::NB; ++cb) {
+      tma_load_3d(sm + F::OFF_Q + s * F::QT + cb * BQ * F::SW, &tq, &full[s],
+                  cb * F::AE, q0, h);
+      tma_load_3d(sm + F::OFF_O + s * F::QT + cb * BQ * F::SW, &tdo,
+                  &full[s], cb * F::AE, q0, h);
+    }
+    tma_load_1d(sm + F::OFF_L + s * F::VEC, &tlse, &full[s], h * Slp + q0);
+    tma_load_1d(sm + F::OFF_D + s * F::VEC, &tdd, &full[s], h * Slp + q0);
+  };
+  if (issuer && n_iter > 0) {
+    mbar_expect_tx(kv_bar, 2 * F::KT);
+    for (int cb = 0; cb < F::NB; ++cb) {
+      tma_load_3d(sm + F::OFF_K + cb * BK * F::SW, &tk, kv_bar, cb * F::AE,
+                  k0, hk);
+      tma_load_3d(sm + F::OFF_V + cb * BK * F::SW, &tv, kv_bar, cb * F::AE,
+                  k0, hk);
+    }
+    for (int i = 0; i < STAGES && i < n_iter; ++i) load_tile(i);
   }
-  if (k0 < sk) {
-    stage_rows<HD>(Ks, LD, k + kbase, k0, KV_BK, sk);
-    stage_rows<HD>(Vs, LD, v + kbase, k0, KV_BK, sk);
-    // causal: q rows below k0 see none of these keys
-    const int qstart = causal ? k0 / KV_BQ * KV_BQ : 0;
-    for (int g = 0; g < G; ++g) {
-      const int h = hk * G + g;
-      const long long qbase = static_cast<long long>(h) * Sqp * HD;
-      const long long lb = static_cast<long long>(h) * Sqp;
-      for (int qb = qstart; qb < sq; qb += KV_BQ) {
-        __syncthreads();               // the last tile consumed
-        stage_rows<HD>(Qs, LD, q + qbase, qb, KV_BQ, sq);
-        stage_rows<HD>(Os, LD, dO + qbase, qb, KV_BQ, sq);
-        for (int i = threadIdx.x; i < KV_BQ; i += blockDim.x) {
-          Ls[i] = qb + i < sq ? lse[lb + qb + i] : 0.f;
-          Ds[i] = qb + i < sq ? dD[lb + qb + i] : 0.f;
+
+  {
+    // warpgroup wg owns keys kw .. kw + 63
+    const int t = threadIdx.x & 127;
+    const int wq = t >> 5, lane = t & 31;
+    const int gid = lane >> 2, tig = lane & 3;
+    const int kw = k0 + wg * 64;
+    const uint32_t sK = smem_u32(sm + F::OFF_K);
+    const uint32_t sV = smem_u32(sm + F::OFF_V);
+    const float sl2 = scale * LOG2E;
+
+    float dka[HD / 2], dva[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.f;
+
+    // dQ partial of an iteration into the fp32 accumulator (rows past sq
+    // hold 0)
+    float dqa[F::NQ / 2];
+    auto flush_dq = [&](int i) {
+      const int h = hk * G + i / per_g;
+      const int q0 = (qt0 + i % per_g) * BQ;
+      const int cbase = F::KEY_SPLIT ? 0 : wg * F::NQ;
+      const int qrow = static_cast<int>(
+          opaque(static_cast<uint32_t>(q0 + 16 * wq + gid)));
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qpos = qrow + 8 * r;
+        if (qpos < sq) {
+          float* row = dq + (static_cast<long long>(h) * Sqp + qpos) * HD +
+                       cbase + 2 * tig;
+#pragma unroll
+          for (int j = 0; j < F::NQ / 8; ++j)
+            red_add_v2(row + 8 * j, dqa[4 * j + 2 * r],
+                       dqa[4 * j + 2 * r + 1]);
         }
-        __syncthreads();
-        // S^T = K Q^T, dP^T = V dO^T: A from this warp's K / V rows, B
-        // (k = head dim, n = q row) from Q / dO rows
-        float s[NT][4], dp[NT][4];
+      }
+    };
+
+    // dQ partial = dS K over this warpgroup's share from dS^T buffer b:
+    // A = dS (64 q x keys) from the dS^T rows (MN-major), B = K rows
+    // (MN-major)
+    auto issue_dq = [&](int b) {
+      constexpr int DQ_STEPS = F::KEY_SPLIT ? 4 : 8;
+      const int r0 = F::KEY_SPLIT ? wg * 64 : 0;
+      const uint64_t ds_ = desc(
+          smem_u32(sm + F::OFF_S + b * F::DS) + r0 * 128, 128, F::DS, 1024);
+      const uint64_t dk_ = desc(
+          sK + (F::KEY_SPLIT ? 0 : wg * BK * F::SW) + r0 * F::SW, F::SW,
+          BK * F::SW, 8 * F::SW);
 #pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-          dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+      for (int kk = 0; kk < DQ_STEPS; ++kk)
+        wgmma_ss<1, 1>(dqa, ds_ + ((kk * 16 * 128) >> 4),
+                       dk_ + ((kk * 16 * F::SW) >> 4), kk > 0);
+    };
+
+    if (n_iter > 0) mbar_wait(kv_bar, 0);
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % STAGES;
+      const int q0 = (qt0 + it % per_g) * BQ;
+      const uint32_t sQ = smem_u32(sm + F::OFF_Q + s * F::QT);
+      const uint32_t sO = smem_u32(sm + F::OFF_O + s * F::QT);
+      mbar_wait(&full[s], (it / STAGES) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T (64 keys x 64 q rows); the k index
+      // (head dim) runs along the rows of all four tiles
+      float st[32], dpt[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+      {
+        const uint64_t dk_ = desc(sK + wg * 64 * F::SW, F::SW, 16,
+                                  8 * F::SW);
+        const uint64_t dv_ = desc(sV + wg * 64 * F::SW, F::SW, 16,
+                                  8 * F::SW);
+        const uint64_t dq_ = desc(sQ, F::SW, 16, 8 * F::SW);
+        const uint64_t do_ = desc(sO, F::SW, 16, 8 * F::SW);
+        fence_regs(st);
+        fence_regs(dpt);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const int c = (kk % F::KPA) * 32;       // inside a column block
+          const int kb = (kk / F::KPA) * BK * F::SW + c;
+          const int qb = (kk / F::KPA) * BQ * F::SW + c;
+          wgmma_ss<0, 0>(st, dk_ + (kb >> 4), dq_ + (qb >> 4), kk > 0);
         }
 #pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          const int c = ks * 8 + tig;
-          const uint32_t ka[4] = {K32[kr0 * (LD / 2) + c],
-                                  K32[kr1 * (LD / 2) + c],
-                                  K32[kr0 * (LD / 2) + c + 4],
-                                  K32[kr1 * (LD / 2) + c + 4]};
-          const uint32_t va[4] = {V32[kr0 * (LD / 2) + c],
-                                  V32[kr1 * (LD / 2) + c],
-                                  V32[kr0 * (LD / 2) + c + 4],
-                                  V32[kr1 * (LD / 2) + c + 4]};
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const int c = (kk % F::KPA) * 32;
+          const int kb = (kk / F::KPA) * BK * F::SW + c;
+          const int qb = (kk / F::KPA) * BQ * F::SW + c;
+          wgmma_ss<0, 0>(dpt, dv_ + (kb >> 4), do_ + (qb >> 4), kk > 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      // what follows is computed from here on, not hoisted above the
+      // products while their accumulators are live
+      const int qx = static_cast<int>(opaque(static_cast<uint32_t>(q0)));
+      const int key = static_cast<int>(
+          opaque(static_cast<uint32_t>(kw + 16 * wq + gid)));
+
+      // P^T into st, dS^T into dpt; columns are q rows (lse, dD per
+      // column), rows this thread's keys.  The mask is evaluated only on
+      // tiles that cross the diagonal or the sq / sk edge.
+      const float* Ls = reinterpret_cast<const float*>(
+          sm + F::OFF_L + s * F::VEC);
+      const float* Ds = reinterpret_cast<const float*>(
+          sm + F::OFF_D + s * F::VEC);
+      auto pds = [&](auto mask_on) {
 #pragma unroll
-          for (int j = 0; j < NT; ++j) {
-            const uint32_t* qrow =
-                reinterpret_cast<const uint32_t*>(Qs + (j * 8 + gid) * LD);
-            const uint32_t* orow =
-                reinterpret_cast<const uint32_t*>(Os + (j * 8 + gid) * LD);
-            mma16816(s[j], ka, qrow[c], qrow[c + 4]);
-            mma16816(dp[j], va, orow[c], orow[c + 4]);
+        for (int j = 0; j < 8; ++j) {
+          const int qc = 8 * j + 2 * tig;           // column in the tile
+          const float2 l2 = *reinterpret_cast<const float2*>(Ls + qc);
+          const float2 d2 = *reinterpret_cast<const float2*>(Ds + qc);
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float l = (c ? l2.y : l2.x) * LOG2E;
+            const float dd = c ? d2.y : d2.x;
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int r = 4 * j + 2 * i + c;
+              float p;
+              asm("ex2.approx.ftz.f32 %0, %1;\n"
+                  : "=f"(p) : "f"(fmaf(st[r], sl2, -l)));
+              float ds = p * (dpt[r] - dd) * scale;
+              if (decltype(mask_on)::value &&
+                  !live(qx + qc + c, key + 8 * i, sq, sk, causal)) {
+                p = 0.f;
+                ds = 0.f;
+              }
+              st[r] = p;
+              dpt[r] = ds;
+            }
           }
         }
-        // P^T into s, dS^T into dp; the columns are q rows
+      };
+      if ((causal && kw + 63 > qx) || qx + BQ > sq || kw + 64 > sk)
+        pds(std::true_type{});
+      else
+        pds(std::false_type{});
+
+      // bf16 pairs (q, q + 1) into the P^T and dS^T tiles, the A operands
+      // of dV += P^T dO, dK += dS^T Q and dQ = dS K: row = key of the
+      // block, 64 q columns of 128 B, 128-byte swizzle (16-byte chunk ^
+      // row % 8; rows key and key + 8 share row % 8 = gid)
+      uint8_t* const sP_row = sm + F::OFF_P;
+      uint8_t* const sS_row = sm + F::OFF_S + (it % NDS) * F::DS;
+      {
+        const uint32_t x = opaque(static_cast<uint32_t>(gid));
+        const int rbyte = (wg * 64 + 16 * wq + gid) * 128 + tig * 4;
 #pragma unroll
-        for (int j = 0; j < NT; ++j) {
+        for (int j = 0; j < 8; ++j) {
+          const uint32_t chunk = (j ^ x) << 4;
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int qc = j * 8 + tig * 2 + e;
-            const float l = Ls[qc], dd = Ds[qc];
-            const float p0 = live(qb + qc, key0, sq, sk, causal)
-                                 ? __expf(s[j][e] * scale - l) : 0.f;
-            const float p1 = live(qb + qc, key1, sq, sk, causal)
-                                 ? __expf(s[j][2 + e] * scale - l) : 0.f;
-            s[j][e] = p0;
-            s[j][2 + e] = p1;
-            dp[j][e] = p0 * (dp[j][e] - dd) * scale;
-            dp[j][2 + e] = p1 * (dp[j][2 + e] - dd) * scale;
+          for (int i = 0; i < 2; ++i) {
+            const int r = 4 * j + 2 * i;
+            const int off = rbyte + i * 8 * 128 + chunk;
+            *reinterpret_cast<uint32_t*>(sP_row + off) =
+                pack_bf16(st[r], st[r + 1]);
+            *reinterpret_cast<uint32_t*>(sS_row + off) =
+                pack_bf16(dpt[r], dpt[r + 1]);
           }
         }
-        // dV += P^T dO, dK += dS^T Q: B (k = q row, n = head dim) as
-        // pairs of bf16 from the dO / Q tiles
+      }
+      fence_proxy_async();
+      mbar_arrive(&ds_bar[it % NDS]);   // read by dQ one iteration later
+      named_bar_sync(1 + wg, 128);      // this warpgroup's rows
+
+      // dV += P^T dO, dK += dS^T Q (A: this warpgroup's 64 rows of P^T,
+      // dS^T, K-major; B: the dO, Q tile, MN-major), and the previous
+      // iteration's dQ partial, in one batch.  At it = 0 that product
+      // reads an unwritten buffer and its result is dropped: the batch
+      // stays the same at every iteration.
+      if (it > 0)
+        mbar_wait(&ds_bar[(it - 1) % NDS], ((it - 1) / NDS) & 1);
 #pragma unroll
-        for (int kk = 0; kk < KV_BQ / 16; ++kk) {
-          uint32_t pa[4], da[4];
-          flash::acc_to_a(s, kk, pa);
-          flash::acc_to_a(dp, kk, da);
-          const int qr = kk * 16 + tig * 2;
+      for (int i = 0; i < F::NQ / 2; ++i) dqa[i] = 0.f;
+      {
+        const uint64_t dp_ = desc(smem_u32(sP_row) + wg * 64 * 128, 128,
+                                  16, 1024);
+        const uint64_t dsk_ = desc(smem_u32(sS_row) + wg * 64 * 128, 128,
+                                   16, 1024);
+        const uint64_t do_ = desc(sO, F::SW, BQ * F::SW, 8 * F::SW);
+        const uint64_t dq_ = desc(sQ, F::SW, BQ * F::SW, 8 * F::SW);
+        fence_regs(dqa);
+        wgmma_fence();
 #pragma unroll
-          for (int n = 0; n < ND; ++n) {
-            const int d = n * 8 + gid;
-            mma16816(dva[n], pa, flash::col_pair(Oh, LD, qr, d),
-                     flash::col_pair(Oh, LD, qr + 8, d));
-            mma16816(dka[n], da, flash::col_pair(Qh, LD, qr, d),
-                     flash::col_pair(Qh, LD, qr + 8, d));
-          }
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<0, 1>(dva, dp_ + ((kk * 32) >> 4),
+                         do_ + ((kk * 16 * F::SW) >> 4), 1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<0, 1>(dka, dsk_ + ((kk * 32) >> 4),
+                         dq_ + ((kk * 16 * F::SW) >> 4), 1);
+        issue_dq((it + NDS - 1) % NDS);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dqa);
+      mbar_arrive(&empty[s]);           // Q, dO, lse, dD consumed
+      if (it > 0) flush_dq(it - 1);
+
+      // refill stage s for iteration it + STAGES once both warpgroups
+      // have released it
+      if (issuer && it + STAGES < n_iter) {
+        mbar_wait(&empty[s], (it / STAGES) & 1);
+        load_tile(it + STAGES);
+      }
+    }
+    if (n_iter > 0) {                     // the last iteration's dQ
+      mbar_wait(&ds_bar[(n_iter - 1) % NDS], ((n_iter - 1) / NDS) & 1);
+#pragma unroll
+      for (int i = 0; i < F::NQ / 2; ++i) dqa[i] = 0.f;
+      fence_regs(dqa);
+      wgmma_fence();
+      issue_dq((n_iter - 1) % NDS);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dqa);
+      flush_dq(n_iter - 1);
+    }
+    // dK, dV rows of this thread's keys, once, in bf16 (keys past sk
+    // accumulated exact zeros); dka and dva are touched only by the
+    // products until here
+    fence_regs(dva);
+    fence_regs(dka);
+    const long long kbase = static_cast<long long>(hk) * Skp * HD;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = kw + 16 * wq + gid + 8 * i;
+      if (key < Skp) {
+        uint32_t* rk = reinterpret_cast<uint32_t*>(
+            dk + kbase + static_cast<long long>(key) * HD);
+        uint32_t* rv = reinterpret_cast<uint32_t*>(
+            dv + kbase + static_cast<long long>(key) * HD);
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+          const int r = 4 * j + 2 * i;
+          rk[4 * j + tig] = pack_bf16(dka[r], dka[r + 1]);
+          rv[4 * j + tig] = pack_bf16(dva[r], dva[r + 1]);
         }
       }
     }
   }
-  store_rows<HD>(dk + kbase, Skp, key0, tig, dka);
-  store_rows<HD>(dv + kbase, Skp, key0, tig, dva);
 }
 
 // ---------------------------------------------------------------------------
@@ -542,6 +640,7 @@ struct Args {
   int heads, G, Sqp, Skp, sq, sk;
   float scale;
   int causal;
+  int Slp;     // row pitch of lse, dD (the fused kernel; else Sqp)
 };
 
 template <typename Kernel>
@@ -551,20 +650,7 @@ cudaError_t set_smem(Kernel kernel, int smem) {
 }
 
 template <int HD>
-cudaError_t launch_dq(int dtype, const Args& a, cudaStream_t stream) {
-  if (dtype == 1) {
-    const dim3 grid((a.Sqp + DQ_BQ - 1) / DQ_BQ, a.heads);
-    const int smem = 2 * DQ_BK * (HD + PAD16) * 2;
-    auto kern = flash_dq_bf16_kernel<HD>;
-    cudaError_t e = set_smem(kern, smem);
-    if (e != cudaSuccess) return e;
-    kern<<<grid, 128, smem, stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dO), a.lse,
-        a.dD, static_cast<bf16*>(a.dq), a.G, a.Sqp, a.Skp, a.sq, a.sk,
-        a.scale, a.causal);
-    return cudaGetLastError();
-  }
+cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
   const dim3 grid((a.Sqp + DQ_BQ32 - 1) / DQ_BQ32, a.heads);
   const int smem = 4 * ((2 * DQ_BQ32 + 2 * DQ_BK32) * (HD + 1) +
                         DQ_BQ32 * (DQ_BK32 + 1));
@@ -580,20 +666,7 @@ cudaError_t launch_dq(int dtype, const Args& a, cudaStream_t stream) {
 }
 
 template <int HD>
-cudaError_t launch_dkv(int dtype, const Args& a, cudaStream_t stream) {
-  if (dtype == 1) {
-    const dim3 grid((a.Skp + KV_BK - 1) / KV_BK, a.heads / a.G);
-    const int smem = 2 * (KV_BK + KV_BQ) * (HD + PAD16) * 2 + 2 * KV_BQ * 4;
-    auto kern = flash_dkv_bf16_kernel<HD>;
-    cudaError_t e = set_smem(kern, smem);
-    if (e != cudaSuccess) return e;
-    kern<<<grid, 128, smem, stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dO), a.lse,
-        a.dD, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.G, a.Sqp,
-        a.Skp, a.sq, a.sk, a.scale, a.causal);
-    return cudaGetLastError();
-  }
+cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
   const dim3 grid((a.Skp + KV_BK32 - 1) / KV_BK32, a.heads / a.G);
   const int smem = 4 * ((2 * KV_BK32 + 2 * KV_BQ32) * (HD + 1) +
                         2 * KV_BK32 * (KV_BQ32 + 1) + 2 * KV_BQ32);
@@ -608,14 +681,107 @@ cudaError_t launch_dkv(int dtype, const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-bool valid(int dtype, const Args& a) {
-  return (dtype == 0 || dtype == 1) && a.heads >= 1 && a.G >= 1 &&
-         a.heads % a.G == 0 && a.Sqp >= 1 && a.Skp >= 1 && a.sq >= 1 &&
-         a.sq <= a.Sqp && a.sk >= 1 && a.sk <= a.Skp;
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// (no link against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// rows [0, rows) of `heads` (rows, HD) bf16 matrices, the matrix h at
+// `base + h * pitch_rows * HD`; boxes of (box_rows, sw / 2 columns).  Rows
+// at or past `rows` (the real length) read as zeros.
+bool map_rows(CUtensorMap* m, const void* base, int HD, int rows,
+              int pitch_rows, int heads, int box_rows, int sw) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(HD),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(HD) * 2,
+      static_cast<cuuint64_t>(pitch_rows) * HD * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(sw / 2),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t one[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swz = sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                            : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode_tiled()(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                        const_cast<void*>(base), dims, strides, box, one,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// an fp32 vector of n values read in boxes of `box` (lse, dD as one run
+// of heads * Slp values: a box that runs past a head's sq reads the pad or
+// the next head, which only masked pairs see).  A box must start on a
+// 16-byte boundary, so the row pitch Slp is a multiple of 4.
+bool map_vec(CUtensorMap* m, const float* base, long long n, int box) {
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {4};      // unused at rank 1
+  const cuuint32_t boxd[1] = {static_cast<cuuint32_t>(box)};
+  const cuuint32_t one[1] = {1};
+  return encode_tiled()(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
+                        const_cast<float*>(base), dims, strides, boxd, one,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+cudaError_t launch_fused(const Args& a, cudaStream_t stream) {
+  using F = Fused<HD>;
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  const int hkv = a.heads / a.G;
+  CUtensorMap tq, tk, tv, tdo, tl, td;
+  if (!map_rows(&tq, a.q, HD, a.sq, a.Sqp, a.heads, BQ, F::SW) ||
+      !map_rows(&tdo, a.dO, HD, a.sq, a.Sqp, a.heads, BQ, F::SW) ||
+      !map_rows(&tk, a.k, HD, a.sk, a.Skp, hkv, BK, F::SW) ||
+      !map_rows(&tv, a.v, HD, a.sk, a.Skp, hkv, BK, F::SW) ||
+      !map_vec(&tl, a.lse, static_cast<long long>(a.heads) * a.Slp, BQ) ||
+      !map_vec(&td, a.dD, static_cast<long long>(a.heads) * a.Slp, BQ))
+    return cudaErrorInvalidValue;
+  auto kern = flash_bwd_fused_kernel<HD>;
+  cudaError_t e = set_smem(kern, F::SMEM);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(hkv, (a.Skp + BK - 1) / BK);
+  kern<<<grid, THREADS, F::SMEM, stream>>>(
+      tq, tk, tv, tdo, tl, td, static_cast<float*>(a.dq),
+      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.G, a.Sqp, a.Slp,
+      a.Skp, a.sq, a.sk, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+bool valid(const Args& a) {
+  return a.heads >= 1 && a.G >= 1 && a.heads % a.G == 0 && a.Sqp >= 1 &&
+         a.Skp >= 1 && a.sq >= 1 && a.sq <= a.Sqp && a.sk >= 1 &&
+         a.sk <= a.Skp;
 }
 
 }  // namespace
 
+// fp32: K7 dq (dtype must be 0, fp32)
 extern "C" int rt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dO, const float* lse,
                                const float* dD, void* dq, int dtype,
@@ -623,19 +789,20 @@ extern "C" int rt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                int sk, int hd, float scale, int causal,
                                void* stream) {
   const Args a{q, k, v, dO, lse, dD, dq, nullptr, nullptr,
-               heads, G, Sqp, Skp, sq, sk, scale, causal};
-  if (!valid(dtype, a) || heads > 65535)
+               heads, G, Sqp, Skp, sq, sk, scale, causal, Sqp};
+  if (dtype != 0 || !valid(a) || heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return static_cast<int>(launch_dq<16>(dtype, a, s));
-    case 32: return static_cast<int>(launch_dq<32>(dtype, a, s));
-    case 64: return static_cast<int>(launch_dq<64>(dtype, a, s));
-    case 128: return static_cast<int>(launch_dq<128>(dtype, a, s));
+    case 16: return static_cast<int>(launch_dq<16>(a, s));
+    case 32: return static_cast<int>(launch_dq<32>(a, s));
+    case 64: return static_cast<int>(launch_dq<64>(a, s));
+    case 128: return static_cast<int>(launch_dq<128>(a, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// fp32: K7 dkv (dtype must be 0, fp32)
 extern "C" int rt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* dO, const float* lse,
                                 const float* dD, void* dk, void* dv,
@@ -643,15 +810,49 @@ extern "C" int rt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 int sq, int sk, int hd, float scale,
                                 int causal, void* stream) {
   const Args a{q, k, v, dO, lse, dD, nullptr, dk, dv,
-               heads, G, Sqp, Skp, sq, sk, scale, causal};
-  if (!valid(dtype, a) || heads / G > 65535)
+               heads, G, Sqp, Skp, sq, sk, scale, causal, Sqp};
+  if (dtype != 0 || !valid(a) || heads / G > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return static_cast<int>(launch_dkv<16>(dtype, a, s));
-    case 32: return static_cast<int>(launch_dkv<32>(dtype, a, s));
-    case 64: return static_cast<int>(launch_dkv<64>(dtype, a, s));
-    case 128: return static_cast<int>(launch_dkv<128>(dtype, a, s));
+    case 16: return static_cast<int>(launch_dkv<16>(a, s));
+    case 32: return static_cast<int>(launch_dkv<32>(a, s));
+    case 64: return static_cast<int>(launch_dkv<64>(a, s));
+    case 128: return static_cast<int>(launch_dkv<128>(a, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// dynamic shared memory of the fused kernel at head dim hd (0 if not taken)
+extern "C" int rt_flash_bwd_fused_smem(int hd) {
+  switch (hd) {
+    case 16: return Fused<16>::SMEM;
+    case 32: return Fused<32>::SMEM;
+    case 64: return Fused<64>::SMEM;
+    case 128: return Fused<128>::SMEM;
+    default: return 0;
+  }
+}
+
+// bf16: the fused kernel.  dq_acc is an fp32 (B, KV, G, Sqp, HD)
+// accumulator the caller has zeroed; dk, dv bf16; lse and dD rows have a
+// pitch of Slp >= Sqp values, a multiple of 4.
+extern "C" int rt_flash_bwd_fused(const void* q, const void* k, const void* v,
+                                  const void* dO, const float* lse,
+                                  const float* dD, float* dq_acc, void* dk,
+                                  void* dv, int Slp, int heads, int G,
+                                  int Sqp, int Skp, int sq, int sk, int hd,
+                                  float scale, int causal, void* stream) {
+  const Args a{q, k, v, dO, lse, dD, dq_acc, dk, dv,
+               heads, G, Sqp, Skp, sq, sk, scale, causal, Slp};
+  if (!valid(a) || Slp < Sqp || Slp % 4 || (a.Skp + BK - 1) / BK > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16: return static_cast<int>(launch_fused<16>(a, s));
+    case 32: return static_cast<int>(launch_fused<32>(a, s));
+    case 64: return static_cast<int>(launch_fused<64>(a, s));
+    case 128: return static_cast<int>(launch_fused<128>(a, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -135,6 +135,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rt_flash_bwd_dkv.restype = I
     lib.rt_flash_bwd_dkv.argtypes = [
         P, P, P, P, P, P, P, P] + bwd_tail  # q, k, v, do, lse, dD, dk, dv
+    lib.rt_flash_bwd_fused.restype = I
+    lib.rt_flash_bwd_fused.argtypes = [
+        P, P, P, P, P, P, P, P, P,       # q, k, v, do, lse, dD, dq_acc, dk, dv
+        I] + bwd_tail[1:]                # lse / dD row pitch, then as above
+    lib.rt_flash_bwd_fused_smem.restype = I
+    lib.rt_flash_bwd_fused_smem.argtypes = [I]     # hd
     lib.rt_error_string.restype = ctypes.c_char_p
     lib.rt_error_string.argtypes = [I]
 

@@ -4,7 +4,7 @@ Twin of ``src/repro/kernels/flash_attention/ops.py``.  It replaces the
 Pallas kernels of ``src/repro/kernels/flash_attention/kernel.py``:
 ``_fwd_kernel`` (``flash_fwd_pallas``) with ``csrc/flash_fwd.cu``, and
 ``_dq_kernel`` / ``_dkv_kernel`` (``flash_bwd_pallas``) with
-``csrc/flash_bwd.cu``.
+``csrc/flash_bwd.cu`` (one fused kernel for both in bf16).
 
 ``flash_attention(q, k, v)`` takes the public (B, S, H, hd) /
 (B, S, KV, hd) layout, packs the GQA heads to (B, KV, G, S, hd) (query
@@ -18,10 +18,13 @@ and mask the ragged tails themselves, so nothing is padded here and
 Sqp``, ``sk <= Skp``), as the Pallas calls do.
 
 ``flash_fwd`` and ``flash_bwd`` launch their kernels on CUDA tensors (or
-raise) and run ``flash_fwd_ref`` / ``flash_bwd_ref`` on CPU ones; every
-launch adds one to ``flash_fwd.launches``, ``flash_bwd.dq_launches`` or
-``flash_bwd.dkv_launches``.  There is no fallback: a CUDA tensor that
-requires grad goes through the kernels both ways.
+raise) and run ``flash_fwd_ref`` / ``flash_bwd_ref`` on CPU ones.  In
+bf16 the backward is one fused kernel (dq, dk and dv in one pass); in
+fp32 it is two, dq then dkv.  Every launch adds one to
+``flash_fwd.launches``, ``flash_bwd.fused_launches`` (bf16),
+``flash_bwd.dq_launches`` or ``flash_bwd.dkv_launches`` (fp32).  There is
+no fallback: a CUDA tensor that requires grad goes through the kernels
+both ways.
 """
 from __future__ import annotations
 
@@ -75,6 +78,9 @@ def _check(what, qp, kp, vp, sq, sk, dop=None, lse=None, dD=None):
     if any(t.data_ptr() % 16 for t in (qp, kp, vp, *rows)):
         raise ValueError(f"{what}: q, k, v and do must start on 16-byte "
                          f"boundaries (the kernels read 16-byte chunks)")
+    if dop is not None and (lse.data_ptr() % 16 or dD.data_ptr() % 16):
+        raise ValueError(f"{what}: lse and dD must start on 16-byte "
+                         f"boundaries (the backward copies them with TMA)")
     if not (0 < sq <= Sqp and 0 < sk <= Skp):
         raise ValueError(f"{what}: real lengths sq={sq}, sk={sk} outside "
                          f"the padded ({Sqp}, {Skp})")
@@ -107,46 +113,77 @@ flash_fwd.launches = 0
 
 def flash_bwd(qp, kp, vp, dop, lse, dD, *, causal: bool, scale: float,
               sq: int, sk: int):
-    """K7 dq then K7 dkv.  qp / dop (B, KV, G, Sqp, hd); kp / vp (B, KV,
+    """The K7 backward.  qp / dop (B, KV, G, Sqp, hd); kp / vp (B, KV,
     Skp, hd); lse (the forward's) and dD = rowsum(do * o), (B, KV, G,
-    Sqp) fp32.  Returns ``(dq, dk, dv)`` like qp, kp, vp."""
+    Sqp) fp32.  Returns ``(dq, dk, dv)`` like qp, kp, vp.  bf16: the fused
+    kernel adds dq into an fp32 accumulator with atomics (its summation
+    order varies from run to run; dk and dv do not), cast here to bf16;
+    fp32: K7 dq then K7 dkv, deterministic."""
     if qp.device.type != "cuda":
         return flash_bwd_ref(qp, kp, vp, dop, lse, dD, causal=causal,
                              scale=scale, sq=sq, sk=sk)
     _check("flash_bwd", qp, kp, vp, sq, sk, dop, lse, dD)
     ops = (qp, kp, vp, dop, lse, dD)
     kw = dict(causal=causal, scale=scale, sq=sq, sk=sk)
+    dk, dv = torch.empty_like(kp), torch.empty_like(vp)
+    if qp.dtype == torch.bfloat16:
+        dq_acc = torch.zeros(qp.shape, dtype=torch.float32, device=qp.device)
+        launch_bwd(*ops, dq_acc, dk, dv, **kw)
+        return dq_acc.to(qp.dtype), dk, dv
     dq = torch.empty_like(qp)
     launch_dq(*ops, dq, **kw)
-    dk, dv = torch.empty_like(kp), torch.empty_like(vp)
     launch_dkv(*ops, dk, dv, **kw)
     return dq, dk, dv
 
 
 def _bwd_args(qp, kp, sq, sk, causal, scale):
     B, KV, G, Sqp, hd = qp.shape
-    return (DTYPES[qp.dtype], B * KV * G, G, Sqp, kp.shape[2], sq, sk, hd,
-            float(scale), int(bool(causal)), _build.stream_ptr(qp.device))
+    return (B * KV * G, G, Sqp, kp.shape[2], sq, sk, hd, float(scale),
+            int(bool(causal)), _build.stream_ptr(qp.device))
+
+
+def pad_rows4(*xs):
+    """``xs`` (.., Sqp) with their last dim zero-padded to a multiple of 4:
+    the fused kernel reads lse and dD by TMA in boxes that must start on
+    16-byte boundaries.  Returned as they are when Sqp already is one."""
+    pad = -xs[0].shape[-1] % 4
+    if not pad:
+        return xs
+    return tuple(torch.nn.functional.pad(x, (0, pad)) for x in xs)
+
+
+def launch_bwd(qp, kp, vp, dop, lse, dD, dq_acc, dk, dv, *, causal, scale,
+               sq, sk):
+    """Launch the fused bf16 kernel on operands ``flash_bwd`` has checked:
+    adds dq into ``dq_acc`` (fp32, zeroed by the caller), writes ``dk``,
+    ``dv``."""
+    lse, dD = pad_rows4(lse, dD)
+    rc = _build.library().rt_flash_bwd_fused(
+        *(t.data_ptr() for t in (qp, kp, vp, dop, lse, dD, dq_acc, dk, dv)),
+        lse.shape[-1], *_bwd_args(qp, kp, sq, sk, causal, scale))
+    _build.check(rc, "flash_bwd fused launch")
+    flash_bwd.fused_launches += 1
 
 
 def launch_dq(qp, kp, vp, dop, lse, dD, dq, *, causal, scale, sq, sk):
-    """Launch K7 dq into ``dq`` on operands ``flash_bwd`` has checked."""
+    """Launch the fp32 K7 dq into ``dq`` on checked operands."""
     rc = _build.library().rt_flash_bwd_dq(
         *(t.data_ptr() for t in (qp, kp, vp, dop, lse, dD, dq)),
-        *_bwd_args(qp, kp, sq, sk, causal, scale))
+        DTYPES[qp.dtype], *_bwd_args(qp, kp, sq, sk, causal, scale))
     _build.check(rc, "flash_bwd dq launch")
     flash_bwd.dq_launches += 1
 
 
 def launch_dkv(qp, kp, vp, dop, lse, dD, dk, dv, *, causal, scale, sq, sk):
-    """Launch K7 dkv into ``dk``, ``dv`` on checked operands."""
+    """Launch the fp32 K7 dkv into ``dk``, ``dv`` on checked operands."""
     rc = _build.library().rt_flash_bwd_dkv(
         *(t.data_ptr() for t in (qp, kp, vp, dop, lse, dD, dk, dv)),
-        *_bwd_args(qp, kp, sq, sk, causal, scale))
+        DTYPES[qp.dtype], *_bwd_args(qp, kp, sq, sk, causal, scale))
     _build.check(rc, "flash_bwd dkv launch")
     flash_bwd.dkv_launches += 1
 
 
+flash_bwd.fused_launches = 0
 flash_bwd.dq_launches = 0
 flash_bwd.dkv_launches = 0
 

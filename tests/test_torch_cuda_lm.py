@@ -93,13 +93,16 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
                   torch.zeros(1, 2, 2, 64, device=card),
                   torch.zeros(1, 2, 2, 64, device=card), causal=True,
                   scale=0.1, sq=64, sk=64)
-    # a tensor that requires grad goes through the kernels both ways
-    n = (flash_fwd.launches, flash_bwd.dq_launches, flash_bwd.dkv_launches)
+    # a tensor that requires grad goes through the kernels both ways: K7
+    # fwd, then in bf16 the fused backward (no fp32 dq / dkv launch)
+    def counts():
+        return (flash_fwd.launches, flash_bwd.fused_launches,
+                flash_bwd.dq_launches, flash_bwd.dkv_launches)
+    n = counts()
     qg = q.clone().requires_grad_()
     flash_attention(qg, k, k).sum().backward()
     torch.cuda.synchronize()
-    assert (flash_fwd.launches, flash_bwd.dq_launches,
-            flash_bwd.dkv_launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    assert counts() == (n[0] + 1, n[1] + 1, n[2], n[3])
     assert qg.grad.dtype == torch.bfloat16 and torch.isfinite(qg.grad).all()
 
 

@@ -1,20 +1,23 @@
-"""The K7 backward kernels (``csrc/flash_bwd.cu``) and the training path
-on the card.  Without a CUDA device every test skips, decided inside the
-``card`` fixture so that all test workers collect the same tests.  Run on
-the card with:
+"""The K7 backward kernels (``csrc/flash_bwd.cu``: the fused bf16 kernel,
+the fp32 dq and dkv kernels) and the training path on the card.  Without
+a CUDA device every test skips, decided inside the ``card`` fixture so
+that all test workers collect the same tests.  Run on the card with:
 
     python -m pytest -q -m gpu tests/test_torch_cuda_train.py
 
 Tolerances, against ``flash_bwd_ref`` on the same operands: per row
 (query rows for dq, key rows for dk and dv) ||x - ref|| / ||ref||, and
 max |x - ref| / max |ref| over the whole output, each at
-1e-2 (bf16: the kernels and the plain version round p and ds to bf16 at
+1e-2 (bf16: the kernel and the plain version round p and ds to bf16 at
 the same points, from fp32 scores summed in another order, and round the
 outputs to bf16) and 1e-5 (fp32, the same arithmetic in another order;
-TF32 is switched off).  The smoke model's grads, kernel path against the
-torch-op path: per parameter ||dg|| / ||g|| 1e-4 in fp32 (both paths
-fp32, summed in another order), 5e-2 in bf16 (the two attention paths
-round p, o and the grads differently in both layers).
+TF32 is switched off).  The fused kernel run twice on the same operands:
+dk and dv bit-identical; dq per row within 2^-7 (its fp32 partials meet
+through atomics in a varying order, so an element may round to the
+neighbouring bf16 value, at most one ulp).  The smoke model's grads,
+kernel path against the torch-op path: per parameter ||dg|| / ||g|| 1e-4
+in fp32 (both paths fp32, summed in another order), 5e-2 in bf16 (the two
+attention paths round p, o and the grads differently in both layers).
 This file imports no JAX: the machine with the card has none."""
 import dataclasses
 
@@ -34,6 +37,7 @@ from repro_torch.training.step import make_train_step
 pytestmark = pytest.mark.gpu
 
 ROW_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+DQ_RERUN_RTOL = 2 ** -7
 
 
 @pytest.fixture
@@ -62,37 +66,84 @@ def _errors(x, ref):
     return row, float((x - ref).abs().max() / ref.abs().max())
 
 
+def _launches():
+    return (flash_bwd.fused_launches, flash_bwd.dq_launches,
+            flash_bwd.dkv_launches)
+
+
+def _operands(card, B, Sq, Sk, H, KV, hd, pad, dtype, causal):
+    """Packed operands padded to multiples of ``pad``, the plain forward's
+    o and lse, dD = rowsum(do * o), and the call's keyword arguments."""
+    g = torch.Generator(device=card).manual_seed(Sq + Sk + hd)
+    q, do = (torch.randn(B, Sq, H, hd, generator=g, device=card).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, Sk, KV, hd, generator=g, device=card).to(dtype)
+            for _ in range(2))
+    qp, kp, vp = (_pad_seq(x, ax, pad) for x, ax in
+                  zip(_pack(q, k, v), (3, 2, 2)))
+    dop = _pad_seq(_pack(do, k, v)[0], 3, pad)
+    kw = dict(causal=causal, scale=hd ** -0.5, sq=Sq, sk=Sk)
+    o, lse = flash_fwd_ref(qp, kp, vp, **kw)
+    dD = (dop.float() * o.float()).sum(-1)
+    return (qp, kp, vp, dop, lse, dD), kw
+
+
+def _check_against_plain(ops, kw, got, dtype):
+    want = flash_bwd_ref(*ops, **kw)
+    sq, sk = kw["sq"], kw["sk"]
+    for name, x, ref, n in zip(("dq", "dk", "dv"), got, want, (sq, sk, sk)):
+        assert x.dtype == dtype and x.shape == ref.shape
+        assert torch.isfinite(x).all(), name
+        row, scaled = _errors(x[..., :n, :], ref[..., :n, :])
+        assert row <= ROW_TOL[dtype] and scaled <= ROW_TOL[dtype], \
+            (name, row, scaled)
+    # padded query rows of dq and keys past sk are 0
+    assert not got[0][..., sq:, :].any()
+    assert not got[1][..., sk:, :].any() and not got[2][..., sk:, :].any()
+
+
 @pytest.mark.parametrize("B,S,H,KV,hd,pad", [
     (1, 256, 16, 8, 128, 256), (2, 1000, 16, 8, 128, 1024),
     (2, 100, 4, 2, 64, 128), (1, 40, 6, 2, 32, 40), (2, 33, 4, 4, 16, 64)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_bwd_matches_plain(card, B, S, H, KV, hd, pad, dtype, causal):
-    g = torch.Generator(device=card).manual_seed(S + hd)
-    q, k, v, do = (torch.randn(B, S, n, hd, generator=g, device=card)
-                   .to(dtype) for n in (H, KV, KV, H))
-    qp, kp, vp = (_pad_seq(x, ax, pad) for x, ax in
-                  zip(_pack(q, k, v), (3, 2, 2)))
-    dop = _pad_seq(_pack(do, k, v)[0], 3, pad)
-    kw = dict(causal=causal, scale=hd ** -0.5, sq=S, sk=S)
-    o, lse = flash_fwd_ref(qp, kp, vp, **kw)
-    dD = (dop.float() * o.float()).sum(-1)
-    n = (flash_bwd.dq_launches, flash_bwd.dkv_launches)
-    got = flash_bwd(qp, kp, vp, dop, lse, dD, **kw)
+    ops, kw = _operands(card, B, S, S, H, KV, hd, pad, dtype, causal)
+    n = _launches()
+    got = flash_bwd(*ops, **kw)
     torch.cuda.synchronize()
-    assert (flash_bwd.dq_launches, flash_bwd.dkv_launches) == (n[0] + 1,
-                                                               n[1] + 1)
-    want = flash_bwd_ref(qp, kp, vp, dop, lse, dD, **kw)
-    for name, x, ref, real in zip(("dq", "dk", "dv"), got, want,
-                                  (slice(0, S),) * 3):
-        assert x.dtype == dtype and x.shape == ref.shape
-        assert torch.isfinite(x).all(), name
-        row, scaled = _errors(x[..., real, :], ref[..., real, :])
-        assert row <= ROW_TOL[dtype] and scaled <= ROW_TOL[dtype], \
-            (name, row, scaled)
-    # padded query rows of dq and keys past sk are 0
-    assert not got[0][..., S:, :].any()
-    assert not got[1][..., S:, :].any() and not got[2][..., S:, :].any()
+    # bf16: one fused launch computes dq, dk and dv; fp32: dq then dkv
+    step = (1, 0, 0) if dtype == torch.bfloat16 else (0, 1, 1)
+    assert tuple(a - b for a, b in zip(_launches(), n)) == step
+    _check_against_plain(ops, kw, got, dtype)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd,causal", [
+    (1, 192, 192, 4, 2, 128, True),     # q tiles cross the diagonal inside
+    #                                     a 128-key tile
+    (1, 300, 200, 6, 2, 128, False),    # sq != sk
+    (1, 4097, 4097, 2, 2, 128, True),   # one row past a tile
+    (2, 256, 256, 6, 2, 64, True),      # G = 3
+    (1, 130, 70, 6, 2, 32, False)])     # G = 3, sq != sk, ragged both
+def test_flash_bwd_fused_edges(card, B, Sq, Sk, H, KV, hd, causal):
+    ops, kw = _operands(card, B, Sq, Sk, H, KV, hd, 1, torch.bfloat16,
+                        causal)
+    n = _launches()
+    got = flash_bwd(*ops, **kw)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_launches(), n)) == (1, 0, 0)
+    _check_against_plain(ops, kw, got, torch.bfloat16)
+
+
+@pytest.mark.parametrize("S,hd", [(1024, 128), (1000, 64)])
+def test_flash_bwd_fused_rerun(card, S, hd):
+    """dk and dv bit-identical across two runs; dq within DQ_RERUN_RTOL."""
+    ops, kw = _operands(card, 2, S, S, 16, 8, hd, 1, torch.bfloat16, True)
+    a, b = flash_bwd(*ops, **kw), flash_bwd(*ops, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+    row, _ = _errors(b[0], a[0])
+    assert row <= DQ_RERUN_RTOL, row
 
 
 def test_flash_bwd_refuses_what_the_kernels_do_not_take(card):
@@ -122,7 +173,8 @@ def _grad_probe():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_smoke_train_step_kernel_path_matches_torch_op_path(card, dtype):
     """The qwen3 smoke model's grads on the card, remat on: attn_impl=
-    'pallas' (K7 fwd twice and dq, dkv once per layer) against 'xla'."""
+    'pallas' (K7 fwd twice and the backward once per layer) against
+    'xla'."""
     base = dataclasses.replace(configs.get_smoke("qwen3-1.7b"), dtype=dtype,
                                remat=True)
     params = init_params(M.param_specs(base), 0, device=card)
@@ -133,14 +185,16 @@ def test_smoke_train_step_kernel_path_matches_torch_op_path(card, dtype):
     for impl in ("xla", "pallas"):
         cfg = dataclasses.replace(base, attn_impl=impl)
         opt = _grad_probe()
-        n = (flash_fwd.launches, flash_bwd.dq_launches,
-             flash_bwd.dkv_launches)
+        n = (flash_fwd.launches,) + _launches()
         _, grads[impl], m = make_train_step(cfg, opt)(dict(params),
                                                       opt.init(params), batch)
         torch.cuda.synchronize()
         L = cfg.n_layers if impl == "pallas" else 0
-        assert (flash_fwd.launches - n[0], flash_bwd.dq_launches - n[1],
-                flash_bwd.dkv_launches - n[2]) == (2 * L, L, L)
+        # per microbatch: 2L K7 fwd (remat), then L fused backward launches
+        # in bf16 or L dq + L dkv in fp32
+        bwd = (L, 0, 0) if dtype == "bfloat16" else (0, L, L)
+        assert tuple(a - b for a, b in zip((flash_fwd.launches,)
+                                           + _launches(), n)) == (2 * L,) + bwd
         assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
     tol = 1e-4 if dtype == "float32" else 5e-2
     for k, gx in grads["xla"].items():

@@ -22,7 +22,8 @@ from repro.kernels.flash_attention.kernel import (flash_bwd_pallas,
 from repro.kernels.flash_attention.ops import flash_attention_pallas
 from repro_torch.kernels.flash_attention import (flash_attention, flash_bwd,
                                                  flash_bwd_ref)
-from repro_torch.kernels.flash_attention.ops import _FlashAttention, _pack
+from repro_torch.kernels.flash_attention.ops import (_FlashAttention, _pack,
+                                                    pad_rows4)
 from repro_torch.models.weights import _tensor
 
 # the case grid of tests/test_flash_kernel.py:27-34
@@ -148,7 +149,21 @@ def test_gradcheck_float64(causal, scale):
 
 def test_bwd_runs_the_plain_version_on_cpu_tensors():
     q, k, v, do = (torch.from_numpy(x) for x in _qkv_do(1, 16, 4, 2, 8, 1))
-    before = (flash_bwd.dq_launches, flash_bwd.dkv_launches)
+    counts = ("fused_launches", "dq_launches", "dkv_launches")
+    before = [getattr(flash_bwd, c) for c in counts]
     qkv = [x.requires_grad_() for x in (q, k, v)]
     torch.autograd.grad(flash_attention(*qkv), qkv, do)
-    assert (flash_bwd.dq_launches, flash_bwd.dkv_launches) == before
+    assert [getattr(flash_bwd, c) for c in counts] == before
+
+
+@pytest.mark.parametrize("Sqp", [4096, 4097, 33, 40])
+def test_lse_rows_padded_to_16_bytes(Sqp):
+    """The fused kernel's lse / dD rows: a multiple of 4 fp32 values, the
+    values kept and the pad zero."""
+    g = torch.Generator().manual_seed(Sqp)
+    lse, dD = (torch.randn(2, 3, 2, Sqp, generator=g) for _ in range(2))
+    plse, pdD = pad_rows4(lse, dD)
+    for x, p in ((lse, plse), (dD, pdD)):
+        assert p.shape[-1] % 4 == 0 and p.shape[-1] - Sqp < 4
+        assert torch.equal(p[..., :Sqp], x) and not p[..., Sqp:].any()
+        assert p.is_contiguous()
