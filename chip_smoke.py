@@ -27,9 +27,11 @@ makes the script exit non-zero):
               |L'| = 0; flash_fwd (K7) against its plain version at the
               qwen3-1.7b prefill layer shapes (1, 4096), (4, 4096) and
               (1, 32768) (its first and last 512 query rows), bf16 and
-              fp32, causal, ragged and non-causal, element-wise and per
-              query row (tolerances at K7_TOL, K7_ROW_RTOL), and two
-              planted faults the check must flag; the K7 backward
+              fp32, causal, ragged (S = 1000 and 4097) and non-causal,
+              hd 64 with G = 3, element-wise and per query row
+              (tolerances at K7_TOL, K7_ROW_RTOL), every case run twice
+              with bit-identical o and lse, and two planted faults the
+              check must flag; the K7 backward
               (bf16: the fused dq / dk / dv kernel; fp32: K7 dq and dkv)
               against ``flash_bwd_ref`` at the training layer shapes
               (1, 4096) and (2, 4096), bf16 and fp32, causal, ragged and
@@ -473,11 +475,15 @@ def check_slice2_kernels(dev):
 # against all keys (the plain version's S x S scores would take 69 GB);
 # every other case on all rows.
 K7_SPAN = 512
+# the bf16 K7 forward kernel's name, as the profiler reports it
+K7_FWD_KERNEL = "flash_fwd_wgmma_kernel"
 K7_CASES = (
     (1, 4096, 16, 8, 128, "bfloat16", True, None),
     (4, 4096, 16, 8, 128, "bfloat16", True, None),
     (1, 32768, 16, 8, 128, "bfloat16", True, "ends"),
     (2, 1000, 16, 8, 128, "bfloat16", True, None),  # ragged: S % 64 != 0
+    (1, 4097, 16, 8, 128, "bfloat16", True, None),  # S % 4 != 0 (TMA rows)
+    (2, 1000, 12, 4, 64, "bfloat16", True, None),   # hd 64, G = 3
     (2, 256, 8, 2, 128, "bfloat16", False, None),
     (1, 512, 16, 8, 128, "float32", True, None),
 )
@@ -555,10 +561,17 @@ def late_v_tiles_misplaced(v, axis=-2, first=K7_SPAN, tile=64):
     return bad
 
 
+# K7 fwd's device time per launch at K7_TIME_SHAPES from profiler windows
+# of phase 3 (``check_k7``): in phase 5 some windows have seen no kernel
+# at all, while the same windows in phase 3 see them (PERF.md, section 6)
+K7_EARLY = {}
+
+
 def check_k7(dev):
     """K7 fwd against ``flash_fwd_ref`` on the card at K7_CASES, then two
     planted faults that the check must flag; returns the largest max
-    |err| of o over the cases."""
+    |err| of o over the cases.  Also takes K7's stand-alone device time
+    at K7_TIME_SHAPES into K7_EARLY."""
     import torch
     from repro_torch.kernels.flash_attention import flash_fwd
     worst = 0.0
@@ -567,13 +580,23 @@ def check_k7(dev):
         kw = dict(causal=causal, scale=hd ** -0.5, sq=S, sk=S)
         o, lse = flash_fwd(qp, kp, vp, **kw)
         torch.cuda.synchronize()
+        if (B, S, H, KV, hd) in K7_TIME_SHAPES and dt == "bfloat16":
+            K7_EARLY[S] = device_ms(lambda: flash_fwd(qp, kp, vp, **kw),
+                                    K7_FWD_KERNEL, reps=20 if S < 32768 else 5)
         e = k7_errors(qp, kp, vp, o, lse, spans=k7_spans(S, rows), **kw)
+        # the forward has no atomics: a second run is bit-identical
+        o2, lse2 = flash_fwd(qp, kp, vp, **kw)
+        same = bool(torch.equal(o, o2) and torch.equal(lse, lse2))
+        del o2, lse2
         log(f"  flash_fwd (B,S,H,KV,hd)={(B, S, H, KV, hd)} {dt} causal="
             f"{causal} rows={rows or 'all'}: o max |err| {e['abs']:.3g} "
             f"({e['bad']} past {K7_TOL[dt]} abs/rel), row rel err "
             f"{e['row']:.3g} (tol {K7_ROW_RTOL[dt]}), lse rel err "
-            f"{e['lse']:.3g} (tol {K7_LSE_RTOL})")
+            f"{e['lse']:.3g} (tol {K7_LSE_RTOL}); rerun bit-identical "
+            f"{same}")
         require(k7_ok(e, dt), f"K7 {K7_CASES[i]}: {e}")
+        require(same, f"K7 {K7_CASES[i]}: o or lse differs between two "
+                      f"runs on the same operands")
         worst = max(worst, e["abs"])
         if i == 0:
             # controls: the kernel with a planted fault, held against the
@@ -1161,7 +1184,7 @@ def lm_path(dev, by_path):
             pw, busy, by_kernel = profile_window(lambda: prefill(params,
                                                                  batch))
             top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:5]
-            k7 = [v for k, v in by_kernel.items() if "flash_fwd_bf16" in k]
+            k7 = [v for k, v in by_kernel.items() if K7_FWD_KERNEL in k]
             info["profile"] = dict(
                 wall_s=pw, busy_s=busy,
                 busy_share=None if busy is None else busy / pw,
@@ -1537,11 +1560,16 @@ def profile_window(fn):
 
 def device_ms(fn, name_part, reps=20):
     """Device time of one launch of the kernel whose name contains
-    ``name_part`` (profiler), or None when the profiler saw none."""
+    ``name_part`` (profiler), or None when the profiler saw none (logged
+    with what the window did see: late in the script some windows come
+    back with no kernel at all, PERF.md section 6)."""
     fn()
     _, _, by_kernel = profile_window(lambda: [fn() for _ in range(reps)])
     hits = [v for k, v in by_kernel.items() if name_part in k]
     if not hits:
+        log(f"  device_ms: no {name_part} in a profiler window of {reps} "
+            f"calls; it saw {len(by_kernel)} kernels: " + json.dumps(
+                [(k[:50], v) for k, v in list(by_kernel.items())[:4]]))
         return None
     return sum(v[0] for v in hits) / sum(v[1] for v in hits) * 1e3
 
@@ -1718,16 +1746,17 @@ def k7_times(dev, by_path, errs, lm):
         nbytes = 2 * B * S * hd * (2 * H + 2 * KV) + 4 * B * H * S
         b, kind = bound(nbytes, flops, H100_BF16_FLOPS)
         ms = cuda_ms(k7, reps)
-        rows[S] = dict(ms=ms, device_ms=device_ms(k7, "flash_fwd_bf16", reps),
+        rows[S] = dict(ms=ms, device_ms=device_ms(k7, K7_FWD_KERNEL, reps),
                        bound_ms=b, bound_by=kind,
                        tflops=flops / (ms * 1e9))
-    # the stand-alone profiler window has seen no kernel at (1, 32768) in
-    # this script's runs (it does in a fresh process): the profiled
-    # prefill call at that shape gives K7's device time per launch too
+    # beside phase 5's stand-alone windows stand phase 3's (K7_EARLY) and
+    # the profiled prefill call at (1, 32768), K7's device time per launch
     require(K7_TIME_SHAPES[1][:2] == LM_PREFILL[0],
             "the profiled prefill call is not at K7's (1, 32768) shape")
     rows[K7_TIME_SHAPES[1][1]]["device_ms_in_prefill"] = lm["profile"][
         "k7_device_ms"]
+    for _, S, _, _, _ in K7_TIME_SHAPES:
+        rows[S]["device_ms_phase3"] = K7_EARLY.get(S)
     for B, S, H, KV, hd in K7_TIME_SHAPES:
         k7, lib, plain = calls[S]
         small = S == K7_TIME_SHAPES[0][1]
@@ -1752,7 +1781,10 @@ def k7_times(dev, by_path, errs, lm):
                  bound_by=r["bound_by"], library_ms=r["library_ms"],
                  library_call="F.scaled_dot_product_attention(is_causal=True, "
                               "enable_gqa=True)",
-                 device_ms=r["device_ms"],
+                 device_ms=r["device_ms"] if r["device_ms"] is not None
+                 else r["device_ms_phase3"],
+                 device_ms_from="phase 5" if r["device_ms"] is not None
+                 else "phase 3",
                  shape=f"(B, S, H, KV, hd) = {K7_TIME_SHAPES[0]} bf16 "
                        f"causal, one qwen3-1.7b layer",
                  at_32k=rows[K7_TIME_SHAPES[1][1]],

@@ -74,12 +74,15 @@
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
+#include "tensor_map.cuh"
 
 namespace {
 
 using flash::key_end;
 using flash::live;
 using flash::pack_bf16;
+using hopper::encode_tiled;
+using hopper::map_rows;
 
 typedef __nv_bfloat16 bf16;
 
@@ -679,57 +682,6 @@ cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
       a.dD, static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.G, a.Sqp,
       a.Skp, a.sq, a.sk, a.scale, a.causal);
   return cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
-// (no link against libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// rows [0, rows) of `heads` (rows, HD) bf16 matrices, the matrix h at
-// `base + h * pitch_rows * HD`; boxes of (box_rows, sw / 2 columns).  Rows
-// at or past `rows` (the real length) read as zeros.
-bool map_rows(CUtensorMap* m, const void* base, int HD, int rows,
-              int pitch_rows, int heads, int box_rows, int sw) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(HD),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {
-      static_cast<cuuint64_t>(HD) * 2,
-      static_cast<cuuint64_t>(pitch_rows) * HD * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(sw / 2),
-                             static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t one[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swz = sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                            : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode_tiled()(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                        const_cast<void*>(base), dims, strides, box, one,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // an fp32 vector of n values read in boxes of `box` (lse, dD as one run

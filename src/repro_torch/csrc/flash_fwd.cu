@@ -11,205 +11,361 @@
 // Layouts (contiguous, padded past the real lengths sq / sk):
 //   q, o (B, KV, G, Sqp, HD); k, v (B, KV, Skp, HD); lse (B, KV, G, Sqp).
 //
+// What bounds it: at the prefill shapes (hd 128, S >= 4096) the causal
+// work, 4 hd FLOPs a live (q, k) pair (S and P V), against 989 TFLOP/s
+// bf16: operations, not bytes (q, k, v and o move once, ~5x below).
+// Beside the products, the exponentials: one ex2 a pair, 16 a clock on
+// an SM, take half as long as the products at hd 128, so the design
+// keeps the special-function unit busy while the tensor cores are.
+//
 // Design.  The TPU grid (B, KV, G, nq, nk) runs its key axis in order and
-// carries m / l / acc in VMEM between grid steps.  Hopper blocks run in
-// no order, so one block owns one (b, kv, g, 64-row q tile) and loops over
-// the key tiles itself; K and V tiles are staged in shared memory, m, l
-// and the accumulator stay in registers.  Key tiles wholly above the
-// diagonal, and key tiles past sk, are never visited; a q tile made only
-// of padded rows visits none.  The heaviest causal q tiles start first.
-//  * bf16: 4 warps, each owning 16 query rows; S = Q K^T and O += P V on
-//    the tensor cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate).
-//    The S accumulator fragment is re-packed in registers as the A
-//    operand of P V, so P never touches shared memory.
+// carries m / l / acc in VMEM between grid steps.  Hopper blocks run in no
+// order, so one block owns 128 query rows of one head and loops over the
+// key tiles itself; m, l and the O accumulator stay in registers.
+//  * bf16: two warpgroups, each owning 64 of the rows (two consecutive
+//    64-row tiles of one head: with 128-key tiles this does the same
+//    causal tile work as giving them the same rows of two heads of a KV
+//    group, and it takes any G).  Q comes in one TMA load; 128-key K and
+//    V tiles stream through a 3-deep ring of shared-memory stages tracked
+//    by full / empty mbarriers.  Thread 0 issues the first three tiles;
+//    the warpgroup that releases tile i second (a shared counter per
+//    stage decides which) waits for all eight warps on empty and issues
+//    tile i + 3, so no warpgroup waits for a thread of the other to come
+//    round to it.  Both products are wgmma (bf16 in, fp32 accumulate):
+//      S = Q K^T  64 q rows x 128 keys a warpgroup, A and B from shared
+//                 memory (both K-major);
+//      O += P V   P from registers: the S accumulator, exp'd and rounded
+//                 to bf16 pairs, is the A operand as it lies (the
+//                 accumulator layout of 16 columns is the A fragment of a
+//                 k16 step), so P never touches shared memory; V is the
+//                 MN-major B operand, transposed by its descriptor.
+//    Each warpgroup issues S of tile i + 1 with P V of tile i in one
+//    batch and runs the softmax of tile i + 1 while P V is on the tensor
+//    cores; the two warpgroups fill each other's gaps.  Softmax in base
+//    2: on tiles that need no mask the row max is taken over the raw
+//    scores and scale * log2(e) is folded into the exponent's multiply-
+//    add; lse goes back to natural log.  A warp whose rows' maxima all
+//    stayed put skips rescaling O (a factor of exactly 1).  The mask is
+//    evaluated only on tiles that cross the diagonal or the ragged sq /
+//    sk edge; the TMA tensor maps end at sq and sk, so rows past them
+//    arrive as zeros.  Key tiles wholly above the diagonal, and past sk,
+//    are never visited; a block of padded rows visits none.  The heaviest
+//    causal blocks start first.  No producer warp: S (64), O (64) and P
+//    (32) take 160 registers a thread, and with a third warpgroup, or a
+//    ninth warp, ptxas's budget falls below what the kernel needs and it
+//    serializes every wgmma (flash_bwd.cu).
 //  * fp32 (the tight comparisons): CUDA cores, 256 threads, four per
 //    query row; scores, P and the accumulator in fp32 throughout.
-// What bounds it: at the prefill shapes (hd 128, S >= 4096) the causal
-// work, 4 * hd * S^2 / 2 FLOPs per head, against 989 TFLOP/s bf16:
-// operations, not bytes (q, k, v, o are read or written once).  This
-// first version uses neither wgmma nor TMA nor a copy/compute pipeline.
 #include <cstdint>
+#include <type_traits>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
+#include "tensor_map.cuh"
 
 namespace {
 
 using flash::NEG;
-using flash::PAD16;
 using flash::key_end;
 using flash::live;
-using flash::mma16816;
 using flash::pack_bf16;
 
+typedef __nv_bfloat16 bf16;
+
 // ---------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16
+// bf16: wgmma / TMA
 // ---------------------------------------------------------------------------
 
-constexpr int BQ16 = 64;    // q rows per block (4 warps x 16)
-constexpr int BK16 = 64;    // keys per tile
+constexpr int BQ = 128;          // q rows per block (two warpgroups x 64)
+constexpr int BK = 128;          // keys per tile
+constexpr int THREADS = 256;     // two warpgroups
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int HD>
-__global__ void __launch_bounds__(128)
-flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                      int G, int Sqp, int Skp, int sq, int sk, float scale,
-                      int causal) {
-  constexpr int LD = HD + PAD16;       // shared row stride, in bf16
-  constexpr int KS = HD / 16;          // k-steps of Q K^T
-  constexpr int NT = BK16 / 8;         // n-tiles of S
-  constexpr int ND = HD / 8;           // n-tiles of O
-  extern __shared__ __align__(16) char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vs = Ks + BK16 * LD;
-  const uint16_t* Vh = reinterpret_cast<const uint16_t*>(Vs);
+struct Fwd {
+  static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;  // swizzle, bytes
+  static constexpr int AE = SW / 2;        // bf16 per swizzled row
+  static constexpr int NB = HD / AE;       // column blocks of a tile
+  static constexpr int KPA = SW / 32;      // k16 steps per column block
+  static constexpr int STAGES = 3;         // K / V ring depth
+  static constexpr int QT = 64 * HD * 2;   // one warpgroup's Q tile, bytes
+  static constexpr int KT = BK * HD * 2;   // K or V tile bytes
+  static constexpr int OFF_Q = 0;          // two Q tiles
+  static constexpr int OFF_K = 2 * QT;     // STAGES K tiles
+  static constexpr int OFF_V = OFF_K + STAGES * KT;
+  static constexpr int OFF_B = OFF_V + STAGES * KT;
+  static constexpr int BYTES = OFF_B + (1 + 2 * STAGES) * 8 + STAGES * 4;
+  static constexpr int SMEM = BYTES + 1024;   // + alignment of the base
+  static_assert(QT % 1024 == 0 && KT % 1024 == 0, "1024-byte tiles");
+};
 
-  const int nq = gridDim.x;
-  const int qt = nq - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int h = blockIdx.y;            // (b * KV + kv) * G + g
-  const long long qbase = static_cast<long long>(h) * Sqp * HD;
-  const long long kbase = static_cast<long long>(h / G) * Skp * HD;
-  const int q0 = qt * BQ16;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       bf16* __restrict__ o, float* __restrict__ lse, int G,
+                       int Sqp, int sq, int sk, float scale, int causal) {
+  using F = Fwd<HD>;
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  // the tiles start on a 1024-byte boundary (pointer arithmetic on
+  // smem_raw keeps the shared window: 32-bit shared loads and stores)
+  uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(sm + F::OFF_B);
+  uint64_t* full = q_bar + 1;              // [STAGES]: K, V tile landed
+  uint64_t* empty = full + F::STAGES;      // [STAGES]: K, V tile consumed
+  // [STAGES]: warpgroups done with the stage's tile, counted (the second
+  // to finish refills the stage)
+  uint32_t* done = reinterpret_cast<uint32_t*>(empty + F::STAGES);
+
+  const int h = blockIdx.x;                // (b * KV + kv) * G + g
+  const int hk = h / G;                    // b * KV + kv
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest first
+  const int n_tiles = (key_end(q0, BQ, sq, sk, causal) + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < F::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], THREADS / 32);
+      done[s] = 0;
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // warp-uniform in the compiler's eyes (a shuffle from lane 0), so that
+  // the descriptors built on it live in uniform registers
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  // TMA copies of K and V of key tile i into stage i % STAGES, completing
+  // on full[stage]: thread 0 issues Q and the first STAGES tiles; tile
+  // i + STAGES is issued by the warpgroup that releases tile i last
+  auto load_kv = [&](int i) {
+    const int s = i % F::STAGES;
+    mbar_expect_tx(&full[s], 2 * F::KT);
+    for (int cb = 0; cb < F::NB; ++cb) {
+      tma_load_3d(sm + F::OFF_K + s * F::KT + cb * BK * F::SW, &tk, &full[s],
+                  cb * F::AE, i * BK, hk);
+      tma_load_3d(sm + F::OFF_V + s * F::KT + cb * BK * F::SW, &tv, &full[s],
+                  cb * F::AE, i * BK, hk);
+    }
+  };
+  if (threadIdx.x == 0 && n_tiles > 0) {
+    mbar_expect_tx(q_bar, 2 * F::QT);
+    for (int w = 0; w < 2; ++w)
+      for (int cb = 0; cb < F::NB; ++cb)
+        tma_load_3d(sm + F::OFF_Q + w * F::QT + cb * 64 * F::SW, &tq, q_bar,
+                    cb * F::AE, q0 + 64 * w, h);
+    for (int i = 0; i < F::STAGES && i < n_tiles; ++i) load_kv(i);
+  }
+
+  // warpgroup wg owns rows qw .. qw + 63; this thread rows qw + 16 wq +
+  // gid + 8 i (i = 0, 1), columns 8 j + 2 tig + c of every 8-wide block
+  const int t = threadIdx.x & 127;
+  const int wq = t >> 5, lane = t & 31;
   const int gid = lane >> 2, tig = lane & 3;
-  const int r0 = q0 + warp * 16 + gid;  // this thread's rows: r0, r0 + 8
-  const int r1 = r0 + 8;
+  const int qw = q0 + 64 * wg;
+  const float sl2 = scale * LOG2E;
+  const uint32_t sQ = smem_u32(sm + F::OFF_Q + wg * F::QT);
 
-  // Q fragments (A operand, row-major 16 x 16 per k-step), kept in
-  // registers for the whole key loop
-  uint32_t qa[KS][4];
-  {
-    const uint32_t* q32 = reinterpret_cast<const uint32_t*>(q + qbase);
+  float sacc[64];                // S of one tile, then exp2(S - m) in place
+  uint32_t pa[8][4];             // P of one tile: bf16 pairs, A of P V
+  float oacc[HD / 2];
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      const int c = (ks * 16 + tig * 2) >> 1;
-      qa[ks][0] = r0 < Sqp ? q32[static_cast<long long>(r0) * (HD / 2) + c] : 0u;
-      qa[ks][1] = r1 < Sqp ? q32[static_cast<long long>(r1) * (HD / 2) + c] : 0u;
-      qa[ks][2] = r0 < Sqp ? q32[static_cast<long long>(r0) * (HD / 2) + c + 4] : 0u;
-      qa[ks][3] = r1 < Sqp ? q32[static_cast<long long>(r1) * (HD / 2) + c + 4] : 0u;
-    }
-  }
-  float oacc[ND][4];
+  for (int i = 0; i < 64; ++i) sacc[i] = 0.f;
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
-    oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
-  float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;  // l: this thread's share
+  for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
+  float m[2] = {NEG, NEG};       // running row max, base-2 units
+  float l[2] = {0.f, 0.f};       // running row sum, this thread's columns
 
-  const int kend = key_end(q0, BQ16, sq, sk, causal);
-  for (int kb = 0; kb < kend; kb += BK16) {
-    // stage the K and V tiles (16 B per thread per copy; keys >= sk -> 0)
-    constexpr int CH = HD / 8;         // 16-byte chunks per row
-    for (int i = threadIdx.x; i < BK16 * CH; i += blockDim.x) {
-      const int r = i / CH, c = (i % CH) * 8;
-      uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = kv4;
-      if (kb + r < sk) {
-        const long long off = kbase + static_cast<long long>(kb + r) * HD + c;
-        kv4 = *reinterpret_cast<const uint4*>(k + off);
-        vv4 = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(Ks + r * LD + c) = kv4;
-      *reinterpret_cast<uint4*>(Vs + r * LD + c) = vv4;
+  // S = Q K^T of tile it into sacc (64 q rows x 128 keys); the k index
+  // (head dim) runs along the rows of both tiles
+  auto issue_s = [&](int it) {
+    const uint64_t dq_ = desc(sQ, F::SW, 16, 8 * F::SW);
+    const uint64_t dk_ = desc(
+        smem_u32(sm + F::OFF_K + (it % F::STAGES) * F::KT), F::SW, 16,
+        8 * F::SW);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int c = (kk % F::KPA) * 32;         // inside a column block
+      const int qb = (kk / F::KPA) * 64 * F::SW + c;
+      const int kb = (kk / F::KPA) * BK * F::SW + c;
+      wgmma_ss<0, 0>(sacc, dq_ + (qb >> 4), dk_ + (kb >> 4), kk > 0);
     }
-    __syncthreads();
+    wgmma_commit();
+  };
+  // O += P V of tile it: A = P (registers, 16 keys a step), B = the V
+  // tile's 16 key rows (MN-major: head dim along the row)
+  auto issue_pv = [&](int it) {
+    const uint64_t dv_ = desc(
+        smem_u32(sm + F::OFF_V + (it % F::STAGES) * F::KT), F::SW,
+        BK * F::SW, 8 * F::SW);
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      wgmma_rs<1>(oacc, pa[u], dv_ + ((u * 16 * F::SW) >> 4), 1);
+    wgmma_commit();
+  };
+  auto fence_operands = [&]() {
+    fence_regs(sacc);
+    fence_regs(oacc);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) fence_regs(pa[u]);
+  };
+  // the softmax of tile it on sacc: the running max and sum, exp2(s * sl2
+  // - m) left in sacc, and the factor that rescales the rows' earlier
+  // sums in corr.  Tiles that cross the diagonal or the sq / sk edge scale
+  // the scores first and mask them; the others take the row max of the
+  // raw scores (of their negatives if scale < 0) and fold the scaling
+  // into the exponent.
+  auto softmax = [&](int it, float (&corr)[2]) {
+    // computed from here on, not hoisted above the product while its
+    // accumulator is live
+    const int key0 = static_cast<int>(
+        opaque(static_cast<uint32_t>(it * BK + 2 * tig)));
+    const int row0 = static_cast<int>(
+        opaque(static_cast<uint32_t>(qw + 16 * wq + gid)));
+    float ps[2] = {0.f, 0.f};
+    auto body = [&](auto mask_on, auto neg_scale) {
+      constexpr bool MASK = decltype(mask_on)::value;
+      constexpr bool NEGS = decltype(neg_scale)::value;
+      float mx[2] = {NEG, NEG};
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int r = 4 * j + 2 * i + c;
+            if (MASK) {
+              sacc[r] = live(row0 + 8 * i, key0 + 8 * j + c, sq, sk, causal)
+                            ? sacc[r] * sl2 : NEG;
+              mx[i] = fmaxf(mx[i], sacc[r]);
+            } else {
+              mx[i] = fmaxf(mx[i], NEGS ? -sacc[r] : sacc[r]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float mn = fmaxf(m[i], MASK ? mx[i] : mx[i] * fabsf(sl2));
+        corr[i] = ex2(m[i] - mn);
+        m[i] = mn;
+      }
+#pragma unroll
+      for (int r = 0; r < 64; ++r) {
+        const int i = (r >> 1) & 1;             // row gid + 8 i
+        sacc[r] = MASK ? ex2(sacc[r] - m[i]) : ex2(fmaf(sacc[r], sl2, -m[i]));
+        ps[i] += sacc[r];
+      }
+    };
+    const int k_first = it * BK;
+    if ((causal && k_first + BK - 1 > qw) || k_first + BK > sk ||
+        qw + 64 > sq)
+      body(std::true_type{}, std::false_type{});
+    else if (sl2 >= 0.f)
+      body(std::false_type{}, std::false_type{});
+    else
+      body(std::false_type{}, std::true_type{});
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + ps[i];
+  };
+  // O rescaled (skipped by a warp whose rows' maxima all stayed put: a
+  // factor of exactly 1) and P, the bf16 pairs of sacc, as the A
+  // fragments of P V
+  auto rescale_o = [&](const float (&corr)[2]) {
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) oacc[4 * j + r] *= corr[r >> 1];
+    }
+  };
+  auto to_p = [&](const float (&corr)[2]) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[u][r] = pack_bf16(sacc[8 * u + 2 * r], sacc[8 * u + 2 * r + 1]);
+    }
+    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f))
+      rescale_o(corr);
+  };
 
-    // S = Q K^T: B operand (col-major 16 x 8) from K rows
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const uint32_t* krow =
-          reinterpret_cast<const uint32_t*>(Ks + (j * 8 + gid) * LD);
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        mma16816(s[j], qa[ks], krow[ks * 8 + tig], krow[ks * 8 + tig + 4]);
-    }
-    // scale, mask, online max
-    float mx0 = NEG, mx1 = NEG;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c = kb + j * 8 + tig * 2;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[j][e] = live(r0, c + e, sq, sk, causal) ? s[j][e] * scale : NEG;
-        s[j][2 + e] = live(r1, c + e, sq, sk, causal) ? s[j][2 + e] * scale
-                                                      : NEG;
-        mx0 = fmaxf(mx0, s[j][e]);
-        mx1 = fmaxf(mx1, s[j][2 + e]);
+  // The pipeline: S of tile it + 1 is issued with P V of tile it, and its
+  // softmax runs while P V is on the tensor cores.  The loop runs every
+  // tile but the last, so that every batch has the same two products.
+  if (n_tiles > 0) {
+    float corr[2];
+    mbar_wait(q_bar, 0);
+    mbar_wait(&full[0], 0);
+    fence_operands();
+    wgmma_fence();
+    issue_s(0);
+    wgmma_wait<0>();
+    fence_regs(sacc);
+    softmax(0, corr);
+    to_p(corr);
+    for (int it = 0; it + 1 < n_tiles; ++it) {
+      mbar_wait(&full[(it + 1) % F::STAGES], ((it + 1) / F::STAGES) & 1);
+      fence_operands();
+      wgmma_fence();
+      issue_s(it + 1);
+      issue_pv(it);
+      wgmma_wait<1>();
+      fence_regs(sacc);
+      softmax(it + 1, corr);
+      wgmma_wait<0>();
+      fence_operands();
+      // tile it consumed: every warp arrives on empty; the warpgroup that
+      // finishes second waits for all eight and refills the stage
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[it % F::STAGES]);
+      if (t == 0 && it + F::STAGES < n_tiles &&
+          (atomicAdd(&done[it % F::STAGES], 1u) & 1)) {
+        mbar_wait(&empty[it % F::STAGES], (it / F::STAGES) & 1);
+        load_kv(it + F::STAGES);
       }
+      to_p(corr);
     }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float c0 = __expf(m0 - mn0), c1 = __expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[j][e] = __expf(s[j][e] - mn0);
-        s[j][2 + e] = __expf(s[j][2 + e] - mn1);
-        ps0 += s[j][e];
-        ps1 += s[j][2 + e];
-      }
-    }
-    l0 = l0 * c0 + ps0;
-    l1 = l1 * c1 + ps1;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      oacc[n][0] *= c0;
-      oacc[n][1] *= c0;
-      oacc[n][2] *= c1;
-      oacc[n][3] *= c1;
-    }
-    // O += P V: P (bf16) straight from the S fragments, V (B operand,
-    // k = key, n = head dim) read as pairs of bf16 from shared memory
-#pragma unroll
-    for (int kk = 0; kk < BK16 / 16; ++kk) {
-      uint32_t pa[4];
-      flash::acc_to_a(s, kk, pa);
-      const int key = kk * 16 + tig * 2;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const int d = n * 8 + gid;
-        mma16816(oacc[n], pa, flash::col_pair(Vh, LD, key, d),
-                 flash::col_pair(Vh, LD, key + 8, d));
-      }
-    }
-    __syncthreads();
+    fence_operands();
+    wgmma_fence();
+    issue_pv(n_tiles - 1);
+    wgmma_wait<0>();
+    fence_operands();
   }
 
-  // finish: the row sums over the 4 threads of a row, then o and lse
+  // finish: the row sums over the 4 threads of a row, then o and lse (rows
+  // past sq hold values of the masked tiles: never read)
 #pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  l0 = fmaxf(l0, 1e-30f);
-  l1 = fmaxf(l1, 1e-30f);
-  const float i0 = 1.f / l0, i1 = 1.f / l1;
-  uint32_t* o32 = reinterpret_cast<uint32_t*>(o + qbase);
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] = fmaxf(l[i], 1e-30f);
+    const int row = qw + 16 * wq + gid + 8 * i;
+    if (row < Sqp) {
+      const float inv = 1.f / l[i];
+      uint32_t* o32 = reinterpret_cast<uint32_t*>(
+          o + (static_cast<long long>(h) * Sqp + row) * HD);
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int c = (n * 8 + tig * 2) >> 1;
-    if (r0 < Sqp)
-      o32[static_cast<long long>(r0) * (HD / 2) + c] =
-          pack_bf16(oacc[n][0] * i0, oacc[n][1] * i0);
-    if (r1 < Sqp)
-      o32[static_cast<long long>(r1) * (HD / 2) + c] =
-          pack_bf16(oacc[n][2] * i1, oacc[n][3] * i1);
-  }
-  if (tig == 0) {
-    const long long lb = static_cast<long long>(h) * Sqp;
-    if (r0 < Sqp) lse[lb + r0] = m0 + logf(l0);
-    if (r1 < Sqp) lse[lb + r1] = m1 + logf(l1);
+      for (int j = 0; j < HD / 8; ++j)
+        o32[4 * j + tig] = pack_bf16(oacc[4 * j + 2 * i] * inv,
+                                     oacc[4 * j + 2 * i + 1] * inv);
+      if (tig == 0)
+        lse[static_cast<long long>(h) * Sqp + row] = m[i] * LN2 + logf(l[i]);
+    }
   }
 }
 
@@ -319,19 +475,26 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 }  // namespace
 
-template <typename T, typename Kernel>
-static cudaError_t launch_kernel(Kernel kernel, dim3 grid, int threads,
-                                 int smem, cudaStream_t stream, const void* q,
-                                 const void* k, const void* v, void* o,
-                                 float* lse, int G, int Sqp, int Skp, int sq,
-                                 int sk, float scale, int causal) {
+template <int HD>
+static cudaError_t launch_bf16(int heads, int G, int Sqp, int Skp, int sq,
+                               int sk, float scale, int causal,
+                               cudaStream_t stream, const void* q,
+                               const void* k, const void* v, void* o,
+                               float* lse) {
+  using F = Fwd<HD>;
+  if (hopper::encode_tiled() == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv;
+  if (!hopper::map_rows(&tq, q, HD, sq, Sqp, heads, 64, F::SW) ||
+      !hopper::map_rows(&tk, k, HD, sk, Skp, heads / G, BK, F::SW) ||
+      !hopper::map_rows(&tv, v, HD, sk, Skp, heads / G, BK, F::SW))
+    return cudaErrorInvalidValue;
+  auto kern = flash_fwd_wgmma_kernel<HD>;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, F::SMEM);
   if (e != cudaSuccess) return e;
-  kernel<<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, G, Sqp, Skp, sq, sk,
-      scale, causal);
+  const dim3 grid(heads, (Sqp + BQ - 1) / BQ);
+  kern<<<grid, THREADS, F::SMEM, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), lse, G, Sqp, sq, sk, scale, causal);
   return cudaGetLastError();
 }
 
@@ -340,19 +503,21 @@ static cudaError_t dispatch(int dtype, int heads, int G, int Sqp, int Skp,
                             int sq, int sk, float scale, int causal,
                             cudaStream_t stream, const void* q, const void* k,
                             const void* v, void* o, float* lse) {
-  if (dtype == 1) {
-    const dim3 grid((Sqp + BQ16 - 1) / BQ16, heads);
-    const int smem = 2 * BK16 * (HD + PAD16) * 2;
-    return launch_kernel<__nv_bfloat16>(flash_fwd_bf16_kernel<HD>, grid, 128,
-                                        smem, stream, q, k, v, o, lse, G, Sqp,
-                                        Skp, sq, sk, scale, causal);
-  }
+  if (dtype == 1)
+    return launch_bf16<HD>(heads, G, Sqp, Skp, sq, sk, scale, causal, stream,
+                           q, k, v, o, lse);
   const dim3 grid((Sqp + BQ32 - 1) / BQ32, heads);
   const int smem = 4 * (BQ32 * (HD + 1) + BK32 * (HD + 1) + BK32 * HD +
                         BQ32 * (BK32 + 1));
-  return launch_kernel<float>(flash_fwd_f32_kernel<HD>, grid, T32, smem,
-                              stream, q, k, v, o, lse, G, Sqp, Skp, sq, sk,
-                              scale, causal);
+  auto kern = flash_fwd_f32_kernel<HD>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, T32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, G, Sqp, Skp,
+      sq, sk, scale, causal);
+  return cudaGetLastError();
 }
 
 extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v,
@@ -361,7 +526,7 @@ extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v,
                             float scale, int causal, void* stream) {
   if ((dtype != 0 && dtype != 1) || heads < 1 || heads > 65535 || G < 1 ||
       heads % G != 0 || Sqp < 1 || Skp < 1 || sq < 1 || sq > Sqp || sk < 1 ||
-      sk > Skp)
+      sk > Skp || (Sqp + BQ - 1) / BQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {

@@ -59,7 +59,10 @@ def _packed(card, B, S, H, KV, hd, dtype, pad, seed):
 
 @pytest.mark.parametrize("B,S,H,KV,hd,pad", [
     (1, 256, 16, 8, 128, 256), (2, 1000, 16, 8, 128, 1024),
-    (2, 100, 4, 2, 64, 128), (1, 40, 6, 2, 32, 40), (2, 33, 4, 4, 16, 64)])
+    (2, 100, 4, 2, 64, 128), (1, 40, 6, 2, 32, 40), (2, 33, 4, 4, 16, 64),
+    # S % 4 != 0 (TMA rows), and 16 key tiles through the 3-stage K / V
+    # ring with a ragged tail
+    (1, 4097, 16, 8, 128, 4100), (1, 2000, 16, 8, 128, 2048)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_fwd_matches_plain(card, B, S, H, KV, hd, pad, dtype, causal):
@@ -78,6 +81,20 @@ def test_flash_fwd_matches_plain(card, B, S, H, KV, hd, pad, dtype, causal):
                                atol=1e-4)
     row_tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
     assert _row_rel(o[..., :S, :], ro[..., :S, :]) <= row_tol
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal", [
+    (1, 4096, 16, 8, 128, True), (2, 1000, 12, 4, 64, True),
+    (2, 256, 8, 2, 128, False)])
+def test_flash_fwd_bf16_is_bit_identical_run_to_run(card, B, S, H, KV, hd,
+                                                     causal):
+    # the forward has no atomics: the same operands give the same bits
+    qp, kp, vp = _packed(card, B, S, H, KV, hd, torch.bfloat16, S, S)
+    kw = dict(causal=causal, scale=hd ** -0.5, sq=S, sk=S)
+    o, lse = flash_fwd(qp, kp, vp, **kw)
+    o2, lse2 = flash_fwd(qp, kp, vp, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(card):
