@@ -34,12 +34,17 @@ makes the script exit non-zero):
               check must flag; the K7 backward
               (bf16: the fused dq / dk / dv kernel; fp32: K7 dq and dkv)
               against ``flash_bwd_ref`` at the training layer shapes
-              (1, 4096) and (2, 4096), bf16 and fp32, causal, ragged and
-              non-causal, per output row and scaled (K7B_ROW_RTOL,
-              K7B_SCALED_TOL), dk / dv bit-identical across two runs and
-              dq within K7B_DQ_RERUN_RTOL (its atomics), and three
-              planted faults (lse offset past row 512, dD zeroed, a
-              non-zero dq accumulator) the check must flag;
+              (1, 4096) and (2, 4096), bf16 and fp32, causal, ragged
+              (S = 1000 and 4097), non-causal and hd 64 with G = 3, per
+              output row and scaled (K7B_ROW_RTOL, K7B_SCALED_TOL); the
+              fused kernel's dk / dv bit-identical across two runs and dq
+              within K7B_DQ_RERUN_RTOL (its atomics), the fp32 kernels'
+              dq, dk, dv bit-identical; three planted faults on the fused
+              kernel (lse offset past row 512, dD zeroed, a non-zero dq
+              accumulator) and the lse offset on the fp32 kernels, which
+              the check must flag; the fp32 plain version, kernels and
+              3xTF32 emulation against the plain version in float64
+              (logged);
 4. main     — the port's main paths against the oracle, each drive with
               the launch counters set to 0 just before it and read just
               after: ``MBEClient`` at default options (a 32-graph stream
@@ -77,7 +82,9 @@ makes the script exit non-zero):
               own path's shapes beside the plain version and the bound
               (and for K7 the time of ``F.scaled_dot_product_attention``
               on the same operands, and for the K7 backward SDPA's
-              backward),
+              backward; the fp32 K7 forward, dq and dkv at (2, 4096)
+              beside SDPA's fp32 forward and backward and the kernels
+              SDPA ran for them),
               and the device's busy share over main-path windows.
 
 Every phase runs on every call; the script takes no arguments.  The line
@@ -103,7 +110,9 @@ H100_INT_OPS_PER_S = 67e12      # CUDA-core 32-bit rate (NVIDIA's published
 #                                 words
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor-core peak (data sheet)
 H100_FP32_FLOPS = 67e12         # FP32 CUDA-core (non-tensor) peak, the
-#                                 fp32 K7 dq / dkv's rate
+#                                 fp32 K7 fwd / dq / dkv's rate
+H100_TF32_FLOPS = 494.7e12      # dense TF32 tensor-core peak (data sheet):
+#                                 fp32 products as 3xTF32, beside it
 
 
 def log(*a):
@@ -624,9 +633,9 @@ def check_k7(dev):
 
 # The K7 backward at the qwen3-1.7b training layer shapes (B, 4096) with H 16,
 # KV 8, hd 128 (the main path's microbatch is B = 2), bf16 and fp32,
-# causal, plus a ragged and a non-causal case: (B, S, H, KV, hd, dtype,
-# causal).  The operands are the forward kernel's o and lse, a random do
-# and dD = rowsum(do * o), the path's own.
+# causal, plus ragged, non-causal and hd-64 cases: (B, S, H, KV, hd,
+# dtype, causal).  The operands are the forward kernel's o and lse, a
+# random do and dD = rowsum(do * o), the path's own.
 K7B_CASES = (
     (1, 4096, 16, 8, 128, "bfloat16", True),
     (2, 4096, 16, 8, 128, "bfloat16", True),
@@ -634,7 +643,17 @@ K7B_CASES = (
     (2, 4096, 16, 8, 128, "float32", True),
     (2, 1000, 16, 8, 128, "bfloat16", True),    # ragged: S % 64 != 0
     (2, 256, 8, 2, 128, "bfloat16", False),
+    (2, 1000, 16, 8, 128, "float32", True),     # ragged
+    (1, 4097, 16, 8, 128, "float32", True),     # one row past a tile
+    (2, 256, 8, 2, 128, "float32", False),
+    (2, 1000, 12, 4, 64, "float32", True),      # hd 64, G = 3
 )
+# the fp32 K7 dq, dkv and forward kernels' names, as the profiler reports
+# them: ``check_k7_bwd`` takes their device times in phase 3, since phase
+# 5's windows have not seen these kernels (PERF.md, section 6)
+K7B_F32_KERNELS = {"flash_bwd_dq": "flash_dq_f32",
+                   "flash_bwd_dkv": "flash_dkv_f32",
+                   "flash_fwd": "flash_fwd_f32"}
 # Tolerances, per output row (query rows of dq, key rows of dk and dv),
 # ||x - ref|| / ||ref||, and max |x - ref| / max |ref| over the output.
 # Rows whose ref norm is under 1e-2 of the median row's are left to the
@@ -644,10 +663,15 @@ K7B_CASES = (
 # and ds to bf16 at the same points, from fp32 scores summed in another
 # order, and round the outputs to bf16 (the fused kernel's dq partials
 # meet in an fp32 accumulator through atomics, another order again);
-# fp32: the same arithmetic summed in another order.  Limits at ~2-3x the
-# sound kernels' largest readings over K7B_CASES on the card (PERF.md
-# section 6: bf16 row 5.7e-3, scaled 3.9e-3; fp32 row 6.2e-7, scaled
-# 3.1e-7); the planted faults read row >= 0.5 and scaled >= 0.047.
+# fp32: the same fmaf chains in the same order (csrc/flash_bwd.cu: S, dP
+# over the head dim, dQ over the keys, dK, dV over the G heads then the q
+# rows), so what is left is the plain version's own rounding of p and ds;
+# the plain version itself is further than these limits from its float64
+# evaluation (check_k7_bwd logs both), so any other summation order
+# misses them.  Limits at ~2-3x the sound kernels' largest readings over
+# K7B_CASES on the card (PERF.md section 6: bf16 row 5.7e-3, scaled
+# 3.9e-3; fp32 row 6.2e-7, scaled 3.1e-7); the planted faults read row
+# >= 0.5 and scaled >= 0.047.
 K7B_ROW_RTOL = {"bfloat16": 1e-2, "float32": 2e-6}
 K7B_SCALED_TOL = {"bfloat16": 1e-2, "float32": 1e-6}
 K7B_FAULT_ROW = 512
@@ -702,19 +726,28 @@ def k7b_brief(e) -> str:
 
 def check_k7_bwd(dev):
     """The K7 backward against ``flash_bwd_ref`` on the card at K7B_CASES
-    (bf16: the fused kernel; fp32: K7 dq and dkv), the fused kernel's
-    determinism (dk, dv bit-identical across two runs; dq within
-    K7B_DQ_RERUN_RTOL), then three planted faults that the check must
-    flag: the lse of query rows from K7B_FAULT_ROW on offset by +0.7, dD
-    zeroed, and the dq accumulator handed to the kernel filled with
-    non-zero values.  Returns the largest max |err| of each kernel over
-    its cases, and the readings."""
+    (bf16: the fused kernel; fp32: K7 dq and dkv), their determinism
+    (fused: dk, dv bit-identical across two runs, dq within
+    K7B_DQ_RERUN_RTOL; fp32: dq, dk, dv bit-identical), then planted
+    faults that the check must flag: for the fused kernel the lse of
+    query rows from K7B_FAULT_ROW on offset by +0.7, dD zeroed, and the dq
+    accumulator handed to the kernel filled with non-zero values; for the
+    fp32 kernels the same lse offset.  Logs, at the first fp32 case, the
+    fp32 plain version, the kernels and the plain version's 3xTF32
+    emulation against the plain version in float64.  Returns the largest
+    max |err| of each kernel over its cases, the readings, and the fp32
+    kernels' device times per launch at K7B_TIME_SHAPES[1] with the
+    kernels SDPA runs for its fp32 forward and backward there."""
     import torch
-    from repro_torch.kernels.flash_attention import flash_bwd, flash_bwd_ref
-    from repro_torch.kernels.flash_attention.ops import launch_bwd
+    from repro_torch.kernels.flash_attention import (flash_bwd, flash_bwd_ref,
+                                                     flash_fwd)
+    from repro_torch.kernels.flash_attention.ops import (launch_bwd,
+                                                        launch_dkv, launch_dq)
+    from repro_torch.kernels.flash_attention.ref import flash_bwd_3xtf32_ref
     worst = {"flash_bwd_fused": 0.0, "flash_bwd_dq": 0.0,
              "flash_bwd_dkv": 0.0}
-    readings = {}
+    readings, early = {}, {}
+    first_f32 = True
     for i, (B, S, H, KV, hd, dt, causal) in enumerate(K7B_CASES):
         qp, kp, vp, dop, lse, dD, kw = k7b_operands(B, S, H, KV, hd, dt,
                                                     causal, dev, 200 + i)
@@ -746,6 +779,65 @@ def check_k7_bwd(dev):
             worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], e["dq"]["abs"])
             worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"],
                                          e["dk"]["abs"], e["dv"]["abs"])
+            # no atomics: a second run is bit-identical
+            again = flash_bwd(qp, kp, vp, dop, lse, dD, **kw)
+            same = all(torch.equal(a, b) for a, b in zip(again, got))
+            readings[f"rerun {K7B_CASES[i]}"] = dict(identical=same)
+            log(f"  rerun: dq, dk, dv bit-identical {same}")
+            require(same, f"K7 bwd {K7B_CASES[i]} rerun: dq, dk or dv "
+                          f"differs between two runs on the same operands")
+            del again
+            if (B, S, H, KV, hd) == K7B_TIME_SHAPES[1] and causal:
+                # the fp32 kernels' device times (dq, dkv and the forward
+                # on the same operands) and the kernels SDPA runs for its
+                # fp32 forward and backward, from windows that see them
+                dq, dk, dv = (torch.empty_like(x) for x in (qp, kp, vp))
+                ops = (qp, kp, vp, dop, lse, dD)
+                for name, fn in (
+                        ("flash_bwd_dq", lambda: launch_dq(*ops, dq, **kw)),
+                        ("flash_bwd_dkv",
+                         lambda: launch_dkv(*ops, dk, dv, **kw)),
+                        ("flash_fwd", lambda: flash_fwd(qp, kp, vp, **kw))):
+                    early[name] = device_ms(fn, K7B_F32_KERNELS[name],
+                                            reps=5)
+                early["library_kernels"] = sdpa_kernels(qp, kp, vp, dop)
+                log(f"  fp32 device ms per launch and SDPA's kernels: "
+                    f"{json.dumps(early)}")
+                del dq, dk, dv, ops
+            if first_f32:
+                # what the fp32 limits hold: the plain version, the kernels
+                # and the plain version's 3xTF32 emulation (a tensor-core
+                # kernel's products) against the plain version evaluated
+                # in float64 (the exact result on these operands, to
+                # ~1e-15); the emulation against the fp32 plain version
+                w64 = flash_bwd_ref(*(x.double() for x in (qp, kp, vp, dop,
+                                                           lse, dD)), **kw)
+                tf3 = flash_bwd_3xtf32_ref(qp, kp, vp, dop, lse, dD, **kw)
+                for who, x, ref in (
+                        ("plain version vs float64", want, w64),
+                        ("kernels vs float64", got, w64),
+                        ("3xTF32 emulation vs float64", tf3, w64),
+                        ("3xTF32 emulation vs the fp32 plain version", tf3,
+                         want)):
+                    e64 = k7b_errors(x, ref)
+                    readings[f"fp32 {who}"] = e64
+                    log(f"  fp32 {who}: {k7b_brief(e64)}")
+                del w64, tf3
+                # control: the fp32 kernels given a wrong lse, held
+                # against the plain version on the right one
+                first_f32 = False
+                bad_lse = lse.clone()
+                bad_lse[..., K7B_FAULT_ROW:] += 0.7
+                ce = k7b_errors(flash_bwd(qp, kp, vp, dop, bad_lse, dD, **kw),
+                                want)
+                flagged = not k7b_ok(ce, dt)
+                what = f"fp32 lse + 0.7 from row {K7B_FAULT_ROW}"
+                readings[f"control: {what}"] = ce
+                log(f"  control ({what}) at {K7B_CASES[i][:5]}: "
+                    f"{k7b_brief(ce)}: flagged {flagged}")
+                require(flagged, f"K7 bwd check passes a planted fault "
+                                 f"({what}): {ce}")
+                del bad_lse
         del got
         if i == 0:
             # controls: the fused kernel given a wrong operand, held against
@@ -778,7 +870,7 @@ def check_k7_bwd(dev):
             del bad_lse, bad_acc
         del qp, kp, vp, dop, lse, dD, want
         torch.cuda.empty_cache()
-    return worst, readings
+    return worst, readings, early
 
 
 # ---------------------------------------------------------------------------
@@ -1822,6 +1914,21 @@ def sdpa_backward(qp, kp, vp, dop, reps=20):
     return r, fwd_bwd()[0].float()
 
 
+def sdpa_kernels(qp, kp, vp, dop):
+    """The kernels one ``sdpa_backward`` library call runs (which SDPA
+    backend): [(name, device ms, launches)], the six longest."""
+    import torch
+    import torch.nn.functional as F
+    qs, ks, vs = (x.detach().requires_grad_() for x in
+                  (qp.flatten(1, 2), kp, vp))
+    _, _, by_kernel = profile_window(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                       enable_gqa=True),
+        (qs, ks, vs), dop.flatten(1, 2)))
+    return sorted(((k[:80], v[0] * 1e3, v[1]) for k, v in by_kernel.items()),
+                  key=lambda x: -x[1])[:6]
+
+
 def row_rel(x, ref) -> float:
     """max over rows of ||x - ref|| / ||ref||, rows under 1e-2 of the
     median row norm left out (K7B_ROW_RTOL's first measure)."""
@@ -1830,19 +1937,25 @@ def row_rel(x, ref) -> float:
     return float(((x - ref).norm(dim=-1)[keep] / rn[keep]).max())
 
 
-def k7_bwd_times(dev, by_path, errs, train):
+def k7_bwd_times(dev, by_path, errs, train, early):
     """The fused K7 backward at K7B_TIME_SHAPES, bf16 causal: the wrapper
     call (CUDA events; it includes zeroing the fp32 dq accumulator and
     casting it to bf16) and the kernel's device time (profiler), its
     bound (10 hd FLOPs a causal (q, k) pair over the bf16 peak, against
     the bytes it must move), TFLOP/s at 10 hd, the plain version and the
     library call (``sdpa_backward``).  Then the fp32 K7 dq and dkv at the
-    fp32 grad path's shape (2, 4096): each kernel's launch and device
-    time, its bound (6 hd and 8 hd FLOPs a pair with the recomputed
-    scores, over the FP32 CUDA-core peak), the plain version and SDPA's
-    fp32 backward."""
+    fp32 grad path's shape (2, 4096): each kernel's launch time, its
+    device time (phase 3's: ``early`` from ``check_k7_bwd``), its bound
+    (6 hd and 8 hd FLOPs a pair with the recomputed scores over the FP32
+    CUDA-core peak; beside it the same products as 3xTF32 at the TF32
+    tensor-core peak), the plain version, SDPA's fp32 backward and the
+    kernels that SDPA ran for it.  Also the fp32 K7 forward on the same
+    operands (call, device time, bound at 4 hd FLOPs a pair, the plain
+    version and SDPA's fp32 forward), returned apart for the flash_fwd
+    record."""
     import torch
-    from repro_torch.kernels.flash_attention import flash_bwd, flash_bwd_ref
+    from repro_torch.kernels.flash_attention import (flash_bwd, flash_bwd_ref,
+                                                     flash_fwd, flash_fwd_ref)
     from repro_torch.kernels.flash_attention.ops import launch_dkv, launch_dq
     rows = {}
     for B, S, H, KV, hd in K7B_TIME_SHAPES:
@@ -1884,24 +1997,48 @@ def k7_bwd_times(dev, by_path, errs, train):
     pairs = B * H * S * (S + 1) // 2
     rq, rk = 4 * B * S * hd * H, 4 * B * S * hd * KV
     f32 = {}
-    for name, fn, kname, flops, nbytes in (
+    for name, fn, flops, nbytes in (
             ("flash_bwd_dq", lambda: launch_dq(*ops, dq, **kw),
-             "flash_dq_f32", 6 * hd * pairs, 3 * rq + 2 * rk + 8 * B * H * S),
+             6 * hd * pairs, 3 * rq + 2 * rk + 8 * B * H * S),
             ("flash_bwd_dkv", lambda: launch_dkv(*ops, dk, dv, **kw),
-             "flash_dkv_f32", 8 * hd * pairs,
-             2 * rq + 4 * rk + 8 * B * H * S)):
+             8 * hd * pairs, 2 * rq + 4 * rk + 8 * B * H * S)):
+        # the kernels' arithmetic: one FP32 FMA a product on the CUDA
+        # cores; beside it the 3xTF32 bound (three TF32 products a fp32
+        # product on the tensor cores, fp32-accurate but rounded otherwise
+        # than the plain version)
         b, kind = bound(nbytes, flops, H100_FP32_FLOPS)
-        ms = cuda_ms(fn, reps=3)
-        f32[name] = dict(ms=ms, device_ms=device_ms(fn, kname, reps=3),
-                         bound_ms=b, bound_by=kind,
+        ms = cuda_ms(fn, reps=5)
+        f32[name] = dict(ms=ms, device_ms=early[name], bound_ms=b,
+                         bound_by=kind,
+                         bound_ms_3xtf32=bound(nbytes, 3 * flops,
+                                               H100_TF32_FLOPS)[0],
                          tflops=flops / (ms * 1e9))
     f32["plain_ms"] = cuda_ms(lambda: flash_bwd_ref(*ops, **kw), reps=2)
     lib, _ = sdpa_backward(qp, kp, vp, dop, reps=3)
     f32.update(lib)
+    f32["library_kernels"] = early["library_kernels"]
+    # the fp32 K7 forward on the same operands
+    fwd = lambda: flash_fwd(qp, kp, vp, **kw)
+    fms = cuda_ms(fwd, reps=5)
+    fb, fkind = bound(8 * B * S * hd * (H + KV) + 4 * B * H * S,
+                      4 * hd * pairs, H100_FP32_FLOPS)
+    fwd32 = dict(ms=fms, device_ms=early["flash_fwd"], bound_ms=fb,
+                 bound_by=fkind,
+                 bound_ms_3xtf32=bound(0, 3 * 4 * hd * pairs,
+                                       H100_TF32_FLOPS)[0],
+                 tflops=4 * hd * pairs / (fms * 1e9),
+                 plain_ms=cuda_ms(lambda: flash_fwd_ref(qp, kp, vp, **kw),
+                                  reps=2),
+                 library_ms=f32["library_fwd_ms"],
+                 library_call="F.scaled_dot_product_attention(is_causal="
+                              "True, enable_gqa=True), fp32",
+                 shape=f"(B, S, H, KV, hd) = {(B, S, H, KV, hd)} fp32 causal")
     del ops, qp, kp, vp, dop, lse, dD, dq, dk, dv
     torch.cuda.empty_cache()
     log(f"  flash_bwd dq / dkv at {(B, S, H, KV, hd)} fp32 causal: "
         + json.dumps(f32))
+    log(f"  flash_fwd at {(B, S, H, KV, hd)} fp32 causal: "
+        + json.dumps(fwd32))
     main = rows[K7B_TIME_SHAPES[1][:2]]
     library = dict(
         library_call="torch.autograd.grad through F.scaled_dot_product_"
@@ -1928,11 +2065,16 @@ def k7_bwd_times(dev, by_path, errs, train):
             replaces=f"{kernel_py}:{line}", ms=k["ms"],
             plain_ms=f32["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=f32["library_ms"], **library,
+            bound_note="FP32 FMAs at the CUDA-core peak; bound_ms_3xtf32: "
+                       "three TF32 products a fp32 product at the dense "
+                       "TF32 tensor-core peak",
+            bound_ms_3xtf32=k["bound_ms_3xtf32"],
+            library_kernels=f32["library_kernels"],
             plain_note="flash_bwd_ref computes dq, dk and dv in one call",
             device_ms=k["device_ms"], tflops=k["tflops"],
             shape=f"(B, S, H, KV, hd) = {K7B_TIME_SHAPES[1]} fp32 causal, "
                   f"one layer of the fp32 grad path"))
-    return out
+    return out, fwd32
 
 
 NO_LIBRARY = ("no single PyTorch call computes it: torch has no popcount "
@@ -2125,7 +2267,7 @@ def main() -> int:
     n, errs["resident_pool"], errs["resident_step"] = check_resident(dev)
     errs.update(check_slice2_kernels(dev))
     errs["flash_fwd"] = check_k7(dev)
-    bwd_errs, _ = check_k7_bwd(dev)
+    bwd_errs, _, bwd_early = check_k7_bwd(dev)
     errs.update(bwd_errs)
     log(f"[kernels] {n} pool configurations + lanes bit-exact, max |err| "
         f"{errs}, {time.perf_counter() - t0:.1f} s")
@@ -2136,8 +2278,10 @@ def main() -> int:
     log(f"[main] {time.perf_counter() - t0:.1f} s, launches by path "
         f"{json.dumps({k: nonzero(c) for k, c in by_path.items()})}")
     t0 = time.perf_counter()
-    rec = (times(dev, by_path, errs) + k7_times(dev, by_path, errs, lm)
-           + k7_bwd_times(dev, by_path, errs, train))
+    fwd = k7_times(dev, by_path, errs, lm)
+    bwd, fwd[0]["fp32_at_2x4096"] = k7_bwd_times(dev, by_path, errs, train,
+                                                 bwd_early)
+    rec = times(dev, by_path, errs) + fwd + bwd
     log(f"[times] {time.perf_counter() - t0:.1f} s; [total] "
         f"{time.perf_counter() - t_start:.1f} s")
     log(smi_line)

@@ -59,13 +59,34 @@
 //    spills and serializes every wgmma.  With two warpgroups the budget
 //    is 255 and nothing spills; P^T and dS^T go through shared memory
 //    rather than register A fragments for the same reason.
-//  * fp32 (the tight comparisons): CUDA cores, 256 threads, fp32
-//    throughout, dq and dkv as two kernels: dq one block per 64-row q
-//    tile looping over 32-key tiles, dkv one block per 32-key tile
-//    looping over G and the q tiles; no atomics.
-// What bounds it: at the training shapes (hd 128, S 4096) the causal
-// work, 10 hd FLOPs a live pair against 989 TFLOP/s bf16: operations, not
-// bytes.
+//  * fp32 (the tight comparisons): CUDA cores, dq and dkv as two kernels,
+//    no atomics: dq one block per 64-row q tile looping over 64-key
+//    tiles, dkv one block per 64-key tile looping over G and the 64-row q
+//    tiles from its diagonal on, holding dK and dV in registers; both
+//    grids put the heads fastest, so every head's heaviest causal tiles
+//    go out first.  Every output is one fmaf chain in the order the plain
+//    version's fp32 products sum (S and dP over the head dim, dQ over the
+//    keys, dK and dV over the G heads, then the q rows), so the results
+//    are bit-identical to a thread that loops over the outputs one at a
+//    time, and agree with the plain version to its own rounding.  That
+//    order is what the fp32 limits hold: the plain version sits further
+//    from its float64 evaluation than the limits (chip_smoke.py logs
+//    both, and the plain version's 3xTF32 emulation beside them), so a
+//    kernel that sums in another order, as 3xTF32 products on the tensor
+//    cores would, misses them.  These kernels are an interim design
+//    until the fp32 limits' yardstick is settled.
+//    Shared memory bounds a loop that loads an operand an FMA: each
+//    thread computes a 4 x 4 micro-tile of S and dP from 16-byte loads
+//    along the head dim (four A rows shared by half a warp, B rows
+//    conflict-free at a pitch of hd + 4 floats), and a 4-row x hd / 16
+//    micro-tile of dQ, dK, dV from a transposed dS / P tile.  Tiles
+//    arrive by cp.async (dq: two K / V buffers, the next tile's copies in
+//    flight while this one is used; dkv: one Q / dO buffer, since two
+//    64-row ones do not fit beside K and V).
+// What bounds them: at the training shapes (hd 128, S 4096) the causal
+// work, 10 hd FLOPs a live pair against 989 TFLOP/s bf16 (fused), and
+// 14 hd FLOPs a live pair against the 67 TFLOP/s FP32 CUDA-core peak
+// (dq, dkv): operations, not bytes.
 #include <cstdint>
 #include <type_traits>
 #include <cuda.h>
@@ -447,187 +468,405 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// fp32: CUDA cores
+// fp32: CUDA cores, register micro-tiles, cp.async staging
 // ---------------------------------------------------------------------------
 
-constexpr int T32 = 256;
-constexpr int DQ_BQ32 = 64;   // dq: q rows per block, four threads per row
-constexpr int DQ_BK32 = 32;   // dq: keys per tile
-constexpr int KV_BK32 = 32;   // dkv: keys per block, eight threads per key
-constexpr int KV_BQ32 = 32;   // dkv: q rows per tile
+constexpr int T32 = 256;        // eight warps
+constexpr int NJ = 4;           // B rows a thread in S, dP (S^T, dP^T):
+//                                 g + 16 j, j < NJ
+constexpr int DQ_BQ = 64;       // dq: q rows per block
+constexpr int DQ_BK = 16 * NJ;  // dq: keys per tile
+constexpr int KV_BK = 64;       // dkv: keys per block
+constexpr int KV_BQ = 16 * NJ;  // dkv: q rows per tile
+constexpr int XP = 64 + 4;      // pitch of the transposed dS / P tiles
 
-// rows [r0, r0 + n) of a (.., HD) fp32 matrix into shared memory (row
-// stride HD + 1: no bank conflicts); rows at or past `rows` are zero
-template <int HD>
-__device__ __forceinline__ void stage_rows32(float* dst, const float* src,
-                                             int r0, int n, int rows) {
-  for (int i = threadIdx.x; i < n * HD; i += blockDim.x) {
-    const int r = i / HD, c = i % HD;
-    dst[r * (HD + 1) + c] =
-        r0 + r < rows ? src[static_cast<long long>(r0 + r) * HD + c] : 0.f;
+// cp.async: 16 (or 4) bytes from device into shared memory, zero-filled
+// and reading nothing when !ok
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(hopper::smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(hopper::smem_u32(dst)), "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most one group (the last committed) is still in flight
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait0() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// rows [r0, r0 + N) of a (.., HD) fp32 matrix into a tile of pitch
+// HD + 4, by cp.async; rows at or past `rows` are zero
+template <int HD, int N>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src,
+                                           int r0, int rows) {
+  constexpr int CH = HD / 4;               // 16-byte chunks a row
+  for (int i = threadIdx.x; i < N * CH; i += T32) {
+    const int r = i / CH, c = (i % CH) * 4;
+    const bool ok = r0 + r < rows;
+    cp_async16(dst + r * (HD + 4) + c,
+               src + (ok ? static_cast<long long>(r0 + r) * HD + c : 0), ok);
   }
 }
 
+// Each thread's share of an output row of HD columns, as HD / 16 columns
+// in 16-byte chunks where there are four or more: lane group g (0 .. 15)
+// takes chunks g and g + 16 (hd 128) or chunk g (hd 64), else HD / 16
+// adjacent columns.  A warp's loads of one row then cover distinct
+// chunks (no bank conflict).
 template <int HD>
-__global__ void __launch_bounds__(T32)
+struct Cols {
+  static constexpr int N = HD / 16;
+  __device__ __forceinline__ static int at(int g, int j) {
+    return N >= 4 ? (j / 4) * 64 + 4 * g + j % 4 : N * g + j;
+  }
+  // the N values of row `row` of a tile of pitch ld at this thread's
+  // columns
+  __device__ __forceinline__ static void load(float (&x)[N], const float* t,
+                                              int ld, int row, int g) {
+    if constexpr (N >= 4) {
+#pragma unroll
+      for (int j = 0; j < N; j += 4) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(t + row * ld + at(g, j));
+        x[j] = v.x;
+        x[j + 1] = v.y;
+        x[j + 2] = v.z;
+        x[j + 3] = v.w;
+      }
+    } else if constexpr (N == 2) {
+      const float2 v =
+          *reinterpret_cast<const float2*>(t + row * ld + at(g, 0));
+      x[0] = v.x;
+      x[1] = v.y;
+    } else {
+      x[0] = t[row * ld + at(g, 0)];
+    }
+  }
+};
+
+// Two score products of a thread's 4 x NJ micro-tile, contracting over HD
+// in order (d = 0, 1, ..: one fmaf chain an output, as the plain
+// version's fp32 products sum): s[i][j] = A1[ra + i] . B1[nb + 16 j] and
+// t[i][j] = A2[ra + i] . B2[nb + 16 j] over rows of tiles of pitch HD + 4,
+// read 4 columns at a time.  The four A rows are shared by 16 lanes
+// (broadcast), the B rows nb + 16 j of the 16 lanes are distinct.
+template <int HD>
+__device__ __forceinline__ void scores(float (&s)[4][NJ], float (&t)[4][NJ],
+                                       const float* A1, const float* B1,
+                                       const float* A2, const float* B2,
+                                       int ra, int nb) {
+  constexpr int LD = HD + 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) s[i][j] = t[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < HD; d += 4) {
+    float4 a1[4], a2[4], b1[NJ], b2[NJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a1[i] = *reinterpret_cast<const float4*>(A1 + (ra + i) * LD + d);
+      a2[i] = *reinterpret_cast<const float4*>(A2 + (ra + i) * LD + d);
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      b1[j] = *reinterpret_cast<const float4*>(B1 + (nb + 16 * j) * LD + d);
+      b2[j] = *reinterpret_cast<const float4*>(B2 + (nb + 16 * j) * LD + d);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        s[i][j] = fmaf(a1[i].x, b1[j].x, s[i][j]);
+        s[i][j] = fmaf(a1[i].y, b1[j].y, s[i][j]);
+        s[i][j] = fmaf(a1[i].z, b1[j].z, s[i][j]);
+        s[i][j] = fmaf(a1[i].w, b1[j].w, s[i][j]);
+        t[i][j] = fmaf(a2[i].x, b2[j].x, t[i][j]);
+        t[i][j] = fmaf(a2[i].y, b2[j].y, t[i][j]);
+        t[i][j] = fmaf(a2[i].z, b2[j].z, t[i][j]);
+        t[i][j] = fmaf(a2[i].w, b2[j].w, t[i][j]);
+      }
+  }
+}
+
+// dq: one block per (head, 64-row q tile), heaviest causal tiles first.
+// Q and dO are staged once; 64-key K / V tiles stream through two
+// buffers, tile t + 1's copies in flight while tile t is used.  Per tile:
+// S = Q K^T and dP = dO V^T, thread (rows 4 rg .. + 3, keys g + 16 j);
+// dS into a transposed tile; dQ += dS K, thread (rows 4 rg .. + 3,
+// HD / 16 of the columns).  Every output is one fmaf chain
+// in the plain version's order (S over d, dQ over keys), so the results
+// are those of a thread that loops over them one at a time.
+template <int HD>
+__global__ void __launch_bounds__(T32, 1)
 flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dO,
                     const float* __restrict__ lse,
                     const float* __restrict__ dD, float* __restrict__ dq,
                     int G, int Sqp, int Skp, int sq, int sk, float scale,
                     int causal) {
-  constexpr int LQ = HD + 1;
-  constexpr int DPT = HD / 4;          // head dims per thread (d = sub + 4i)
-  constexpr int KPT = DQ_BK32 / 4;     // keys per thread (c = sub + 4j)
-  constexpr int LS = DQ_BK32 + 1;
+  constexpr int LD = HD + 4;
+  using C = Cols<HD>;
   extern __shared__ __align__(16) char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);   // [DQ_BQ32][LQ]
-  float* Os = Qs + DQ_BQ32 * LQ;                // [DQ_BQ32][LQ]  (dO)
-  float* Ks = Os + DQ_BQ32 * LQ;                // [DQ_BK32][LQ]
-  float* Vs = Ks + DQ_BK32 * LQ;                // [DQ_BK32][LQ]
-  float* Ss = Vs + DQ_BK32 * LQ;                // [DQ_BQ32][LS]  (dS)
+  float* Qs = reinterpret_cast<float*>(smem);   // [DQ_BQ][LD]
+  float* Os = Qs + DQ_BQ * LD;                  // [DQ_BQ][LD]  (dO)
+  float* Ks = Os + DQ_BQ * LD;                  // [2][DQ_BK][LD]
+  float* Vs = Ks + 2 * DQ_BK * LD;              // [2][DQ_BK][LD]
+  float* St = Vs + 2 * DQ_BK * LD;              // [DQ_BK][XP]  (dS^T)
 
-  const int nq = gridDim.x;
-  const int qt = nq - 1 - blockIdx.x;
-  const int h = blockIdx.y;
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int h = blockIdx.x;
   const long long qbase = static_cast<long long>(h) * Sqp * HD;
   const long long kbase = static_cast<long long>(h / G) * Skp * HD;
-  const int q0 = qt * DQ_BQ32;
-  const int rl = threadIdx.x >> 2, sub = threadIdx.x & 3;
-  const int row = q0 + rl;
-  const long long lb = static_cast<long long>(h) * Sqp;
-  const float lr = row < Sqp ? lse[lb + row] : 0.f;
-  const float dr = row < Sqp ? dD[lb + row] : 0.f;
-
-  stage_rows32<HD>(Qs, q + qbase, q0, DQ_BQ32, Sqp);
-  stage_rows32<HD>(Os, dO + qbase, q0, DQ_BQ32, Sqp);
-  float acc[DPT];
+  const int q0 = qt * DQ_BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = 2 * warp + (lane >> 4);  // rows 4 rg .. 4 rg + 3
+  const int g = lane & 15;                // keys g + 16 j; column group
+  const int row0 = q0 + 4 * rg;
+  float lr[4], dr[4];
 #pragma unroll
-  for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + i;
+    const long long at = static_cast<long long>(h) * Sqp + row;
+    lr[i] = row < sq ? lse[at] : 0.f;
+    dr[i] = row < sq ? dD[at] : 0.f;
+  }
 
-  const int kend = key_end(q0, DQ_BQ32, sq, sk, causal);
-  for (int kb = 0; kb < kend; kb += DQ_BK32) {
-    __syncthreads();                   // Q / dO staged, last tile consumed
-    stage_rows32<HD>(Ks, k + kbase, kb, DQ_BK32, sk);
-    stage_rows32<HD>(Vs, v + kbase, kb, DQ_BK32, sk);
+  const int nkt = (key_end(q0, DQ_BQ, sq, sk, causal) + DQ_BK - 1) / DQ_BK;
+  stage_tile<HD, DQ_BQ>(Qs, q + qbase, q0, sq);
+  stage_tile<HD, DQ_BQ>(Os, dO + qbase, q0, sq);
+  if (nkt > 0) {
+    stage_tile<HD, DQ_BK>(Ks, k + kbase, 0, sk);
+    stage_tile<HD, DQ_BK>(Vs, v + kbase, 0, sk);
+  }
+  cp_async_commit();
+
+  float acc[4][C::N];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < C::N; ++j) acc[i][j] = 0.f;
+  // the warp's last live row: a key tile past it (causal), or a warp
+  // whose rows are all past sq, has nothing to add (its dS would be 0)
+  const int wrow = q0 + 8 * warp;
+  const int wlast = min(wrow + 7, sq - 1);
+
+  for (int t = 0; t < nkt; ++t) {
+    const int kb = t * DQ_BK;
+    if (t + 1 < nkt) {
+      const int b = (t + 1) & 1;
+      stage_tile<HD, DQ_BK>(Ks + b * DQ_BK * LD, k + kbase, kb + DQ_BK, sk);
+      stage_tile<HD, DQ_BK>(Vs + b * DQ_BK * LD, v + kbase, kb + DQ_BK, sk);
+    }
+    cp_async_commit();
+    cp_async_wait1();                    // tile t (and Q, dO) landed
     __syncthreads();
-    float s[KPT], dp[KPT];
+    const float* Kt = Ks + (t & 1) * DQ_BK * LD;
+    const float* Vt = Vs + (t & 1) * DQ_BK * LD;
+    const bool busy = wrow < sq && !(causal && kb > wlast);
+    if (busy) {
+      float s[4][NJ], dp[4][NJ];
+      scores<HD>(s, dp, Qs, Kt, Os, Vt, 4 * rg, g);
+      // dS = P (dP - dD) scale with P = exp(S scale - lse) on the mask
+      // and 0 off it, written as dS^T (key-major) for the dQ product
 #pragma unroll
-    for (int j = 0; j < KPT; ++j) s[j] = dp[j] = 0.f;
-    for (int d = 0; d < HD; ++d) {
-      const float qd = Qs[rl * LQ + d], od = Os[rl * LQ + d];
+      for (int j = 0; j < NJ; ++j) {
+        float ds4[4];
 #pragma unroll
-      for (int j = 0; j < KPT; ++j) {
-        s[j] = fmaf(qd, Ks[(sub + 4 * j) * LQ + d], s[j]);
-        dp[j] = fmaf(od, Vs[(sub + 4 * j) * LQ + d], dp[j]);
+        for (int i = 0; i < 4; ++i) {
+          const bool on = live(row0 + i, kb + g + 16 * j, sq, sk, causal);
+          const float p = on ? expf(s[i][j] * scale - lr[i]) : 0.f;
+          ds4[i] = on ? p * (dp[i][j] - dr[i]) * scale : 0.f;
+        }
+        *reinterpret_cast<float4*>(St + (g + 16 * j) * XP + 4 * rg) =
+            make_float4(ds4[0], ds4[1], ds4[2], ds4[3]);
       }
     }
+    __syncwarp();                        // dS^T rows of this warp written
+    if (busy) {
+      // dQ += dS K over the tile's keys, in order
+#pragma unroll 4
+      for (int c = 0; c < DQ_BK; ++c) {
+        const float4 d4 = *reinterpret_cast<const float4*>(St + c * XP +
+                                                           4 * rg);
+        float kc[C::N];
+        C::load(kc, Kt, LD, c, g);
+        const float dsr[4] = {d4.x, d4.y, d4.z, d4.w};
 #pragma unroll
-    for (int j = 0; j < KPT; ++j) {
-      const float p = live(row, kb + sub + 4 * j, sq, sk, causal)
-                          ? expf(s[j] * scale - lr) : 0.f;
-      Ss[rl * LS + sub + 4 * j] = p * (dp[j] - dr) * scale;
-    }
-    __syncwarp();                      // a row's dS: written and read in-warp
-    for (int c = 0; c < DQ_BK32; ++c) {
-      const float ds = Ss[rl * LS + c];
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int i = 0; i < DPT; ++i)
-        acc[i] = fmaf(ds, Ks[c * LQ + sub + 4 * i], acc[i]);
+          for (int j = 0; j < C::N; ++j)
+            acc[i][j] = fmaf(dsr[i], kc[j], acc[i][j]);
+      }
     }
+    __syncthreads();                     // buffers t & 1 and St free
   }
-  if (row < Sqp) {
 #pragma unroll
-    for (int i = 0; i < DPT; ++i)
-      dq[qbase + static_cast<long long>(row) * HD + sub + 4 * i] = acc[i];
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + i;
+    if (row < Sqp) {
+      float* out = dq + qbase + static_cast<long long>(row) * HD;
+#pragma unroll
+      for (int j = 0; j < C::N; ++j) out[C::at(g, j)] = acc[i][j];
+    }
   }
 }
 
+// dkv: one block per (b, kv, 64-key tile), heaviest causal tiles first.
+// K and V are staged once; the 64-row Q, dO, lse and dD tiles of the G
+// query heads of the group, from the block's diagonal on, follow one
+// another (a second buffer does not fit beside 64-row tiles).  Per tile:
+// S^T = K Q^T and dP^T = V dO^T, thread (keys 4 kg .. + 3, q rows
+// g + 16 j); P and dS into q-major tiles;
+// dV += P^T dO and dK += dS^T Q, thread (keys 4 kg .. + 3, HD / 16 of the
+// columns), held in registers over the whole loop and written once (no
+// atomics).  Every output is one fmaf chain in the plain version's order
+// (S^T over d; dV, dK over the G heads, then q rows).
 template <int HD>
-__global__ void __launch_bounds__(T32)
+__global__ void __launch_bounds__(T32, 1)
 flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dO,
                      const float* __restrict__ lse,
                      const float* __restrict__ dD, float* __restrict__ dk,
                      float* __restrict__ dv, int G, int Sqp, int Skp, int sq,
                      int sk, float scale, int causal) {
-  constexpr int LQ = HD + 1;
-  constexpr int DPT = HD / 8;          // head dims per thread (d = sub + 8i)
-  constexpr int QPT = KV_BQ32 / 8;     // q rows per thread (c = sub + 8j)
-  constexpr int LS = KV_BQ32 + 1;
+  constexpr int LD = HD + 4;
+  using C = Cols<HD>;
   extern __shared__ __align__(16) char smem[];
-  float* Ks = reinterpret_cast<float*>(smem);   // [KV_BK32][LQ]
-  float* Vs = Ks + KV_BK32 * LQ;                // [KV_BK32][LQ]
-  float* Qs = Vs + KV_BK32 * LQ;                // [KV_BQ32][LQ]
-  float* Os = Qs + KV_BQ32 * LQ;                // [KV_BQ32][LQ]  (dO)
-  float* Ps = Os + KV_BQ32 * LQ;                // [KV_BK32][LS]  (P^T)
-  float* Ss = Ps + KV_BK32 * LS;                // [KV_BK32][LS]  (dS^T)
-  float* Ls = Ss + KV_BK32 * LS;                // [KV_BQ32]
-  float* Ds = Ls + KV_BQ32;                     // [KV_BQ32]
+  float* Ks = reinterpret_cast<float*>(smem);   // [KV_BK][LD]
+  float* Vs = Ks + KV_BK * LD;                  // [KV_BK][LD]
+  float* Qs = Vs + KV_BK * LD;                  // [KV_BQ][LD]
+  float* Os = Qs + KV_BQ * LD;                  // [KV_BQ][LD]  (dO)
+  float* Pt = Os + KV_BQ * LD;                  // [KV_BQ][XP]  (P, q-major)
+  float* St = Pt + KV_BQ * XP;                  // [KV_BQ][XP]  (dS)
+  float* Ls = St + KV_BQ * XP;                  // [KV_BQ]
+  float* Ds = Ls + KV_BQ;                       // [KV_BQ]
 
-  const int k0 = blockIdx.x * KV_BK32;
-  const int hk = blockIdx.y;
+  const int k0 = blockIdx.y * KV_BK;
+  const int hk = blockIdx.x;
   const long long kbase = static_cast<long long>(hk) * Skp * HD;
-  const int kl = threadIdx.x >> 3, sub = threadIdx.x & 7;
-  const int key = k0 + kl;
-  float dka[DPT], dva[DPT];
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) dka[i] = dva[i] = 0.f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kg = 2 * warp + (lane >> 4);  // keys 4 kg .. 4 kg + 3
+  const int g = lane & 15;                // q rows g + 16 j; column group
+  const int key0 = k0 + 4 * kg;
+  const int nq = (sq + KV_BQ - 1) / KV_BQ;
+  const int qt0 = causal ? k0 / KV_BQ : 0;   // q rows below k0 see no key
+  const int per_g = (k0 < sk && qt0 < nq) ? nq - qt0 : 0;
+  const int n_iter = G * per_g;
 
-  if (k0 < sk) {
-    stage_rows32<HD>(Ks, k + kbase, k0, KV_BK32, sk);
-    stage_rows32<HD>(Vs, v + kbase, k0, KV_BK32, sk);
-    const int qstart = causal ? k0 / KV_BQ32 * KV_BQ32 : 0;
-    for (int g = 0; g < G; ++g) {
-      const int h = hk * G + g;
-      const long long qbase = static_cast<long long>(h) * Sqp * HD;
-      const long long lb = static_cast<long long>(h) * Sqp;
-      for (int qb = qstart; qb < sq; qb += KV_BQ32) {
-        __syncthreads();
-        stage_rows32<HD>(Qs, q + qbase, qb, KV_BQ32, sq);
-        stage_rows32<HD>(Os, dO + qbase, qb, KV_BQ32, sq);
-        for (int i = threadIdx.x; i < KV_BQ32; i += blockDim.x) {
-          Ls[i] = qb + i < sq ? lse[lb + qb + i] : 0.f;
-          Ds[i] = qb + i < sq ? dD[lb + qb + i] : 0.f;
-        }
-        __syncthreads();
-        float s[QPT], dp[QPT];
+  // Q, dO, lse and dD of iteration it: head hk * G + it / per_g, q tile
+  // qt0 + it % per_g
+  auto stage_q = [&](int it) {
+    const int h = hk * G + it / per_g;
+    const int qb = (qt0 + it % per_g) * KV_BQ;
+    const long long qbase = static_cast<long long>(h) * Sqp * HD;
+    stage_tile<HD, KV_BQ>(Qs, q + qbase, qb, sq);
+    stage_tile<HD, KV_BQ>(Os, dO + qbase, qb, sq);
+    for (int i = threadIdx.x; i < 2 * KV_BQ; i += T32) {
+      const int r = i % KV_BQ;
+      const bool ok = qb + r < sq;
+      const float* src = (i < KV_BQ ? lse : dD) +
+                         (ok ? static_cast<long long>(h) * Sqp + qb + r : 0);
+      cp_async4((i < KV_BQ ? Ls : Ds) + r, src, ok);
+    }
+  };
+  if (n_iter > 0) {
+    stage_tile<HD, KV_BK>(Ks, k + kbase, k0, sk);
+    stage_tile<HD, KV_BK>(Vs, v + kbase, k0, sk);
+    stage_q(0);
+  }
+  cp_async_commit();
+
+  float dka[4][C::N], dva[4][C::N];
 #pragma unroll
-        for (int j = 0; j < QPT; ++j) s[j] = dp[j] = 0.f;
-        for (int d = 0; d < HD; ++d) {
-          const float kd = Ks[kl * LQ + d], vd = Vs[kl * LQ + d];
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < QPT; ++j) {
-            s[j] = fmaf(kd, Qs[(sub + 8 * j) * LQ + d], s[j]);
-            dp[j] = fmaf(vd, Os[(sub + 8 * j) * LQ + d], dp[j]);
-          }
-        }
+    for (int j = 0; j < C::N; ++j) dka[i][j] = dva[i][j] = 0.f;
+  const int wkey = k0 + 8 * warp;        // the warp's first key
+
+  for (int it = 0; it < n_iter; ++it) {
+    cp_async_wait0();                    // iteration it's tiles landed
+    __syncthreads();
+    const int qb = (qt0 + it % per_g) * KV_BQ;
+    // a warp whose keys are all past sk, or (causal) all past the tile's
+    // last row, has nothing to add (its P and dS would be 0)
+    const bool busy = wkey < sk && !(causal && wkey > qb + KV_BQ - 1);
+    if (busy) {
+      float st[4][NJ], dpt[4][NJ];
+      scores<HD>(st, dpt, Ks, Qs, Vs, Os, 4 * kg, g);
+      // P and dS of (q row g + 16 j, keys 4 kg ..), written q-major
 #pragma unroll
-        for (int j = 0; j < QPT; ++j) {
-          const int c = sub + 8 * j;
-          const float p = live(qb + c, key, sq, sk, causal)
-                              ? expf(s[j] * scale - Ls[c]) : 0.f;
-          Ps[kl * LS + c] = p;
-          Ss[kl * LS + c] = p * (dp[j] - Ds[c]) * scale;
-        }
-        __syncwarp();                  // a key's row: written and read in-warp
-        for (int c = 0; c < KV_BQ32; ++c) {
-          const float p = Ps[kl * LS + c], ds = Ss[kl * LS + c];
+      for (int j = 0; j < NJ; ++j) {
+        const int qc = g + 16 * j;
+        float p4[4], ds4[4];
 #pragma unroll
-          for (int i = 0; i < DPT; ++i) {
-            dva[i] = fmaf(p, Os[c * LQ + sub + 8 * i], dva[i]);
-            dka[i] = fmaf(ds, Qs[c * LQ + sub + 8 * i], dka[i]);
-          }
+        for (int i = 0; i < 4; ++i) {
+          const bool on = live(qb + qc, key0 + i, sq, sk, causal);
+          const float p = on ? expf(st[i][j] * scale - Ls[qc]) : 0.f;
+          p4[i] = p;
+          ds4[i] = on ? p * (dpt[i][j] - Ds[qc]) * scale : 0.f;
         }
+        *reinterpret_cast<float4*>(Pt + qc * XP + 4 * kg) =
+            make_float4(p4[0], p4[1], p4[2], p4[3]);
+        *reinterpret_cast<float4*>(St + qc * XP + 4 * kg) =
+            make_float4(ds4[0], ds4[1], ds4[2], ds4[3]);
       }
     }
-  }
-  if (key < Skp) {
+    __syncwarp();                        // this warp's keys' P, dS written
+    if (busy) {
+      // dV += P^T dO, dK += dS^T Q over the tile's q rows, in order
+#pragma unroll 2
+      for (int c = 0; c < KV_BQ; ++c) {
+        const float4 p4 = *reinterpret_cast<const float4*>(Pt + c * XP +
+                                                           4 * kg);
+        const float4 s4 = *reinterpret_cast<const float4*>(St + c * XP +
+                                                           4 * kg);
+        float oc[C::N], qc[C::N];
+        C::load(oc, Os, LD, c, g);
+        C::load(qc, Qs, LD, c, g);
+        const float pr[4] = {p4.x, p4.y, p4.z, p4.w};
+        const float sr[4] = {s4.x, s4.y, s4.z, s4.w};
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) {
-      const long long off = kbase + static_cast<long long>(key) * HD + sub + 8 * i;
-      dk[off] = dka[i];
-      dv[off] = dva[i];
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < C::N; ++j) {
+            dva[i][j] = fmaf(pr[i], oc[j], dva[i][j]);
+            dka[i][j] = fmaf(sr[i], qc[j], dka[i][j]);
+          }
+      }
+    }
+    __syncthreads();                     // the tiles, Pt, St free
+    if (it + 1 < n_iter) {
+      stage_q(it + 1);
+      cp_async_commit();
+    }
+  }
+  // dK, dV of this thread's keys, once (keys past sk hold 0)
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = key0 + i;
+    if (key < Skp) {
+      const long long off = kbase + static_cast<long long>(key) * HD;
+#pragma unroll
+      for (int j = 0; j < C::N; ++j) {
+        dk[off + C::at(g, j)] = dka[i][j];
+        dv[off + C::at(g, j)] = dva[i][j];
+      }
     }
   }
 }
@@ -654,9 +893,9 @@ cudaError_t set_smem(Kernel kernel, int smem) {
 
 template <int HD>
 cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
-  const dim3 grid((a.Sqp + DQ_BQ32 - 1) / DQ_BQ32, a.heads);
-  const int smem = 4 * ((2 * DQ_BQ32 + 2 * DQ_BK32) * (HD + 1) +
-                        DQ_BQ32 * (DQ_BK32 + 1));
+  // heads fastest: the heaviest q tiles of every head go out first
+  const dim3 grid(a.heads, (a.Sqp + DQ_BQ - 1) / DQ_BQ);
+  const int smem = 4 * ((2 * DQ_BQ + 4 * DQ_BK) * (HD + 4) + DQ_BK * XP);
   auto kern = flash_dq_f32_kernel<HD>;
   cudaError_t e = set_smem(kern, smem);
   if (e != cudaSuccess) return e;
@@ -670,9 +909,10 @@ cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
 
 template <int HD>
 cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
-  const dim3 grid((a.Skp + KV_BK32 - 1) / KV_BK32, a.heads / a.G);
-  const int smem = 4 * ((2 * KV_BK32 + 2 * KV_BQ32) * (HD + 1) +
-                        2 * KV_BK32 * (KV_BQ32 + 1) + 2 * KV_BQ32);
+  // KV heads fastest: the heaviest key tiles of every group go out first
+  const dim3 grid(a.heads / a.G, (a.Skp + KV_BK - 1) / KV_BK);
+  const int smem =
+      4 * ((2 * KV_BK + 2 * KV_BQ) * (HD + 4) + 2 * KV_BQ * XP + 2 * KV_BQ);
   auto kern = flash_dkv_f32_kernel<HD>;
   cudaError_t e = set_smem(kern, smem);
   if (e != cudaSuccess) return e;

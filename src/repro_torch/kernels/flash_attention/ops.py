@@ -20,11 +20,12 @@ Sqp``, ``sk <= Skp``), as the Pallas calls do.
 ``flash_fwd`` and ``flash_bwd`` launch their kernels on CUDA tensors (or
 raise) and run ``flash_fwd_ref`` / ``flash_bwd_ref`` on CPU ones.  In
 bf16 the backward is one fused kernel (dq, dk and dv in one pass); in
-fp32 it is two, dq then dkv.  Every launch adds one to
-``flash_fwd.launches``, ``flash_bwd.fused_launches`` (bf16),
-``flash_bwd.dq_launches`` or ``flash_bwd.dkv_launches`` (fp32).  There is
-no fallback: a CUDA tensor that requires grad goes through the kernels
-both ways.
+fp32 it is two CUDA-core kernels, dq then dkv, each output summed in the
+plain version's order (bit-identical run to run).  Every launch adds one
+to ``flash_fwd.launches``, ``flash_bwd.fused_launches`` (bf16),
+``flash_bwd.dq_launches`` or ``flash_bwd.dkv_launches`` (fp32).  There
+is no fallback: a CUDA tensor that requires grad goes through the
+kernels both ways.
 """
 from __future__ import annotations
 

@@ -6,6 +6,10 @@ K7 forward kernel and of the K7 dq / dkv backward kernels in the kernels'
 own packed, padded layout.  The CPU tests run them, and ``chip_smoke.py``
 holds the CUDA kernels against them on the card.  They compute in fp32
 (float64 for float64 operands, which ``torch.autograd.gradcheck`` needs).
+``flash_bwd_3xtf32_ref`` is ``flash_bwd_ref`` with every product split
+into three TF32 products (the 3xTF32 scheme of a tensor-core fp32
+kernel): no kernel computes it; the tests and ``chip_smoke.py`` read it
+to weigh that scheme's error against the fp32 plain version's.
 """
 from __future__ import annotations
 
@@ -101,3 +105,42 @@ def flash_bwd_ref(qp, kp, vp, dop, lse, dD, *, causal: bool, scale: float,
     dk = torch.einsum("bvgqk,bvgqd->bvkd", _acc(ds.to(qp.dtype)), _acc(qp))
     dv = torch.einsum("bvgqk,bvgqd->bvkd", _acc(p.to(dop.dtype)), _acc(dop))
     return dq.to(qp.dtype), dk.to(kp.dtype), dv.to(vp.dtype)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` of fp32 ``x``: ``hi`` is x rounded to TF32 as
+    ``cvt.rna.tf32.f32`` rounds (to nearest, ties away from zero; the low
+    13 mantissa bits zero), ``lo`` is ``x - hi`` (exact) rounded the same
+    way, so ``hi + lo`` is x to 2^-22 relative."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def _einsum_3xtf32(eq: str, a: torch.Tensor, b: torch.Tensor):
+    """``einsum(eq, a, b)`` as 3xTF32: lo.hi + hi.lo + hi.hi, the small
+    terms first; each TF32 x TF32 product is exact in fp32, so only the
+    dropped lo.lo term and the fp32 sums round."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    return ((torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl))
+            + torch.einsum(eq, ah, bh))
+
+
+def flash_bwd_3xtf32_ref(qp, kp, vp, dop, lse, dD, *, causal: bool,
+                         scale: float, sq: int, sk: int, q0: int = 0):
+    """``flash_bwd_ref`` on fp32 operands with its five products (S, dP,
+    dQ, dK, dV) computed as 3xTF32 (``_einsum_3xtf32``)."""
+    if not all(x.dtype == torch.float32 for x in (qp, kp, vp, dop)):
+        raise ValueError("flash_bwd_3xtf32_ref takes fp32 operands")
+    mask = _mask(qp.shape[3], kp.shape[2], causal=causal, sq=sq, sk=sk,
+                 q0=q0, device=qp.device)
+    s = _einsum_3xtf32("bvgqd,bvkd->bvgqk", qp, kp) * scale
+    p = torch.exp(torch.where(mask, s - lse[..., None], _NEG))
+    dp = _einsum_3xtf32("bvgqd,bvkd->bvgqk", dop, vp)
+    ds = p * (dp - dD[..., None]) * scale
+    return (_einsum_3xtf32("bvgqk,bvkd->bvgqd", ds, kp),
+            _einsum_3xtf32("bvgqk,bvgqd->bvkd", ds, qp),
+            _einsum_3xtf32("bvgqk,bvgqd->bvkd", p, dop))

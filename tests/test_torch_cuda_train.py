@@ -10,11 +10,13 @@ Tolerances, against ``flash_bwd_ref`` on the same operands: per row
 max |x - ref| / max |ref| over the whole output, each at
 1e-2 (bf16: the kernel and the plain version round p and ds to bf16 at
 the same points, from fp32 scores summed in another order, and round the
-outputs to bf16) and 1e-5 (fp32, the same arithmetic in another order;
-TF32 is switched off).  The fused kernel run twice on the same operands:
-dk and dv bit-identical; dq per row within 2^-7 (its fp32 partials meet
-through atomics in a varying order, so an element may round to the
-neighbouring bf16 value, at most one ulp).  The smoke model's grads,
+outputs to bf16) and 1e-5 (fp32: TF32 is switched off, and the kernels
+run fmaf chains in the plain version's order).  The fused kernel run
+twice on the same operands: dk and dv bit-identical; dq per row within
+2^-7 (its fp32 partials meet through atomics in a varying order, so an
+element may round to the neighbouring bf16 value, at most one ulp).  The
+fp32 kernels run twice: dq, dk and dv bit-identical (no atomics).  The
+smoke model's grads,
 kernel path against the torch-op path: per parameter ||dg|| / ||g|| 1e-4
 in fp32 (both paths fp32, summed in another order), 5e-2 in bf16 (the two
 attention paths round p, o and the grads differently in both layers).
@@ -125,25 +127,34 @@ def test_flash_bwd_matches_plain(card, B, S, H, KV, hd, pad, dtype, causal):
     (1, 4097, 4097, 2, 2, 128, True),   # one row past a tile
     (2, 256, 256, 6, 2, 64, True),      # G = 3
     (1, 130, 70, 6, 2, 32, False)])     # G = 3, sq != sk, ragged both
-def test_flash_bwd_fused_edges(card, B, Sq, Sk, H, KV, hd, causal):
-    ops, kw = _operands(card, B, Sq, Sk, H, KV, hd, 1, torch.bfloat16,
-                        causal)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_fused_edges(card, B, Sq, Sk, H, KV, hd, causal, dtype):
+    """The edges of the tiling: the fused kernel in bf16, K7 dq and dkv in
+    fp32."""
+    ops, kw = _operands(card, B, Sq, Sk, H, KV, hd, 1, dtype, causal)
     n = _launches()
     got = flash_bwd(*ops, **kw)
     torch.cuda.synchronize()
-    assert tuple(a - b for a, b in zip(_launches(), n)) == (1, 0, 0)
-    _check_against_plain(ops, kw, got, torch.bfloat16)
+    step = (1, 0, 0) if dtype == torch.bfloat16 else (0, 1, 1)
+    assert tuple(a - b for a, b in zip(_launches(), n)) == step
+    _check_against_plain(ops, kw, got, dtype)
 
 
 @pytest.mark.parametrize("S,hd", [(1024, 128), (1000, 64)])
-def test_flash_bwd_fused_rerun(card, S, hd):
-    """dk and dv bit-identical across two runs; dq within DQ_RERUN_RTOL."""
-    ops, kw = _operands(card, 2, S, S, 16, 8, hd, 1, torch.bfloat16, True)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_fused_rerun(card, S, hd, dtype):
+    """bf16 (the fused kernel): dk and dv bit-identical across two runs,
+    dq within DQ_RERUN_RTOL (its atomics).  fp32 (K7 dq and dkv, no
+    atomics): dq, dk and dv bit-identical."""
+    ops, kw = _operands(card, 2, S, S, 16, 8, hd, 1, dtype, True)
     a, b = flash_bwd(*ops, **kw), flash_bwd(*ops, **kw)
     torch.cuda.synchronize()
     assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
-    row, _ = _errors(b[0], a[0])
-    assert row <= DQ_RERUN_RTOL, row
+    if dtype == torch.float32:
+        assert torch.equal(a[0], b[0])
+    else:
+        row, _ = _errors(b[0], a[0])
+        assert row <= DQ_RERUN_RTOL, row
 
 
 def test_flash_bwd_refuses_what_the_kernels_do_not_take(card):

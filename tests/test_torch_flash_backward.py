@@ -5,8 +5,9 @@ numpy-seeded operands through ``flash_bwd_pallas`` in interpret mode and
 ``jax.grad`` of ``flash_attention_pallas(interpret=True)``, and through
 the port on CPU tensors, where the wrappers run the plain versions.
 
-Tolerances: fp32 1e-5 for the kernel-layout plain version against the
-Pallas kernel (the same arithmetic, summed in another order), 1e-4 for
+Tolerances: fp32 1e-5 for the kernel-layout plain version and its 3xTF32
+emulation against the Pallas kernel (the same arithmetic, summed in
+another order; 3xTF32 drops ~2^-22 of each product), 1e-4 for
 the grads through the whole autodiff path (``tests/test_flash_kernel.py:
 63``); bf16 3e-2 (bf16 keeps ~3 decimal digits, and the two forwards
 round p at different running maxima); ``gradcheck`` in float64."""
@@ -24,6 +25,8 @@ from repro_torch.kernels.flash_attention import (flash_attention, flash_bwd,
                                                  flash_bwd_ref)
 from repro_torch.kernels.flash_attention.ops import (_FlashAttention, _pack,
                                                     pad_rows4)
+from repro_torch.kernels.flash_attention.ref import (flash_bwd_3xtf32_ref,
+                                                     tf32_split)
 from repro_torch.models.weights import _tensor
 
 # the case grid of tests/test_flash_kernel.py:27-34
@@ -54,11 +57,10 @@ def _np(x):
     return np.array(jnp.asarray(x, jnp.float32))
 
 
-@pytest.mark.parametrize("B,S,H,KV,hd,causal", [c[:2] + c[3:] for c in CASES])
-def test_flash_bwd_ref_matches_jax_kernels(B, S, H, KV, hd, causal):
-    """dq, dk, dv of the plain version against ``flash_bwd_pallas`` on the
-    same packed operands, padded to 8-row blocks, with the Pallas
-    forward's o and lse."""
+def _pallas_bwd(B, S, H, KV, hd, causal):
+    """The packed operands (padded to 8-row blocks) with the Pallas
+    forward's lse and dD, their kwargs, and ``flash_bwd_pallas``'s dq, dk,
+    dv on them."""
     q, k, v, do = (torch.from_numpy(x) for x in _qkv_do(B, S, H, KV, hd, 3))
     qp, kp, vp = (_pad_seq(x, ax, 8) for x, ax in zip(_pack(q, k, v),
                                                       (3, 2, 2)))
@@ -70,13 +72,53 @@ def test_flash_bwd_ref_matches_jax_kernels(B, S, H, KV, hd, causal):
     jD = jnp.sum(jdo * jo, axis=-1)
     want = flash_bwd_pallas(jq, jk, jv, jdo, jl, jD, interpret=True, **kw)
     lse, dD = torch.from_numpy(_np(jl)), torch.from_numpy(_np(jD))
+    return ((qp, kp, vp, dop, lse, dD),
+            dict(causal=causal, scale=sc, sq=S, sk=S), want)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal", [c[:2] + c[3:] for c in CASES])
+def test_flash_bwd_ref_matches_jax_kernels(B, S, H, KV, hd, causal):
+    """dq, dk, dv of the plain version against ``flash_bwd_pallas`` on the
+    same packed operands, padded to 8-row blocks, with the Pallas
+    forward's o and lse."""
+    ops, kw, want = _pallas_bwd(B, S, H, KV, hd, causal)
     for fn in (flash_bwd_ref, flash_bwd):        # the wrapper on a CPU tensor
-        got = fn(qp, kp, vp, dop, lse, dD, causal=causal, scale=sc, sq=S,
-                 sk=S)
-        for g, w, x in zip(got, want, (qp, kp, vp)):
+        got = fn(*ops, **kw)
+        for g, w, x in zip(got, want, ops):
             assert g.shape == x.shape and g.dtype == x.dtype
             np.testing.assert_allclose(g.numpy(), _np(w), rtol=1e-5,
                                        atol=1e-5)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal", [c[:2] + c[3:] for c in CASES])
+def test_flash_bwd_3xtf32_emulation_matches_jax_kernels(B, S, H, KV, hd,
+                                                        causal):
+    """The 3xTF32 split's error budget: dq, dk, dv of
+    ``flash_bwd_3xtf32_ref`` against ``flash_bwd_pallas`` within the fp32
+    limit."""
+    ops, kw, want = _pallas_bwd(B, S, H, KV, hd, causal)
+    for g, w, x in zip(flash_bwd_3xtf32_ref(*ops, **kw), want, ops):
+        assert g.shape == x.shape and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), _np(w), rtol=1e-5, atol=1e-5)
+
+
+def test_tf32_split_rounds_as_cvt_rna():
+    """``hi`` and ``lo`` have their low 13 mantissa bits zero, ``hi`` is x
+    to nearest with ties away from zero, and ``hi + lo`` is x to 2^-22
+    relative, over fp32's exponent range."""
+    rng = np.random.default_rng(17)
+    x = rng.normal(size=4096) * 10.0 ** rng.uniform(-30, 30, 4096)
+    ties = [1 + 2 ** -11, -(1 + 2 ** -11), 3 * 2 ** -12 + 1, 0.0]
+    x = torch.from_numpy(np.concatenate([x, ties]).astype(np.float32))
+    hi, lo = tf32_split(x)
+    for h in (hi, lo):
+        assert not (h.view(torch.int32) & 0x1FFF).any()
+    assert hi[-4:].tolist() == [1 + 2 ** -10, -(1 + 2 ** -10), 1 + 2 ** -10,
+                                0.0]
+    xd = x.double()
+    assert ((xd - hi.double()).abs() <= 2 ** -11 * xd.abs()).all()
+    assert ((hi.double() + lo.double() - xd).abs()
+            <= 2 ** -22 * xd.abs()).all()
 
 
 @pytest.mark.parametrize("causal", [True, False])
