@@ -16,9 +16,11 @@ makes the script exit non-zero):
               fused_check packed at (512, 64) and (1024, 128) with and
               without counts; resident_pool and resident_step on real
               pools (bucket 512 x 2048 with two graphs, an 8-lane stream
-              pool, and the 1024 x 4096 bucket whose adjacency does not
-              fit in shared memory) in every order mode, steps_per_call 1
-              and 16, rebalance off and on, at every segment boundary;
+              pool, and the 1024 x 4096 bucket whose adjacency runs on a
+              cluster of 4 CTAs) in every order mode, steps_per_call 1
+              and 16, rebalance off and on, at every segment boundary,
+              through the functional entries and the run loop's in-place
+              entry;
               intersect_count (plain and through idx), every fused_select
               kind and the dense/prefix2 fused_check kinds (plain and
               gathered, counts on/off) at (128, 8), (512, 64), (1024, 128)
@@ -80,6 +82,9 @@ makes the script exit non-zero):
               step;
 5. times    — per-kernel CUDA-event and profiler times at each kernel's
               own path's shapes beside the plain version and the bound
+              (K2 / K3 in place, every rep on its own copy of the state,
+              at steps_per_call 1 and 16, per step, at 128 / 256 / 512
+              threads, and dblp-large's 1024 x 4096 cluster)
               (and for K7 the time of ``F.scaled_dot_product_attention``
               on the same operands, and for the K7 backward SDPA's
               backward; the fp32 K7 forward, dq and dkv at (2, 4096)
@@ -245,64 +250,96 @@ def bucket_pool(graphs, dev, engine="dense", **cfg_kw):
 
 
 def drive_pool(ctx, cfg, s, *, spc, budget, rebalance, segments, what):
-    """Pool kernel and plain pool segment in lockstep from state ``s``;
-    every leaf and the scoreboard equal at every boundary."""
+    """The pool kernel through its functional entry and through the run
+    loop's in-place entry (``pool_run`` on a private copy, budgets
+    rebalanced in place as ``_run_batch_pool`` does), and the plain pool
+    segment, in lockstep from state ``s``; every leaf and the scoreboard
+    equal at every boundary.  Returns (largest |err| functional, in
+    place)."""
     import torch
     from repro_torch.core import engine_dense as ed
-    from repro_torch.kernels.resident_pool.ops import resident_pool_segment
+    from repro_torch.kernels.resident_pool.ops import (pool_run,
+                                                       resident_pool_segment)
     from repro_torch.kernels.resident_pool.ref import (
         resident_pool_segment_ref)
+    from repro_torch.kernels.resident_step.ops import (S_BUDGET, S_STEPS,
+                                                       pack, unpack)
     start = s.steps.clone()
     bud = torch.full_like(start, budget)
+    own = ed._owned(s)
+    p = pack(own, start, bud)
+    loop = pool_run(ctx, cfg, own, p, spc, ctx_batched=True)
     sk = sr = s
-    worst = 0
+    worst = worst_ip = 0
     for seg in range(segments):
         if not bool(ed._active(sk, start, bud).any()):
             break
         sk, bk = resident_pool_segment(ctx, cfg, sk, start=start,
                                        budget=bud, steps_per_call=spc,
                                        ctx_batched=True)
+        bi = loop.launch()
         sr, br = resident_pool_segment_ref(ctx, cfg, sr, start=start,
                                            budget=bud, steps_per_call=spc,
                                            ctx_batched=True)
         torch.cuda.synchronize()
+        si = unpack(own, p)
         worst = max(worst, max_err(tuple(sk), tuple(sr)), max_err(bk, br))
+        worst_ip = max(worst_ip, max_err(tuple(si), tuple(sr)),
+                       max_err(bi, br))
         assert_states_equal(sk, sr, f"{what} seg {seg}")
+        assert_states_equal(si, sr, f"{what} in place seg {seg}")
         require(torch.equal(bk, br), f"{what} seg {seg}: scoreboard differs")
+        require(torch.equal(bi, br),
+                f"{what} in place seg {seg}: scoreboard differs")
         if rebalance:
             bud = ed._rebalance_budgets(start, bud, sk.steps, bk)
-    return worst
+            p.scal[:, S_BUDGET] = ed._rebalance_budgets(
+                start, p.scal[:, S_BUDGET], p.scal[:, S_STEPS], bi)
+    return worst, worst_ip
 
 
 def drive_lane(ctx, cfg, s, *, spc, segments, what):
-    """Single-lane kernel and plain segment in lockstep."""
+    """Single-lane kernel (functional and in place) and plain segment in
+    lockstep; returns (largest |err| functional, in place)."""
     import torch
     from repro_torch.core import engine_dense as ed
-    from repro_torch.kernels.resident_step.ops import resident_segment
+    from repro_torch.kernels.resident_step.ops import (lane_run, pack,
+                                                       resident_segment,
+                                                       unpack)
     from repro_torch.kernels.resident_step.ref import resident_segment_ref
     start = s.steps.clone()
     budget = 1 << 30
+    own = ed._owned(s)
+    p = pack(own, start, budget)
+    loop = lane_run(ctx, cfg, own, p, spc)
     sk = sr = s
-    worst = 0
+    worst = worst_ip = 0
     for seg in range(segments):
         if not bool(ed._active(sk, start, budget)):
             break
         sk = resident_segment(ctx, cfg, sk, start=start, budget=budget,
                               steps_per_call=spc)
+        loop.launch()
         sr = resident_segment_ref(ctx, cfg, sr, start=start, budget=budget,
                                   steps_per_call=spc)
         torch.cuda.synchronize()
+        si = unpack(own, p)
         worst = max(worst, max_err(tuple(sk), tuple(sr)))
+        worst_ip = max(worst_ip, max_err(tuple(si), tuple(sr)))
         assert_states_equal(sk, sr, f"{what} seg {seg}")
-    return worst
+        assert_states_equal(si, sr, f"{what} in place seg {seg}")
+    return worst, worst_ip
 
 
 def check_resident(dev):
-    """K3 and K2 against their plain versions on real pools; returns
-    (pool configurations checked, largest |err| of K3, of K2) over every
-    leaf and scoreboard entry compared."""
+    """K3 and K2 against their plain versions on real pools, through the
+    functional and the in-place entries; the 1024 x 4096 pool runs on a
+    cluster of CTAs.  Returns (pool configurations checked, largest |err|
+    of K3, of K2) over every leaf and scoreboard entry compared."""
     from repro_torch.core import engine_dense as ed
-    from repro_torch.kernels.resident_step.ops import resident_stage_adj
+    from repro_torch.kernels.resident_step.ops import (lane_threads,
+                                                       resident_cluster,
+                                                       resident_stage_adj)
     from repro_torch.data.generators import (dataset_suite,
                                              random_graph_stream)
     from repro_torch.serving.buckets import BucketPolicy, plan_bucket
@@ -330,7 +367,7 @@ def check_resident(dev):
                 for rebalance in (False, True):
                     segs = 12 if spc == 16 else 24
                     budget = 8 * spc if rebalance else 1 << 30
-                    err_pool = max(err_pool, drive_pool(
+                    err_pool = max(err_pool, *drive_pool(
                         ctx, dataclasses.replace(
                             cfg, resident_rebalance=rebalance), warm,
                         spc=spc, budget=budget, rebalance=rebalance,
@@ -340,12 +377,14 @@ def check_resident(dev):
                     checked += 1
                 for i in range(len(graphs)):
                     lane = ed._lane(warm, i)
-                    err_step = max(err_step, drive_lane(
+                    err_step = max(err_step, *drive_lane(
                         ed._lane(ctx, i), cfg, lane, spc=spc, segments=8,
                         what=f"resident_step {name} lane {i} {mode} "
                              f"spc={spc}"))
-        log(f"  resident_pool / resident_step: {name} bit-exact, "
-            f"adjacency in shared memory: {resident_stage_adj(cfg)}")
+        log(f"  resident_pool / resident_step: {name} bit-exact "
+            f"(functional and in place), adjacency in one CTA's shared "
+            f"memory: {resident_stage_adj(cfg)}, CTAs per lane "
+            f"{resident_cluster(cfg)}, {lane_threads(cfg)} threads")
     return checked, err_pool, err_step
 
 
@@ -1693,16 +1732,98 @@ def record(name, by_path, errs, **fields):
     return rec
 
 
+def lane_work_bytes(cfg, adv: int) -> int:
+    """Bytes the lane kernel must move for ``adv`` advanced steps: the
+    adjacency read once, the cursor block read and written, and per step
+    one level's rows read (L, P, Q, R, the cstack row) and one level's
+    rows written (L', the counts row, P at two levels, Q, R, x)."""
+    read = cfg.wv + cfg.n_u + 3 * cfg.wu
+    write = cfg.wv + cfg.n_u + 4 * cfg.wu + 1
+    return 4 * (cfg.n_u * cfg.wv + 2 * 16 + adv * (read + write))
+
+
+def per_step(ms, adv):
+    return None if ms is None or not adv else ms / adv
+
+
+def queued_ms(fn, reps=20):
+    """Device ms per call: the calls are queued behind a spin kernel of
+    about a millisecond, so they run back to back on the device whatever
+    the host's pace (CUDA events around them; the device's own gap
+    between launches included)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(2_000_000)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def lane_times(ctx, cfg, warm, spc, *, pool, threads=None, host=True,
+               reps=20):
+    """K3 (``pool``: every lane of ``warm``) or K2 (one lane) at ``spc``,
+    in place: every timed launch runs on its own copy of ``warm``, made
+    before the timed window, so no rep starts from a state an earlier rep
+    advanced.  Returns (ms per launch, back to back, CUDA events; device
+    ms per launch, profiler (None when its window saw no kernel); device
+    ms per launch, queued (``queued_ms``); ms per run-loop segment, i.e. a
+    launch and the flag read, host clock; steps advanced per launch)."""
+    import torch
+    from repro_torch.core import engine_dense as ed
+    from repro_torch.kernels.resident_pool.ops import pool_run
+    from repro_torch.kernels.resident_step.ops import (S_STEPS, lane_run,
+                                                       pack)
+
+    def runs(n):
+        out = []
+        for _ in range(n):
+            own = ed._owned(warm)
+            p = pack(own, own.steps.clone(), 1 << 30)
+            out.append(pool_run(ctx, cfg, own, p, spc, ctx_batched=True,
+                                threads=threads) if pool
+                       else lane_run(ctx, cfg, own, p, spc,
+                                     threads=threads))
+        torch.cuda.synchronize()
+        return out
+
+    name = "resident_pool_kernel" if pool else "resident_step_kernel"
+    ms = dms = seg = None
+    if host:
+        it = iter(runs(reps + 1))
+        ms = cuda_ms(lambda: next(it).launch(), reps)
+        it = iter(runs(reps + 1))
+        dms = device_ms(lambda: next(it).launch(), name, reps)
+    it = iter(runs(reps + 1))
+    qms = queued_ms(lambda: next(it).launch(), reps)
+    rs = runs(reps)
+    if host:
+        t = time.perf_counter()
+        for r in rs:
+            r.launch()
+            r.active()
+        seg = (time.perf_counter() - t) / reps * 1e3
+    else:
+        rs[0].launch()
+        torch.cuda.synchronize()
+    adv = int((rs[0].p.scal[..., S_STEPS] - warm.steps).sum())
+    return ms, dms, qms, seg, adv
+
+
 def times(dev, by_path, errs):
     import torch
     from repro_torch.core import engine_dense as ed
     from repro_torch.data.generators import dataset_suite
     from repro_torch.kernels.fused_check.ops import fused_check_packed
     from repro_torch.kernels.fused_check.ref import fused_check_packed_ref
-    from repro_torch.kernels.resident_pool.ops import packed_pool_segment
     from repro_torch.kernels.resident_pool.ref import (
         resident_pool_segment_ref)
-    from repro_torch.kernels.resident_step.ops import (pack, packed_segment,
+    from repro_torch.kernels.resident_step.ops import (resident_cluster,
                                                        resident_state_bytes)
     from repro_torch.kernels.resident_step.ref import resident_segment_ref
     out = []
@@ -1735,59 +1856,75 @@ def times(dev, by_path, errs):
                 f"{dms} ms), plain {plain:.4f} ms, bound {b:.6f} ms "
                 f"({kind})")
     # K3 / K2 at the default path's dblp-like pool: bucket 512 x 2048,
-    # one lane, steps_per_call = 1, from a mid-run state
-    g = dataset_suite("bench")["dblp-like"]
-    cfg, ctx, s0 = bucket_pool([g], dev)
+    # one lane, from a mid-run state; then dblp-large's 1024 x 4096 lane
+    # (a cluster of CTAs)
+    bench = dataset_suite("bench")
+    cfg, ctx, s0 = bucket_pool([bench["dblp-like"]], dev)
     warm = ed.run_batch(ctx, cfg, s0, max_steps=2000, ctx_batched=True)
+    lane, lctx = ed._lane(warm, 0), ed._lane(ctx, 0)
     for spc in (1, 16):
-        p = pack(warm, warm.steps, 1 << 30)
-
-        def k3():
-            return packed_pool_segment(ctx, cfg, warm, p, spc,
-                                       ctx_batched=True)
-        ms = cuda_ms(k3)
+        ms, dms, qms, seg, adv = lane_times(ctx, cfg, warm, spc, pool=True)
         plain = cuda_ms(lambda: resident_pool_segment_ref(
             ctx, cfg, warm, start=warm.steps, budget=1 << 30,
             steps_per_call=spc, ctx_batched=True), reps=5)
-        dms = device_ms(k3, "resident_pool_kernel")
-        _, board = k3()
-        adv = int((spc - board[:, 1]).sum())
-        b, kind = bound(resident_state_bytes(cfg, cfg.n_u, lanes=1),
-                        adv * 2 * cfg.n_u * cfg.wv)
+        b, kind = bound(lane_work_bytes(cfg, adv), adv * 2 * cfg.n_u * cfg.wv)
+        old_b, _ = bound(resident_state_bytes(cfg, cfg.n_u, lanes=1), 0)
+        ms2, dms2, qms2, seg2, adv2 = lane_times(lctx, cfg, lane, spc,
+                                                 pool=False)
+        plain2 = cuda_ms(lambda: resident_segment_ref(
+            lctx, cfg, lane, start=lane.steps, budget=1 << 30,
+            steps_per_call=spc), reps=5)
+        log(f"  resident_pool 512x2048 1 lane spc={spc}: {ms:.4f} ms/launch "
+            f"(device: profiler {dms} ms, queued {qms:.4f} ms; {adv} "
+            f"steps: {per_step(qms, adv):.5f} ms a step), run-loop segment "
+            f"(launch + flag read) {seg:.4f} ms, plain {plain:.3f} ms, "
+            f"bound {b:.6f} ms ({kind}; the old whole-state bound "
+            f"{old_b:.5f} ms); resident_step: {ms2:.4f} ms/launch (device: "
+            f"profiler {dms2} ms, queued {qms2:.4f} ms; "
+            f"{per_step(qms2, adv2):.5f} ms a step), segment {seg2:.4f} ms, "
+            f"plain {plain2:.3f} ms")
         if spc == 1:
             out.append(record(
                 "resident_pool", by_path, errs,
                 source="src/repro_torch/csrc/resident_pool.cu",
                 replaces="src/repro/kernels/resident_pool/kernel.py:50",
                 ms=ms, plain_ms=plain, bound_ms=b, bound_by=kind,
-                library_ms=None, device_ms=dms,
+                library_ms=None, device_ms=dms, queued_ms=qms,
+                segment_ms=seg, old_bound_ms=old_b,
                 shape="bucket 512x2048, 1 lane, steps_per_call=1"))
-        else:
-            log(f"  resident_pool at spc=16 (512x2048, 1 lane): {ms:.4f} "
-                f"ms/launch (device {dms} ms), plain {plain:.3f} ms, "
-                f"bound {b:.5f} ms ({kind})")
-        lane = ed._lane(warm, 0)
-        lctx = ed._lane(ctx, 0)
-        pl = pack(lane, lane.steps, 1 << 30)
-
-        def k2():
-            return packed_segment(lctx, cfg, lane, pl, spc)
-        ms2 = cuda_ms(k2)
-        plain2 = cuda_ms(lambda: resident_segment_ref(
-            lctx, cfg, lane, start=lane.steps, budget=1 << 30,
-            steps_per_call=spc), reps=5)
-        dms2 = device_ms(k2, "resident_step_kernel")
-        if spc == 1:
             out.append(record(
                 "resident_step", by_path, errs,
                 source="src/repro_torch/csrc/resident_step.cu",
                 replaces="src/repro/kernels/resident_step/kernel.py:115",
                 ms=ms2, plain_ms=plain2, bound_ms=b, bound_by=kind,
-                library_ms=None, device_ms=dms2,
+                library_ms=None, device_ms=dms2, queued_ms=qms2,
+                segment_ms=seg2, old_bound_ms=old_b,
                 shape="bucket 512x2048, steps_per_call=1"))
         else:
-            log(f"  resident_step at spc=16: {ms2:.4f} ms/launch (device "
-                f"{dms2} ms), plain {plain2:.3f} ms")
+            for th in (128, 256, 512):
+                _, _, q, _, a = lane_times(ctx, cfg, warm, spc, pool=True,
+                                           threads=th, host=False)
+                log(f"  resident_pool 512x2048 spc=16 at {th} threads: "
+                    f"device (queued) {q:.4f} ms, {per_step(q, a):.5f} ms "
+                    f"a step")
+    big = dataset_suite("large")["dblp-large"]
+    cfg, ctx, s0 = bucket_pool([big], dev)
+    warm = ed.run_batch(ctx, cfg, s0, max_steps=2000, ctx_batched=True)
+    for spc in (1, 16):
+        ms, dms, qms, seg, adv = lane_times(ctx, cfg, warm, spc, pool=True)
+        b, kind = bound(lane_work_bytes(cfg, adv), adv * 2 * cfg.n_u * cfg.wv)
+        log(f"  resident_pool dblp-large 1024x4096 (cluster of "
+            f"{resident_cluster(cfg)}) spc={spc}: {ms:.4f} ms/launch "
+            f"(device: profiler {dms} ms, queued {qms:.4f} ms; {adv} steps: "
+            f"{per_step(qms, adv):.5f} ms a step), segment {seg:.4f} ms, "
+            f"bound {b:.6f} ms ({kind})")
+        if spc == 16:
+            for th in (128, 256, 512):
+                _, _, q, _, a = lane_times(ctx, cfg, warm, spc, pool=True,
+                                           threads=th, host=False)
+                log(f"  resident_pool dblp-large spc=16 at {th} threads: "
+                    f"device (queued) {q:.4f} ms, {per_step(q, a):.5f} ms "
+                    f"a step")
     out += slice2_times(dev, by_path, errs)
     # the device's busy share over two main-path windows
     from repro_torch import MBEClient, MBEOptions

@@ -53,12 +53,10 @@ from repro_torch.kernels.dispatch import check_device, resolve_impl
 from repro_torch.kernels.fused_check.ops import fused_check_packed
 from repro_torch.kernels.fused_select.ops import fused_select_packed
 from repro_torch.kernels.intersect_count.ops import intersect_count
-from repro_torch.kernels.resident_pool.ops import (packed_pool_segment,
+from repro_torch.kernels.resident_pool.ops import (pool_run,
                                                    resident_pool_supported)
-from repro_torch.kernels.resident_step.ops import (S_BUDGET, S_LVL,
-                                                   S_NTASKS, S_START,
-                                                   S_STEPS, S_TPOS, pack,
-                                                   packed_segment,
+from repro_torch.kernels.resident_step.ops import (S_BUDGET, S_STEPS,
+                                                   lane_run, pack,
                                                    resident_supported,
                                                    unpack)
 
@@ -456,26 +454,22 @@ def _torch_loop(g, cfg, s, budget, unroll: int, batched: bool,
 # run loops
 # ---------------------------------------------------------------------------
 
-def _packed_active(p) -> torch.Tensor:
-    sc = p.scal
-    done = (sc[..., S_LVL] < 0) & (sc[..., S_TPOS] >= sc[..., S_NTASKS])
-    return (~done) & (sc[..., S_STEPS] - sc[..., S_START]
-                      < sc[..., S_BUDGET])
-
-
 def run(g: GraphContext, cfg: EngineConfig, s: DenseState,
         max_steps: int | None = None, unroll: int = 1) -> DenseState:
     """Run one lane until its tasks are done or the step budget is spent
-    (resumable).  On the resident kernel path each segment of ``unroll``
-    guarded steps is ONE ``packed_segment`` (one launch of the
-    single-lane kernel on the card); otherwise segments of the torch-op
-    step (with the per-step ``fused_check`` kernel on the kernel path)."""
+    (resumable).  On the resident kernel path the loop copies ``s`` once
+    and each segment of ``unroll`` guarded steps is ONE in-place launch of
+    the single-lane kernel on that copy (the plain version on the CPU);
+    otherwise segments of the torch-op step (with the per-step
+    ``fused_check`` kernel on the kernel path)."""
     budget = cfg.max_steps if max_steps is None else max_steps
     if cfg.resident_active_on(s.lvl.device):
-        p = pack(s, s.steps, budget)
-        while bool(_packed_active(p)):
-            p = packed_segment(g, cfg, s, p, unroll)
-        return _owned(unpack(s, p))
+        own = _owned(s)
+        p = pack(own, own.steps, budget)
+        loop = lane_run(g, cfg, own, p, unroll)
+        while loop.active():
+            loop.launch()
+        return unpack(own, p)
     return _unlane(_torch_loop(g, cfg, _lanes(s), budget, unroll,
                                batched=False))
 
@@ -518,22 +512,27 @@ def _rebalance_budgets(start: torch.Tensor, bud: torch.Tensor,
 def _run_batch_pool(g: GraphContext, cfg: EngineConfig, s: DenseState,
                     budget: int, ctx_batched: bool,
                     unroll: int) -> DenseState:
-    """Pool-kernel backing for ``run_batch``: ONE ``packed_pool_segment``
-    (one launch on the card) advances every lane by an ``unroll``-step
-    segment, until no lane is active.  The
-    scalar block (cursor, per-lane start and budget columns) stays on the
-    device across the loop; the host reads one ``any(active)`` per
-    segment.  With ``cfg.resident_rebalance`` the budget column is
-    rewritten from the scoreboard between segments."""
-    start = s.steps.clone()
-    p = pack(s, start, torch.full_like(start, budget))
-    while bool(_packed_active(p).any()):
-        p, board = packed_pool_segment(g, cfg, s, p, unroll,
-                                       ctx_batched=ctx_batched)
+    """Pool-kernel backing for ``run_batch``: the loop copies ``s`` once,
+    then ONE in-place launch of the pool kernel (the plain version on the
+    CPU) advances every lane by an ``unroll``-step segment, until no lane
+    is active.  The scalar block (cursor, per-lane start and budget
+    columns) stays on the device across the loop; the host reads one
+    ``any(active)`` per segment (the flag the launch set).  With
+    ``cfg.resident_rebalance`` the budget column is rewritten from the
+    scoreboard between segments, and ``any(active)`` is recomputed from
+    it."""
+    own = _owned(s)
+    start = own.steps.clone()
+    p = pack(own, start, torch.full_like(start, budget))
+    loop = pool_run(g, cfg, own, p, unroll, ctx_batched=ctx_batched)
+    active = loop.active()
+    while active:
+        board = loop.launch()
         if cfg.resident_rebalance:
             p.scal[:, S_BUDGET] = _rebalance_budgets(
                 start, p.scal[:, S_BUDGET], p.scal[:, S_STEPS], board)
-    return _owned(unpack(s, p))
+        active = loop.active(fresh=cfg.resident_rebalance)
+    return unpack(own, p)
 
 
 def _lane(t, i: int):

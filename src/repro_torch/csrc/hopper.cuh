@@ -108,6 +108,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` contiguous bytes from device memory into shared memory, completing
+// on an mbarrier (no tensor map; dst, src and bytes multiples of 16)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(__cvta_generic_to_global(src)),
+         "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // dst[0] += a, dst[1] += b: one vector reduction into fp32 device memory
 // (dst 8-byte aligned; the result is not returned)
 __device__ __forceinline__ void red_add_v2(float* dst, float a, float b) {

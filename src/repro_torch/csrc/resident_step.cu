@@ -1,4 +1,5 @@
-// Single-lane resident segment kernel: grid = 1 block.
+// Single-lane resident segment kernel: one lane, one CTA (or one cluster
+// when the lane's adjacency needs several CTAs' shared memory).
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/resident_step/kernel.py:resident_kernel
@@ -11,42 +12,31 @@
 namespace {
 
 // 512 threads x at most 128 registers fill one SM's 65,536 registers
-__global__ void __launch_bounds__(512, 1) resident_step_kernel(rt::LaneIn in, rt::LaneOut out,
-                                     rt::Dims d) {
+template <bool STAGED>
+__global__ void __launch_bounds__(rt::MAX_THREADS, 1)
+    resident_step_kernel(const rt::LaneArgs a, int seq) {
   extern __shared__ __align__(16) char smem[];
-  rt::lane_segment(in, out, d, smem);
+  const int cl = a.cluster;
+  const int rank = cl > 1 ? static_cast<int>(
+      rt::cg::this_cluster().block_rank()) : 0;
+  rt::lane_segment<STAGED>(a, 0, cl, rank, seq, smem);
 }
+
+int set_bytes[2][rt::MAX_DEVICES];   // dynamic smem set, per variant/device
 
 }  // namespace
 
-extern "C" int rt_resident_step(
-    const int* scal_in, const uint32_t* adj, const int* order,
-    const int* rank, const int* rc, const uint32_t* lroot, int ctx_batched,
-    const int* tasks, const uint32_t* lmask_in, const int* cstack_in,
-    const uint32_t* pmask_in, const uint32_t* qmask_in,
-    const uint32_t* rmask_in, const int* xstack_in, const uint32_t* outl_in,
-    const uint32_t* outr_in, int* scal, uint32_t* lmask, int* cstack,
-    uint32_t* pmask, uint32_t* qmask, uint32_t* rmask, int* xstack,
-    uint32_t* outl, uint32_t* outr, int nu, int wu, int wv, int depth,
-    int cap, int t_len, int m_real, int order_mode, int spc, int threads,
-    int group, int stage_adj, int smem_bytes, void* stream) {
-  rt::Dims d{nu, wu, wv, depth, cap, t_len, m_real, order_mode, spc,
-             group, stage_adj, ctx_batched};
-  const int need = rt::smem_base_bytes(nu, wu, wv) + (stage_adj ? 4 * nu * wv : 0);
-  if (smem_bytes < need || threads % 32 != 0 || group < 1 || group > 32)
+// Advance the lane of `*a` in place by up to a->spc guarded steps.
+extern "C" int rt_resident_step(const rt::LaneArgs* a, int seq,
+                                void* stream) {
+  if (const int e = rt::check_args(*a)) return e;
+  if (a->board != nullptr || a->lanes != 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  rt::LaneIn in{scal_in, adj, order, rank, rc, lroot, tasks, lmask_in,
-                cstack_in, pmask_in, qmask_in, rmask_in, xstack_in, outl_in,
-                outr_in};
-  rt::LaneOut out{scal, lmask, cstack, pmask, qmask, rmask, xstack, outl,
-                  outr};
-  cudaError_t e = cudaFuncSetAttribute(
-      resident_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  resident_step_kernel<<<1, threads, smem_bytes,
-                         static_cast<cudaStream_t>(stream)>>>(in, out, d);
-  return static_cast<int>(cudaGetLastError());
+  return a->staged
+      ? rt::launch_lanes(resident_step_kernel<true>, *a, 1, seq, stream,
+                         set_bytes[1])
+      : rt::launch_lanes(resident_step_kernel<false>, *a, 1, seq, stream,
+                         set_bytes[0]);
 }
 
 extern "C" const char* rt_error_string(int code) {

@@ -108,20 +108,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         P, LL, I, P, P, P,              # adj, adj stride, n_adj, mask, idx,
         #                                 counts
         I, I, I, I, I, P]               # batch, n, w, threads, group, stream
-    lane_args = [
-        P, P, P, P, P, P, I,            # scal_in, adj, order, rank, rc, lroot,
-        #                                 ctx_batched
-        P, P, P, P, P, P, P, P, P,      # tasks, lmask..out_r (inputs)
-        P, P, P, P, P, P, P, P, P,      # scal, lmask..out_r (outputs)
-        I, I, I, I, I, I, I, I, I,      # nu, wu, wv, depth, cap, t_len,
-        #                                 m_real, order_mode, spc
-        I, I, I, I, P]                  # threads, group, stage_adj, smem,
-        #                                 stream
-    lib.rt_resident_step.restype = I
-    lib.rt_resident_step.argtypes = list(lane_args)
-    lib.rt_resident_pool.restype = I
-    lib.rt_resident_pool.argtypes = [P] + lane_args[:-1] + [I, P]
-    #                                 board first, then lanes before stream
+    # the lane kernels take one LaneArgs struct by pointer, the launch's
+    # sequence number and the stream
+    for fn in (lib.rt_resident_step, lib.rt_resident_pool):
+        fn.restype = I
+        fn.argtypes = [P, I, P]
     lib.rt_flash_fwd.restype = I
     lib.rt_flash_fwd.argtypes = [
         P, P, P, P, P, I,               # q, k, v, o, lse, dtype

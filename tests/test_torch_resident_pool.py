@@ -117,18 +117,27 @@ def test_rebalance_conserves_budget_and_freezes_done_lanes():
 def test_hopper_gate_arithmetic():
     """The residency gate is the shared-memory working set, not the
     TPU's VMEM budget: stacks live in device memory, so the 512 x 2048
-    and 1024 x 4096 buckets both pass; only the former stages its
-    adjacency (128 KB) in shared memory."""
+    and 1024 x 4096 buckets both pass; only the former fits its
+    adjacency (128 KB) in one CTA's shared memory, the latter (512 KB)
+    runs on a cluster of 4 CTAs of 256 rows, 128 KB each."""
     def cfg(nu, nv):
         return ted.EngineConfig(n_u=nu, n_v=nv, m_real=nu, depth=nu + 2)
     small, large = cfg(512, 2048), cfg(1024, 4096)
-    assert tstep.resident_smem_base(small) == 272 + 128 + 4 * (
-        2 * 64 + 8 * 16 + 512)
+    # 704 B of reduction slots and mbarrier, then L, L' (2 WV) and P, P',
+    # Q, R, R', nz (6 WU) words and the cstack row + new counts (2 NU)
+    assert tstep.resident_smem_base(small) == 704 + 4 * (
+        2 * 64 + 6 * 16 + 2 * 512)
     assert tstep.resident_stage_adj(small)
+    assert tstep.resident_cluster(small) == 1
     assert tstep.resident_smem_bytes(small) == \
         tstep.resident_smem_base(small) + 512 * 64 * 4
     assert not tstep.resident_stage_adj(large)
     assert tstep.resident_supported(large)
+    assert tstep.resident_cluster(large) == 4 and tstep.resident_staged(large)
+    assert tstep.resident_smem_base(large, 4) == 704 + 4 * (
+        2 * 128 + 6 * 8 + 2 * 256)
+    assert tstep.resident_smem_bytes(large) == \
+        tstep.resident_smem_base(large, 4) + 256 * 128 * 4 <= 232_448
     assert tpool.resident_pool_supported(small, 8)
     assert not tpool.resident_pool_supported(small, 0)
     assert not tstep.resident_supported(cfg(60_000, 64))
