@@ -26,7 +26,15 @@ makes the script exit non-zero):
               gathered, counts on/off) at (128, 8), (512, 64), (1024, 128)
               and (100, 5), shared and per-lane adjacency, 1 and 8 lanes,
               random rows, all rows tied, nothing active (p = 0) and
-              |L'| = 0; flash_fwd (K7) against its plain version at the
+              |L'| = 0; every K1 and K4 kind at the row tiles' edges
+              (ties at the minimum across tiles, p = 0 / 1 / n, one
+              active bit in the last ragged word, one row in the last
+              tile, negative and out-of-range idx, |L'| = 0, and 26,000
+              x 813 words past the residency gate), back-to-back calls
+              whose flags and argmins alternate (the scratch reset), two
+              streams at once, one device kernel per wrapper call
+              (profiler), and a scratch slot left set before a call (a
+              planted fault the check must flag); flash_fwd (K7) against its plain version at the
               qwen3-1.7b prefill layer shapes (1, 4096), (4, 4096) and
               (1, 32768) (its first and last 512 query rows), bf16 and
               fp32, causal, ragged (S = 1000 and 4097) and non-causal,
@@ -80,8 +88,10 @@ makes the script exit non-zero):
               launcher ``repro_torch.launch.train`` at the smoke config
               with an injected failure, resumed at its checkpointed data
               step;
-5. times    — per-kernel CUDA-event and profiler times at each kernel's
-              own path's shapes beside the plain version and the bound
+5. times    — per-kernel CUDA-event, profiler and queued times at each
+              kernel's own path's shapes beside the plain version and the
+              bound (K1 / K4 also under a sweep of launch plans, and past
+              the residency gate)
               (K2 / K3 in place, every rep on its own copy of the state,
               at steps_per_call 1 and 16, per step, at 128 / 256 / 512
               threads, and dblp-large's 1024 x 4096 cluster)
@@ -514,6 +524,259 @@ def check_slice2_kernels(dev):
                         errs[key_] = max(errs.get(key_, 0), err)
                         n_checks += 1
     log(f"  K4/K5/K1 kinds: {n_checks} checks bit-exact, max |err| {errs}")
+    return errs
+
+
+# The row-tile kernels K1 and K4 at their tile edges (32-row tiles,
+# dispatch.plan_rows): (n, w) of each case; "large" is past the residency
+# gate (n_u ~ 25,700), with a ragged width (scalar loads, 4 chunks a row)
+ROW_CASES = {"ties": (100, 5), "p0": (100, 5), "p1": (100, 5),
+             "pn": (100, 5), "lastbit": (100, 5), "ragged33": (33, 8),
+             "idx_range": (100, 5), "empty": (100, 5), "wide": (512, 64),
+             "large": (26_000, 813)}
+ROW_LANES = 2
+
+
+def row_case_inputs(case, per_lane, seed, dev):
+    """K1 / K4 operands of ``ROW_LANES`` lanes at a tile edge, made on the
+    card from a seeded generator: ``ties`` (every row meets the mask but
+    rows 40, 70 and 99, the minimum 0 first in tile 1 and equal in tiles
+    2 and 3), ``p0`` / ``p1`` / ``pn`` (prefix bounds and activity 0, 1,
+    n), ``lastbit`` (every activity word 0 but one bit in the last, ragged
+    word), ``ragged33`` (one row in the last tile), ``idx_range``
+    (negative and out-of-range idx), ``empty`` (|L'| = 0), ``wide`` and
+    ``large`` (random)."""
+    import torch
+    from repro_torch.core import bitset
+    n, w = ROW_CASES[case]
+    L = ROW_LANES
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def words(*shape):
+        def one():
+            return torch.randint(-(1 << 31), 1 << 31, shape, generator=g,
+                                 device=dev, dtype=torch.int32)
+        return one() & one()
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    adj = words(L if per_lane else 1, n, w)
+    mask = words(L, w)
+    adj[:, ::7] |= mask[:, None, :] if per_lane else mask[:1, None, :]
+    adj[:, 3::11] = 0
+    idx = torch.argsort(rand(L, n), dim=-1).to(torch.int32)
+    act = (rand(L, n) < 0.5).to(torch.int32)
+    qa = (rand(L, n) < 0.4).to(torch.int32)
+    pa = ((rand(L, n) < 0.6) & (qa == 0)).to(torch.int32)
+    split = n // 2
+
+    def bound(hi, lo=0):
+        return torch.randint(lo, hi + 1, (L,), generator=g, device=dev,
+                             dtype=torch.int32)
+    pb, q_hi, p_hi = bound(n, 1), bound(split), bound(n - split)
+    if case == "ties":
+        mask[:, 0] |= 1
+        adj[:, :, 0] |= 1
+        adj[:, [40, 70, 99]] = 0
+        idx = torch.arange(n, dtype=torch.int32, device=dev).expand(L, n)
+        act[:] = 1
+        pb[:] = n
+    elif case == "p0":
+        act[:] = qa[:] = pa[:] = 0
+        pb[:] = q_hi[:] = p_hi[:] = 0
+    elif case == "p1":
+        act[:] = qa[:] = pa[:] = 0
+        act[:, 0] = qa[:, 0] = 1
+        pa[:, split] = 1
+        pb[:] = q_hi[:] = p_hi[:] = 1
+    elif case == "pn":
+        act[:] = 1
+        pb[:] = n
+        q_hi[:] = split
+        p_hi[:] = n - split
+    elif case == "lastbit":
+        act[:] = qa[:] = pa[:] = 0
+        act[:, n - 2] = pa[:, n - 2] = 1
+        qa[:, n - 3] = 1
+        pb[:] = n - 1
+        q_hi[:] = split
+        p_hi[:] = n - split - 1
+    elif case == "idx_range":
+        idx[:, :6] = torch.tensor([-1, -n, -n - 3, n, n + 5, -(1 << 30)],
+                                  dtype=torch.int32, device=dev)
+        idx[:, -3:] = torch.tensor([1 << 30, -2, n - 1], dtype=torch.int32,
+                                   device=dev)
+    elif case == "empty":
+        mask[:] = 0
+    return dict(adj=adj if per_lane else adj[0], mask=mask,
+                nlp=bitset.count(mask), idx=idx.contiguous(), act=act,
+                words=bitset.from_bool(act > 0), qa=qa, pa=pa,
+                qw=bitset.from_bool(qa > 0), pw=bitset.from_bool(pa > 0),
+                pb=pb, q_hi=q_hi, p_hi=p_hi, split=split)
+
+
+def row_calls(x):
+    """{wrapper name: (wrapper, args, kwargs)} of every K1 and K4 kind on
+    the operands ``x`` (``row_case_inputs``); K1 with counts."""
+    from repro_torch.kernels import fused_check as fc
+    from repro_torch.kernels import fused_select as fs
+    a, m, nlp, idx = x["adj"], x["mask"], x["nlp"], x["idx"]
+    wc = dict(with_counts=True)
+    return {
+        "fused_select": (fs.fused_select, (a, m, x["act"]), {}),
+        "fused_select_packed": (fs.fused_select_packed,
+                                (a, m, x["words"]), {}),
+        "fused_select_prefix": (fs.fused_select_prefix, (a, m, x["pb"]), {}),
+        "fused_select_gathered": (fs.fused_select_gathered,
+                                  (a, idx, m, x["act"]), {}),
+        "fused_select_gathered_prefix": (fs.fused_select_gathered_prefix,
+                                         (a, idx, m, x["pb"]), {}),
+        "fused_check_packed": (fc.fused_check_packed,
+                               (a, m, nlp, x["qw"], x["pw"]), wc),
+        "fused_check": (fc.fused_check, (a, m, nlp, x["qa"], x["pa"]), wc),
+        "fused_check_prefix2": (fc.fused_check_prefix2,
+                                (a, m, nlp, x["q_hi"], x["p_hi"]),
+                                dict(wc, split=x["split"])),
+        "fused_check_gathered": (fc.fused_check_gathered,
+                                 (a, idx, m, nlp, x["qa"], x["pa"]), wc),
+        "fused_check_gathered_prefix2": (
+            fc.fused_check_gathered_prefix2,
+            (a, halves_idx(idx), m, nlp, x["q_hi"], x["p_hi"]), wc),
+    }
+
+
+def halves_idx(idx):
+    """The compact engine's [Q ++ P'] index of 2n positions from two
+    orders of the n rows."""
+    import torch
+    return torch.cat([idx.flip(-1), idx], dim=-1).contiguous()
+
+
+def row_err(got, want) -> int:
+    """max |err| of a K1 / K4 result against its plain version; a shape,
+    dtype or None mismatch counts as an error."""
+    same = all((a is None) == (b is None) and (a is None or (
+        a.shape == b.shape and a.dtype == b.dtype))
+        for a, b in zip(got, want))
+    return max_err(tuple(got), tuple(want)) if same else 1 << 31
+
+
+def check_row_kernels(dev):
+    """K1 and K4, every kind, kernel against plain version on the card, bit
+    for bit: the tile-edge cases (``ROW_CASES``, shared and per-lane
+    adjacency, two lanes), back-to-back calls whose violation flags and
+    argmins alternate (the scratch reset), two streams launching at once,
+    one kernel a wrapper call (profiler), and two planted faults (a
+    scratch slot left set) the check must flag.  Returns {wrapper name:
+    largest |err|}."""
+    import torch
+    from repro_torch.core import bitset
+    from repro_torch.kernels import fused_check as fc
+    from repro_torch.kernels import fused_select as fs
+    from repro_torch.kernels.dispatch import current_stream_ptr, row_scratch
+    errs: dict = {}
+    n_checks = 0
+    for ci, case in enumerate(ROW_CASES):
+        for per_lane in (False, True):
+            x = row_case_inputs(case, per_lane, 1000 + 2 * ci + per_lane, dev)
+            for name, (fn, args, kw) in row_calls(x).items():
+                err = row_err(fn(*args, impl="pallas", **kw),
+                              fn(*args, impl="jnp", **kw))
+                require(err == 0, f"{name} {case} per-lane adj={per_lane}: "
+                                  f"differs (max |err| {err})")
+                errs[name] = max(errs.get(name, 0), err)
+                n_checks += 1
+    log(f"  K1/K4 tile edges: {n_checks} checks bit-exact ({list(ROW_CASES)}"
+        f", shared and per-lane adjacency, {ROW_LANES} lanes)")
+
+    # one kernel a wrapper call, and no fill or compare kernel beside it
+    x = row_case_inputs("wide", True, 7, dev)
+    for name, (fn, args, kw) in row_calls(x).items():
+        fn(*args, impl="pallas", **kw)
+        _, _, by_kernel = profile_window(
+            lambda: [fn(*args, impl="pallas", **kw) for _ in range(10)])
+        kname = "fused_check_kernel" if "check" in name \
+            else "fused_select_kernel"
+        seen = {k[:60]: v[1] for k, v in by_kernel.items()}
+        require(sum(seen.values()) == 10 and all(kname in k for k in seen),
+                f"{name}: 10 calls ran {seen} on the device, not 10 "
+                f"{kname} launches")
+    log("  K1/K4: one device kernel per wrapper call (profiler, 10 calls "
+        "of each of the 10 wrappers), no other kernel")
+
+    # the scratch reset: back-to-back calls, no sync between, whose
+    # violation flags alternate (true, false, true) and whose argmins
+    # differ, each read after all three ran
+    x = row_case_inputs("wide", True, 11, dev)
+    a, m, nlp = x["adj"], x["mask"], x["nlp"]
+    full_rows = fc.fused_check_packed(a, m, nlp, x["qw"], x["pw"],
+                                      impl="jnp", with_counts=True)[4] == \
+        nlp[:, None]
+    q_on = bitset.from_bool(full_rows)
+    q_off = torch.zeros_like(q_on)
+    late = x["act"].clone()
+    late[:, :256] = 0
+    seq = [(q_on, x["act"]), (q_off, late), (q_on, x["act"])]
+    got = [(fc.fused_check_packed(a, m, nlp, q, x["pw"], impl="pallas"),
+            fs.fused_select(a, m, act, impl="pallas")) for q, act in seq]
+    want = [(fc.fused_check_packed(a, m, nlp, q, x["pw"], impl="jnp"),
+             fs.fused_select(a, m, act, impl="jnp")) for q, act in seq]
+    flags = [g[0][0].tolist() for g in got]
+    picks = [g[1][0].tolist() for g in got]
+    for (gk1, gk4), (wk1, wk4) in zip(got, want):
+        require(row_err(gk1, wk1) == 0 and row_err(gk4, wk4) == 0,
+                f"scratch reset: back-to-back calls differ (flags {flags}, "
+                f"argmins {picks})")
+    require(flags[0] == flags[2] == [True] * ROW_LANES
+            and flags[1] == [False] * ROW_LANES and picks[0] != picks[1],
+            f"scratch reset: the sequence does not alternate: flags {flags}, "
+            f"argmins {picks}")
+    log(f"  K1/K4 scratch reset: back-to-back flags {flags}, argmins "
+        f"{picks}, each = plain")
+
+    # two streams launching at once, each with its own scratch
+    s1, s2 = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+    for s in (s1, s2):
+        s.wait_stream(torch.cuda.current_stream(dev))
+    outs = {0: [], 1: []}
+    for _ in range(20):
+        for k, (s, (q, act)) in enumerate(zip((s1, s2), seq[:2])):
+            with torch.cuda.stream(s):
+                outs[k].append((fc.fused_check_packed(a, m, nlp, q, x["pw"],
+                                                      impl="pallas"),
+                                fs.fused_select(a, m, act, impl="pallas")))
+    torch.cuda.synchronize()
+    for k in (0, 1):
+        for gk1, gk4 in outs[k]:
+            require(row_err(gk1, want[k][0]) == 0
+                    and row_err(gk4, want[k][1]) == 0,
+                    f"two streams: stream {k} read another call's result")
+    log("  K1/K4 on two streams at once: 2 x 20 calls of each, each = plain")
+
+    # planted faults: a scratch slot left set before a call; the check
+    # must flag the wrong result, and the kernel clears the slot again
+    stream = current_stream_ptr(dev.index)
+    k1_slots = row_scratch("fused_check", dev, stream, ROW_LANES, 2)
+    k1_slots[0] = 1                     # lane 0's flag word, truth False
+    bad = fc.fused_check_packed(a, m, nlp, q_off, x["pw"], impl="pallas")
+    flagged_k1 = row_err(bad, want[1][0]) != 0
+    k4_slots = row_scratch("fused_select", dev, stream, ROW_LANES, 4)
+    k4_slots.view(torch.int64)[0] = ~5  # lane 0's key: count 0, position 5
+    bad4 = fs.fused_select(a, m, late, impl="pallas")
+    flagged_k4 = row_err(bad4, want[1][1]) != 0
+    again = (fc.fused_check_packed(a, m, nlp, q_off, x["pw"], impl="pallas"),
+             fs.fused_select(a, m, late, impl="pallas"))
+    log(f"  K1/K4 planted faults: a set flag word gives viol "
+        f"{bad[0].tolist()} (truth {want[1][0][0].tolist()}), flagged "
+        f"{flagged_k1}; a planted key gives {bad4[0].tolist()} / "
+        f"{bad4[1].tolist()} (truth {want[1][1][0].tolist()} / "
+        f"{want[1][1][1].tolist()}), flagged {flagged_k4}")
+    require(flagged_k1 and flagged_k4,
+            "a planted scratch fault was not flagged")
+    require(row_err(again[0], want[1][0]) == 0
+            and row_err(again[1], want[1][1]) == 0,
+            "the kernels did not clear a planted scratch slot")
     return errs
 
 
@@ -1839,6 +2102,7 @@ def times(dev, by_path, errs):
         plain = cuda_ms(lambda: fused_check_packed_ref(*args,
                                                        with_counts=True))
         dms = device_ms(k1, "fused_check_kernel")
+        qms = queued_ms(k1)
         nw = n // 32
         # read adj, mask, n_mask, q, p; write viol, full/part/nz, counts
         b, kind = bound(4 * lanes * (n * w + w + 1 + 2 * nw
@@ -1850,11 +2114,11 @@ def times(dev, by_path, errs):
                 source="src/repro_torch/csrc/fused_check.cu",
                 replaces="src/repro/kernels/fused_check/kernel.py:81",
                 ms=ms, plain_ms=plain, bound_ms=b, bound_by=kind,
-                library_ms=None, device_ms=dms, shape=shape))
+                library_ms=None, device_ms=dms, queued_ms=qms, shape=shape))
         else:
             log(f"  fused_check_packed at {shape}: {ms:.4f} ms/call (device "
-                f"{dms} ms), plain {plain:.4f} ms, bound {b:.6f} ms "
-                f"({kind})")
+                f"{dms} ms, queued {qms:.4f} ms), plain {plain:.4f} ms, "
+                f"bound {b:.6f} ms ({kind})")
     # K3 / K2 at the default path's dblp-like pool: bucket 512 x 2048,
     # one lane, from a mid-run state; then dblp-large's 1024 x 4096 lane
     # (a cluster of CTAs)
@@ -1926,6 +2190,7 @@ def times(dev, by_path, errs):
                     f"device (queued) {q:.4f} ms, {per_step(q, a):.5f} ms "
                     f"a step")
     out += slice2_times(dev, by_path, errs)
+    row_plan_sweep(dev)
     # the device's busy share over two main-path windows
     from repro_torch import MBEClient, MBEOptions
     bench = dataset_suite("bench")
@@ -2214,6 +2479,82 @@ def k7_bwd_times(dev, by_path, errs, train, early):
     return out, fwd32
 
 
+# the sweep of K1 / K4 launch plans: (rows a CTA, threads at most)
+ROW_SWEEP = [(r, t) for r in (32, 64, 128, 256) for t in (128, 256, 512)]
+
+
+def row_plan_sweep(dev):
+    """K1 and K4's device time (queued) under each launch plan of
+    ``ROW_SWEEP`` at the timed shapes (K1 packed and K4 packed: 2 lanes x
+    512 x 64 words per-lane; K1 prefix2: 1,024 positions [Q ++ P] through
+    idx over 512 rows; K4 prefix: 512 positions through idx, p = 255) and
+    past the residency gate (one lane of 26,000 x 813 words, scalar
+    loads); then that large shape's call, plain and bound.  Logged."""
+    import torch
+    from repro_torch.kernels.dispatch import aligned16, plan_rows
+    from repro_torch.kernels.fused_check import ops as fco
+    from repro_torch.kernels.fused_select import ops as fso
+    wide = row_case_inputs("wide", True, 21, dev)
+    big = row_case_inputs("large", False, 22, dev)
+    one = {k: (v[:1] if k not in ("adj", "split") else v)
+           for k, v in wide.items()}
+    one["adj"] = wide["adj"][:1]
+    p255 = torch.full((1,), 255, dtype=torch.int32, device=dev)
+    q_hi = torch.full((1,), 200, dtype=torch.int32, device=dev)
+
+    def shapes(x, tag):
+        a, m, nlp = x["adj"], x["mask"], x["nlp"]
+        n, w = a.shape[-2:]
+        lanes = m.shape[0]
+        vec = aligned16(a, m, w)
+        yield (f"K1 packed {tag}", n, w, lanes, vec,
+               lambda pl: fco._launch("sweep", "packed", a, m, nlp, x["qw"],
+                                      x["pw"], with_counts=True, plan=pl))
+        yield (f"K4 packed {tag}", n, w, lanes, vec,
+               lambda pl: fso._launch("sweep", "packed", a, m, x["words"],
+                                      plan=pl))
+    for label, n, w, lanes, vec, fn in [
+            *shapes(wide, "2 x 512 x 64"), *shapes(big, "1 x 26000 x 813")]:
+        row = {}
+        for r, t in ROW_SWEEP:
+            row[f"{r}/{t}"] = round(queued_ms(
+                lambda: fn(plan_rows(n, w, lanes, vec, r, t))), 5)
+        log(f"  plan sweep {label} (rows a CTA / threads at most -> queued "
+            f"device ms): " + json.dumps(row))
+    idx2 = halves_idx(one["idx"])
+    a1, m1 = one["adj"], one["mask"]
+    for label, n, fn in (
+            ("K1 prefix2 1 x 1024 positions through idx", 1024,
+             lambda pl: fco._launch("sweep", "prefix2", a1, m1, one["nlp"],
+                                    q_hi, p255, with_counts=False, idx=idx2,
+                                    split=512, plan=pl)),
+            ("K4 prefix 1 x 512 positions through idx, p = 255", 512,
+             lambda pl: fso._launch("sweep", "prefix", a1, m1, p255,
+                                    idx=one["idx"], plan=pl))):
+        row = {}
+        for r, t in ROW_SWEEP:
+            row[f"{r}/{t}"] = round(queued_ms(
+                lambda: fn(plan_rows(n, 64, 1, True, r, t))), 5)
+        log(f"  plan sweep {label}: " + json.dumps(row))
+    # past the residency gate: the default plan's call, device and plain
+    x = big
+    n, w = x["adj"].shape
+    calls = row_calls(x)
+    for name in ("fused_select", "fused_check_packed"):
+        f, args, kw = calls[name]
+        ms = cuda_ms(lambda: f(*args, impl="pallas", **kw), reps=10)
+        qms = queued_ms(lambda: f(*args, impl="pallas", **kw), reps=10)
+        plain = cuda_ms(lambda: f(*args, impl="jnp", **kw), reps=3)
+        # K4 dense reads its active rows, K1 every row; bytes bound
+        rows_read = int((x["act"] > 0).sum()) if "select" in name \
+            else ROW_LANES * n
+        b, kind = bound(4 * rows_read * w, 2 * rows_read * w)
+        log(f"  {name} at {ROW_LANES} lanes x {n} x {w} (shared adj, past "
+            f"the residency gate): {ms:.4f} ms/call, queued {qms:.4f} ms, "
+            f"plain {plain:.3f} ms, bound {b:.5f} ms ({kind}), plan "
+            f"{plan_rows(n, w, ROW_LANES, False)}")
+
+
 NO_LIBRARY = ("no single PyTorch call computes it: torch has no popcount "
               "op, so an AND + popcount row reduction is several calls")
 
@@ -2319,17 +2660,19 @@ def slice2_times(dev, by_path, errs):
         ms = cuda_ms(lambda: fn("pallas"))
         plain = cuda_ms(lambda: fn("jnp"))
         dms = device_ms(lambda: fn("pallas"), kname)
+        qms = queued_ms(lambda: fn("pallas"))
         b, kind = bound(nbytes, 2 * nwords)
         out.append(record(name, by_path, errs, source=src, replaces=rep,
                           ms=ms, plain_ms=plain, bound_ms=b, bound_by=kind,
                           library_ms=None, library_note=NO_LIBRARY,
-                          device_ms=dms, shape=shp))
+                          device_ms=dms, queued_ms=qms, shape=shp))
     # K1's dense kind through idx (fused_check_gathered): no main path
     # launches it (its count stays 0 there); timed at the compact lane's
     # shape over the same 2N rows [Q ++ P] with activity as prefix2 reads
     # it, for its PERF.md row; logged, not in the kernels line
     pos = torch.arange(2 * n, device=dev)[None]
-    q_act, p_act = pos < qv, (pos >= n) & (pos < n + pw)
+    q_act = (pos < qv).to(torch.int32)
+    p_act = ((pos >= n) & (pos < n + pw)).to(torch.int32)
 
     def k1_dense(impl):
         return fc.fused_check_gathered(ctx.adj, idx2, Lp, nLp, q_act, p_act,
@@ -2341,6 +2684,7 @@ def slice2_times(dev, by_path, errs):
     k1d = dict(ms=cuda_ms(lambda: k1_dense("pallas")),
                device_ms=device_ms(lambda: k1_dense("pallas"),
                                    "fused_check_kernel"),
+               queued_ms=queued_ms(lambda: k1_dense("pallas")),
                plain_ms=cuda_ms(lambda: k1_dense("jnp")), bound_ms=b,
                bound_by=kind, max_abs_err=err, library_ms=None)
     log(f"  fused_check_gathered (K1 dense through idx) at {shape}, 2N = "
@@ -2403,6 +2747,8 @@ def main() -> int:
     errs = dict(fused_check_packed=check_fused_check(dev, seed=0))
     n, errs["resident_pool"], errs["resident_step"] = check_resident(dev)
     errs.update(check_slice2_kernels(dev))
+    for k, v in check_row_kernels(dev).items():
+        errs[k] = max(errs.get(k, 0), v)
     errs["flash_fwd"] = check_k7(dev)
     bwd_errs, _, bwd_early = check_k7_bwd(dev)
     errs.update(bwd_errs)

@@ -1,4 +1,4 @@
-// Fused candidate selection: the first active row minimising
+// Fused candidate selection (K4): the first active row minimising
 // popcount(adj[row(i)] & mask), as (position, count).
 //
 // Replaces the Pallas TPU kernel
@@ -15,18 +15,27 @@
 // prefix p == 0 included; the kernel does not clamp it.
 //
 // Design: the TPU kernel carries the running minimum across its
-// SEQUENTIAL grid (kernel.py:100-103).  Hopper blocks run in no order, so
-// here ONE block per lane loops over all of the lane's rows (n <= 1024 at
-// every engine bucket): `group` threads reduce a row with
-// __shfl_xor_sync, and each active row becomes the 64-bit key
-// (count << 32) | position.  The smallest key is the first minimum, as
-// jnp.argmin picks it; a warp-shuffle min and one pass over the warps'
-// minima in shared memory give it, with no atomics and no second launch.
-// What bounds it: the rows read, n * w * 4 bytes per lane (bytes).  One
-// block per lane uses at most `lanes` SMs, so a launch is latency-bound
-// at the engine's sizes.
+// SEQUENTIAL grid (kernel.py:100-103).  Here the rows are spread over the
+// SMs as rows.cuh's tiles: grid (ceil(n / rows), lanes), `group` threads a
+// row, the mask slice in registers, all of a thread's loads in flight at
+// once.  Only rows that can be active are read: a row's activity is
+// tested before its index or its words are loaded (a packed word of 0
+// skips its 32 rows), and in the prefix kind a tile wholly at or past p
+// returns at once.  Each active row becomes the 64-bit key
+// (count << 32) | position; the smallest key is the first minimum, as
+// jnp.argmin picks it.  A warp-shuffle min and one pass over the warps'
+// minima in shared memory give the CTA's key; the lane's CTAs then fold
+// theirs with a 64-bit atomicMax of ~key into the lane's scratch slot
+// {~key, ticket} (0 = empty), and the lane's last CTA writes (idx, val)
+// and leaves the slot zeroed (rows::fold_key).  A minimum does not depend
+// on the order in which CTAs arrive, so the result is deterministic and
+// bit-exact; a call is this one kernel.  Static shared memory only (the
+// warps' minima), so no attribute is ever set.
+// What bounds it: the active rows read, p * w * 4 bytes per lane (bytes);
+// at the engines' sizes the launch latency and one round of loads.
 #include <climits>
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 #include "rows.cuh"
@@ -34,7 +43,21 @@
 namespace {
 
 enum Kind { DENSE = 0, PACKED = 1, PREFIX = 2 };
-constexpr unsigned long long NONE = ~0ull;
+using rows::NONE;
+
+// kernels/fused_select/ops.py:_ARGS, field for field (8 bytes each)
+struct SelectArgs {
+  const uint32_t* adj;
+  const uint32_t* mask;
+  const int* idx;
+  const int* act;
+  int* out_idx;
+  int* out_val;
+  unsigned long long* scratch;  // {~key, ticket} per lane, zero between
+  void* stream;                 // launches
+  long long adj_stride, n_adj, n, w, kind, lanes;
+  long long rows, threads, group, units, chunk, nchunks, vec;
+};
 
 __device__ __forceinline__ unsigned long long warp_min(unsigned long long k) {
   for (int off = 16; off > 0; off >>= 1) {
@@ -44,81 +67,116 @@ __device__ __forceinline__ unsigned long long warp_min(unsigned long long k) {
   return k;
 }
 
-template <int KIND>
-__global__ void fused_select_kernel(const uint32_t* adj, long long adj_stride,
-                                    int n_adj, const uint32_t* mask,
-                                    const int* idx, const int* act,
-                                    int* out_idx, int* out_val, int n, int w,
-                                    int group) {
-  extern __shared__ __align__(16) char smem[];
-  unsigned long long* red = reinterpret_cast<unsigned long long*>(smem);
-  uint32_t* m = reinterpret_cast<uint32_t*>(smem + 8 * 32);
-  const int b = blockIdx.x;
-  const uint32_t* A = adj + adj_stride * b;
-  const int* I = idx == nullptr ? nullptr : idx + static_cast<long long>(b) * n;
-  for (int i = threadIdx.x; i < w; i += blockDim.x) m[i] = mask[b * w + i];
-  __syncthreads();
-  const int nw = (n + 31) / 32;
-  const int bound = KIND == PREFIX ? act[b] : 0;
-  const int G = group;
-  const int gl = threadIdx.x & (G - 1);
-  const int ngrp = blockDim.x / G;
+template <int KIND, bool VEC, int CHUNK>
+__global__ void __launch_bounds__(rows::MAX_THREADS)
+    fused_select_kernel(const SelectArgs a) {
+  __shared__ unsigned long long red[rows::MAX_THREADS / 32];
+  const int b = blockIdx.y;
+  const int n = static_cast<int>(a.n);
+  const int R = static_cast<int>(a.rows);
+  const int row0 = blockIdx.x * R;
+  const long long nw = (n + 31) / 32;
+  const int bound = KIND == PREFIX ? a.act[b] : n;
   unsigned long long best = NONE;
-  for (int r0 = 0; r0 < n; r0 += ngrp) {  // uniform: every warp shuffles
-    const int pos = r0 + threadIdx.x / G;
-    const bool live = pos < n;
-    const int row = live ? rows::gather(I, pos, n_adj) : 0;
-    const uint32_t c = rows::group_count(A + static_cast<long long>(row) * w,
-                                         m, w, gl, G, live);
-    bool on = false;
-    if (live && gl == 0) {
-      if (KIND == DENSE)
-        on = act[static_cast<long long>(b) * n + pos] > 0;
-      else if (KIND == PACKED)
-        on = (static_cast<uint32_t>(act[b * nw + (pos >> 5)]) >> (pos & 31)) &
-             1u;
-      else
-        on = pos < bound;
+  if (row0 < bound) {           // uniform over the CTA
+    const rows::Tile t = rows::tile(static_cast<int>(a.group), R,
+                                    static_cast<int>(a.units),
+                                    static_cast<int>(a.nchunks));
+    const uint32_t* A = a.adj + a.adj_stride * b;
+    const uint32_t* M = a.mask + a.w * b;
+    const int* I = a.idx == nullptr ? nullptr : a.idx + a.n * b;
+    int rr[rows::RMAX];
+#pragma unroll
+    for (int j = 0; j < rows::RMAX; ++j) {
+      const int pos = row0 + rows::local_row(t, j);
+      bool on = j < t.rpg && pos < n;
+      if (on) {
+        if (KIND == DENSE)
+          on = a.act[a.n * b + pos] > 0;
+        else if (KIND == PACKED)
+          on = (static_cast<uint32_t>(a.act[b * nw + (pos >> 5)]) >>
+                (pos & 31)) & 1u;
+        else
+          on = pos < bound;
+      }
+      rr[j] = on ? rows::gather(I, pos, static_cast<int>(a.n_adj)) : -1;
     }
-    const unsigned long long key =
-        on ? (static_cast<unsigned long long>(c) << 32) |
-                 static_cast<uint32_t>(pos)
-           : NONE;
-    best = key < best ? key : best;
-  }
-  best = warp_min(best);
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) red[warp] = best;
-  __syncthreads();
-  if (warp == 0) {
-    best = (threadIdx.x < (blockDim.x >> 5)) ? red[threadIdx.x] : NONE;
+    uint32_t acc[rows::RMAX];
+    rows::group_counts<VEC, CHUNK>(A, M, a.w, t, rr, acc);
+    if (t.gl == 0) {
+#pragma unroll
+      for (int j = 0; j < rows::RMAX; ++j) {
+        const unsigned long long key =
+            rr[j] >= 0 ? (static_cast<unsigned long long>(acc[j]) << 32) |
+                             static_cast<uint32_t>(row0 + rows::local_row(t, j))
+                       : NONE;
+        best = key < best ? key : best;
+      }
+    }
     best = warp_min(best);
-    if (threadIdx.x == 0) {
-      out_idx[b] = best == NONE ? -1 : static_cast<int>(best & 0xFFFFFFFFu);
-      out_val[b] = best == NONE ? INT_MAX : static_cast<int>(best >> 32);
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) red[warp] = best;
+    __syncthreads();
+    if (warp == 0) {
+      best = threadIdx.x < (blockDim.x >> 5) ? red[threadIdx.x] : NONE;
+      best = warp_min(best);
     }
   }
+  if (threadIdx.x == 0 && rows::fold_key(a.scratch + 2 * b, best)) {
+    a.out_idx[b] = best == NONE ? -1 : static_cast<int>(best & 0xFFFFFFFFu);
+    a.out_val[b] = best == NONE ? INT_MAX : static_cast<int>(best >> 32);
+  }
+}
+
+using Kernel = void (*)(const SelectArgs);
+
+template <int KIND, bool VEC>
+Kernel pick_chunk(long long chunk) {
+  switch (chunk) {
+    case 1: return fused_select_kernel<KIND, VEC, 1>;
+    case 2: return fused_select_kernel<KIND, VEC, 2>;
+    case 4: return fused_select_kernel<KIND, VEC, 4>;
+    case 8: return fused_select_kernel<KIND, VEC, 8>;
+    default: return nullptr;
+  }
+}
+
+template <int KIND>
+Kernel pick_vec(const SelectArgs& a) {
+  return a.vec ? pick_chunk<KIND, true>(a.chunk)
+               : pick_chunk<KIND, false>(a.chunk);
+}
+
+bool plan_ok(const SelectArgs& a) {
+  const long long R = a.rows, T = a.threads, G = a.group;
+  const bool pow2 = G >= 1 && G <= 32 && (G & (G - 1)) == 0;
+  return a.lanes >= 1 && a.lanes <= rows::MAX_LANES && a.n >= 1 &&
+         a.n_adj >= 1 && a.w >= 1 && a.n < (1ll << 31) && R >= 32 &&
+         R % 32 == 0 && R <= rows::MAX_ROWS && T >= 32 && T % 32 == 0 &&
+         T <= rows::MAX_THREADS && pow2 && T % G == 0 &&
+         R % (T / G) == 0 && R / (T / G) <= rows::RMAX &&
+         a.units == (a.vec ? a.w / 4 : a.w) &&
+         (!a.vec || rows::aligned16(a.adj, a.mask, a.w, a.adj_stride)) &&
+         a.nchunks >= 1 && a.chunk * a.nchunks * G >= a.units &&
+         (a.n + R - 1) / R < (1ll << 31);
 }
 
 }  // namespace
 
-extern "C" int rt_fused_select(const uint32_t* adj, long long adj_stride,
-                               int n_adj, const uint32_t* mask,
-                               const int* idx, const int* act, int kind,
-                               int* out_idx, int* out_val, int batch, int n,
-                               int w, int threads, int group, void* stream) {
-  if (threads < 32 || threads % 32 != 0 || threads > 1024 || group < 1 ||
-      group > 32 || batch < 1 || n < 1 || n_adj < 1 || w < 1 || kind < 0 ||
-      kind > 2)
+// One launch of K4 over every lane; `args` points at a SelectArgs (read
+// with memcpy: the caller's buffer need not be aligned).
+extern "C" int rt_fused_select(const void* args) {
+  SelectArgs a;
+  std::memcpy(&a, args, sizeof a);
+  if (!plan_ok(a) || a.kind < 0 || a.kind > 2 || a.scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = 8 * 32 + 4 * w;
-  auto kern = kind == DENSE    ? fused_select_kernel<DENSE>
-              : kind == PACKED ? fused_select_kernel<PACKED>
-                               : fused_select_kernel<PREFIX>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kern<<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      adj, adj_stride, n_adj, mask, idx, act, out_idx, out_val, n, w, group);
+  const Kernel kern = a.kind == DENSE    ? pick_vec<DENSE>(a)
+                      : a.kind == PACKED ? pick_vec<PACKED>(a)
+                                         : pick_vec<PREFIX>(a);
+  if (kern == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((a.n + a.rows - 1) / a.rows),
+                  static_cast<unsigned>(a.lanes));
+  kern<<<grid, static_cast<unsigned>(a.threads), 0,
+         static_cast<cudaStream_t>(a.stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -90,19 +90,11 @@ def _build(out: pathlib.Path) -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.rt_fused_check.restype = I
-    lib.rt_fused_check.argtypes = [
-        P, LL, I, P, P, P,              # adj, adj stride, n_adj, mask,
-        #                                 nmask, idx
-        P, P, I, I,                     # q, p, kind, split
-        P, P, P, P, P,                  # viol, full, part, nz, counts
-        I, I, I, I, I, P]               # batch, n, w, threads, group, stream
-    lib.rt_fused_select.restype = I
-    lib.rt_fused_select.argtypes = [
-        P, LL, I, P, P, P, I,           # adj, adj stride, n_adj, mask, idx,
-        #                                 act, kind
-        P, P,                           # out idx, out val
-        I, I, I, I, I, P]               # batch, n, w, threads, group, stream
+    # K1 and K4 take one packed argument block (fused_check/ops.py and
+    # fused_select/ops.py: _ARGS), passed as the bytes object's buffer
+    for fn in (lib.rt_fused_check, lib.rt_fused_select):
+        fn.restype = I
+        fn.argtypes = [ctypes.c_char_p]
     lib.rt_intersect_count.restype = I
     lib.rt_intersect_count.argtypes = [
         P, LL, I, P, P, P,              # adj, adj stride, n_adj, mask, idx,

@@ -19,63 +19,114 @@ over it with ``csrc/fused_check.cu``:
 launches the CUDA kernel, on a CPU tensor it runs ``ref.py``.  Each
 wrapper counts its own launches (``<wrapper>.launches``).  Leading lane
 dims (``mask`` (..., W), ``n_mask`` (...), activity per lane) are covered
-by ONE launch (grid.y = lanes), with a shared (N, W) or per-lane
-(..., N, W) adjacency.  Every wrapper returns
+by ONE launch (grid (row tiles, lanes), ``dispatch.plan_rows``), with a
+shared (N, W) or per-lane (..., N, W) adjacency; a call is that one
+kernel on the current stream, with no host sync.  Every wrapper returns
 ``(viol bool, full, part, nz, counts | None)``.
 """
 from __future__ import annotations
 
+import struct
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dispatch import (expect, lane_layout, plan_blocks,
-                                          use_kernel)
+from repro_torch.kernels.dispatch import (Outputs, aligned16, as_i32,
+                                          current_stream_ptr, expect,
+                                          expect_i32, lane_layout, plan_rows,
+                                          row_scratch, use_kernel)
 from repro_torch.kernels.fused_check.ref import (
     fused_check_gathered_prefix2_ref, fused_check_gathered_ref,
     fused_check_packed_ref, fused_check_prefix2_ref, fused_check_ref)
 
-_I32 = torch.int32
 KINDS = {"packed": 0, "dense": 1, "prefix2": 2}
+# csrc/fused_check.cu:CheckArgs: 13 pointers, then 14 int64 fields
+_ARGS = struct.Struct("<13Q14q")
+_I32 = torch.int32
 
 
-def _launch(what, kind, adj, mask, n_mask, q, p, *, with_counts, idx=None,
-            split=0):
+class _Sig(NamedTuple):
+    """What one call signature (kind, operand shapes, split, counts) fixes,
+    checked and computed once: the outputs' layout, the launch's integer
+    fields and the launch plans (one-word and 16-byte loads)."""
+    out: Outputs
+    ints: tuple         # adj_stride, n_adj, n, w, kind, split, lanes
+    plans: tuple        # (one-word plan, 16-byte plan)
+
+
+_sigs: dict = {}
+
+
+def _signature(what, kind, adj, mask, n_mask, q, p, idx, split,
+               with_counts) -> _Sig:
     dev = adj.device
     lead = tuple(mask.shape[:-1])
     batch, adj_stride = lane_layout(adj, lead, what)
     n_adj, w = adj.shape[-2:]
     n = n_adj if idx is None else idx.shape[-1]
     nw = (n + 31) // 32
-    n_mask = torch.as_tensor(n_mask, dtype=_I32, device=dev)
-    q = torch.as_tensor(q, dtype=_I32, device=dev)
-    p = torch.as_tensor(p, dtype=_I32, device=dev)
     act_shape = {"packed": lead + (nw,), "dense": lead + (n,),
                  "prefix2": lead}[kind]
-    expect(adj, what, "adj", _I32, adj.shape, dev)
-    expect(mask, what, "mask", _I32, lead + (w,), dev)
-    expect(n_mask, what, "n_mask", _I32, lead, dev)
-    expect(q, what, "q activity", _I32, act_shape, dev)
-    expect(p, what, "p activity", _I32, act_shape, dev)
+    expect(mask, what, "mask", mask.dtype, lead + (w,), mask.device)
+    expect(n_mask, what, "n_mask", n_mask.dtype, lead, n_mask.device)
+    expect(q, what, "q activity", q.dtype, act_shape, q.device)
+    expect(p, what, "p activity", p.dtype, act_shape, p.device)
     if idx is not None:
-        expect(idx, what, "idx", _I32, lead + (n,), dev)
-    viol = torch.zeros(lead, dtype=_I32, device=dev)
-    if kind == "packed":
-        full = torch.empty(lead + (nw,), dtype=_I32, device=dev)
-    else:
-        full = torch.empty(lead + (n,), dtype=torch.bool, device=dev)
-    part = torch.empty_like(full)
-    nz = torch.empty_like(full)
-    counts = (torch.empty(lead + (n,), dtype=_I32, device=dev)
-              if with_counts else None)
-    plan = plan_blocks(w)
-    rc = _build.library().rt_fused_check(
-        adj.data_ptr(), adj_stride, n_adj, mask.data_ptr(),
-        n_mask.data_ptr(), _build.ptr(idx), q.data_ptr(), p.data_ptr(),
-        KINDS[kind], split, viol.data_ptr(), full.data_ptr(),
-        part.data_ptr(), nz.data_ptr(), _build.ptr(counts), batch, n, w,
-        plan.threads, plan.group, _build.stream_ptr(dev))
-    _build.check(rc, f"{what} launch")
-    return viol != 0, full, part, nz, counts
+        expect(idx, what, "idx", idx.dtype, lead + (n,), dev)
+    flags = ((_I32, lead + (nw,)) if kind == "packed"
+             else (torch.bool, lead + (n,)))
+    specs = [(torch.bool, lead), flags, flags, flags]
+    if with_counts:
+        specs.append((_I32, lead + (n,)))
+    return _Sig(Outputs(specs),
+                (adj_stride, n_adj, n, w, KINDS[kind], split, batch),
+                (plan_rows(n, w, batch, False), plan_rows(n, w, batch, True)))
+
+
+def _launch(what, kind, adj, mask, n_mask, q, p, *, with_counts, idx=None,
+            split=0, plan=None):
+    """One launch of ``csrc/fused_check.cu`` over every lane: the operands
+    checked (shapes once per call signature, dtype, device and layout
+    every call), the outputs in one allocation, one packed argument
+    block, one C call and nothing else on the device (the violation flag
+    is folded inside the kernel).  ``plan`` overrides ``plan_rows``'s."""
+    dev = adj.device
+    n_mask, q, p = as_i32(n_mask, dev), as_i32(q, dev), as_i32(p, dev)
+    if not (adj.dtype is _I32 and mask.dtype is _I32
+            and n_mask.dtype is _I32 and q.dtype is _I32 and p.dtype is _I32
+            and mask.device == dev and n_mask.device == dev
+            and q.device == dev and p.device == dev
+            and adj.is_contiguous() and mask.is_contiguous()
+            and n_mask.is_contiguous() and q.is_contiguous()
+            and p.is_contiguous()):
+        for name, t in (("adj", adj), ("mask", mask), ("n_mask", n_mask),
+                        ("q activity", q), ("p activity", p)):
+            expect(t, what, name, _I32, t.shape, dev)
+    if idx is not None:
+        expect_i32(idx, what, "idx", idx.shape, dev)
+    key = (what, kind, adj.shape, mask.shape, n_mask.shape, q.shape,
+           p.shape, None if idx is None else idx.shape, split, with_counts)
+    sig = _sigs.get(key)
+    if sig is None:
+        sig = _sigs[key] = _signature(what, kind, adj, mask, n_mask, q, p,
+                                      idx, split, with_counts)
+    outs = sig.out.alloc(dev)
+    counts = outs[4] if with_counts else None
+    if plan is None:
+        plan = sig.plans[aligned16(adj, mask, sig.ints[3])]
+    stream = current_stream_ptr(dev.index)
+    scratch = row_scratch("fused_check", dev, stream, sig.ints[6], 2)
+    args = _ARGS.pack(
+        adj.data_ptr(), mask.data_ptr(), n_mask.data_ptr(),
+        0 if idx is None else idx.data_ptr(), q.data_ptr(), p.data_ptr(),
+        outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
+        outs[3].data_ptr(), 0 if counts is None else counts.data_ptr(),
+        scratch.data_ptr(), stream, *sig.ints, *plan[:7])
+    rc = _build.library().rt_fused_check(args)
+    if rc:
+        _build.check(rc, f"{what} launch")
+    return outs[0], outs[1], outs[2], outs[3], counts
 
 
 def fused_check(adj, mask, n_mask, q_act, p_act, *, impl: str = "auto",

@@ -17,49 +17,98 @@ over it with ``csrc/fused_select.cu``:
 ``impl`` follows ``kernels.dispatch``: on a CUDA tensor the kernel path
 launches the CUDA kernel, on a CPU tensor it runs ``ref.py``.  Each
 wrapper counts its own launches (``<wrapper>.launches``).  Leading lane
-dims are covered by ONE launch (one block per lane), with a shared
-(N, W) or per-lane (..., N, W) adjacency.  Returns ``(idx, val)`` int32
-per lane, ``(-1, INT32_MAX)`` where no row is active.
+dims are covered by ONE launch (grid (row tiles, lanes),
+``dispatch.plan_rows``), with a shared (N, W) or per-lane (..., N, W)
+adjacency; a call is that one kernel on the current stream, with no host
+sync.  Returns ``(idx, val)`` int32 per lane, ``(-1, INT32_MAX)`` where no
+row is active.
 """
 from __future__ import annotations
+
+import struct
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dispatch import (expect, lane_layout, plan_blocks,
-                                          use_kernel)
+from repro_torch.kernels.dispatch import (Outputs, aligned16, as_i32,
+                                          current_stream_ptr, expect,
+                                          expect_i32, lane_layout, plan_rows,
+                                          row_scratch, use_kernel)
 from repro_torch.kernels.fused_select.ref import (
     fused_select_gathered_prefix_ref, fused_select_gathered_ref,
     fused_select_packed_ref, fused_select_prefix_ref, fused_select_ref)
 
-_I32 = torch.int32
 KINDS = {"dense": 0, "packed": 1, "prefix": 2}
-# one block per lane loops over all of its rows: the widest block
-THREADS = 512
+# csrc/fused_select.cu:SelectArgs: 8 pointers, then 13 int64 fields
+_ARGS = struct.Struct("<8Q13q")
+_I32 = torch.int32
 
 
-def _launch(what, kind, adj, mask, act, idx=None):
+class _Sig(NamedTuple):
+    """What one call signature (kind and operand shapes) fixes, checked
+    and computed once: the outputs' layout, the launch's integer fields
+    and the launch plans (one-word and 16-byte loads)."""
+    out: Outputs
+    ints: tuple         # adj_stride, n_adj, n, w, kind, lanes
+    plans: tuple        # (one-word plan, 16-byte plan)
+
+
+_sigs: dict = {}
+
+
+def _signature(what, kind, adj, mask, act, idx) -> _Sig:
     dev = adj.device
     lead = tuple(mask.shape[:-1])
     batch, adj_stride = lane_layout(adj, lead, what)
     n_adj, w = adj.shape[-2:]
     n = n_adj if idx is None else idx.shape[-1]
-    act = torch.as_tensor(act, dtype=_I32, device=dev)
     act_shape = {"dense": lead + (n,), "packed": lead + ((n + 31) // 32,),
                  "prefix": lead}[kind]
-    expect(adj, what, "adj", _I32, adj.shape, dev)
-    expect(mask, what, "mask", _I32, lead + (w,), dev)
-    expect(act, what, "activity", _I32, act_shape, dev)
+    expect(mask, what, "mask", mask.dtype, lead + (w,), mask.device)
+    expect(act, what, "activity", act.dtype, act_shape, act.device)
     if idx is not None:
-        expect(idx, what, "idx", _I32, lead + (n,), dev)
-    out_idx = torch.empty(lead, dtype=_I32, device=dev)
-    out_val = torch.empty(lead, dtype=_I32, device=dev)
-    plan = plan_blocks(w, threads=THREADS)
-    rc = _build.library().rt_fused_select(
-        adj.data_ptr(), adj_stride, n_adj, mask.data_ptr(), _build.ptr(idx),
-        act.data_ptr(), KINDS[kind], out_idx.data_ptr(), out_val.data_ptr(),
-        batch, n, w, plan.threads, plan.group, _build.stream_ptr(dev))
-    _build.check(rc, f"{what} launch")
+        expect(idx, what, "idx", idx.dtype, lead + (n,), dev)
+    return _Sig(Outputs([(_I32, lead)] * 2),
+                (adj_stride, n_adj, n, w, KINDS[kind], batch),
+                (plan_rows(n, w, batch, False), plan_rows(n, w, batch, True)))
+
+
+def _launch(what, kind, adj, mask, act, idx=None, plan=None):
+    """One launch of ``csrc/fused_select.cu`` over every lane: the
+    operands checked (shapes once per call signature, dtype, device and
+    layout every call), (idx, val) in one allocation, one packed argument
+    block, one C call and nothing else on the device (the lanes' CTAs
+    fold their minima inside the kernel).  ``plan`` overrides
+    ``plan_rows``'s."""
+    dev = adj.device
+    act = as_i32(act, dev)
+    if not (adj.dtype is _I32 and mask.dtype is _I32 and act.dtype is _I32
+            and mask.device == dev and act.device == dev
+            and adj.is_contiguous() and mask.is_contiguous()
+            and act.is_contiguous()):
+        for name, t in (("adj", adj), ("mask", mask), ("activity", act)):
+            expect(t, what, name, _I32, t.shape, dev)
+    if idx is not None:
+        expect_i32(idx, what, "idx", idx.shape, dev)
+    key = (what, kind, adj.shape, mask.shape, act.shape,
+           None if idx is None else idx.shape)
+    sig = _sigs.get(key)
+    if sig is None:
+        sig = _sigs[key] = _signature(what, kind, adj, mask, act, idx)
+    out_idx, out_val = sig.out.alloc(dev)
+    if plan is None:
+        plan = sig.plans[aligned16(adj, mask, sig.ints[3])]
+    stream = current_stream_ptr(dev.index)
+    scratch = row_scratch("fused_select", dev, stream, sig.ints[5], 4)
+    args = _ARGS.pack(
+        adj.data_ptr(), mask.data_ptr(),
+        0 if idx is None else idx.data_ptr(), act.data_ptr(),
+        out_idx.data_ptr(), out_val.data_ptr(), scratch.data_ptr(), stream,
+        *sig.ints, *plan[:7])
+    rc = _build.library().rt_fused_select(args)
+    if rc:
+        _build.check(rc, f"{what} launch")
     return out_idx, out_val
 
 

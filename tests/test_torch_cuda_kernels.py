@@ -283,3 +283,191 @@ def test_client_on_the_card_equals_cpu(card):
             .enumerate_many(graphs)
         assert [(r.n_max, r.cs, r.steps, r.nodes) for r in on_card] == \
             [(r.n_max, r.cs, r.steps, r.nodes) for r in cpu]
+
+
+# -- K1 and K4 as row tiles (csrc/rows.cuh): tile edges, the scratch
+# reset, two streams, past the residency gate, one kernel a call --------
+
+ROW_EDGES = {"ties": (100, 5), "p0": (100, 5), "p1": (100, 5),
+             "pn": (100, 5), "lastbit": (100, 5), "ragged33": (33, 8),
+             "idx_range": (100, 5), "empty": (100, 5), "wide": (512, 64)}
+
+
+def _row_case(case, per_lane, seed, dev, n_w=None):
+    """Two lanes of K1 / K4 operands at a tile edge (as chip_smoke.py's
+    ``row_case_inputs``)."""
+    n, w = n_w or ROW_EDGES[case]
+    L = 2
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def words(*shape):
+        def one():
+            return torch.randint(-(1 << 31), 1 << 31, shape, generator=g,
+                                 device=dev, dtype=torch.int32)
+        return one() & one()
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    def bound(hi, lo=0):
+        return torch.randint(lo, hi + 1, (L,), generator=g, device=dev,
+                             dtype=torch.int32)
+
+    adj = words(L if per_lane else 1, n, w)
+    mask = words(L, w)
+    adj[:, ::7] |= mask[:, None, :] if per_lane else mask[:1, None, :]
+    adj[:, 3::11] = 0
+    idx = torch.argsort(rand(L, n), dim=-1).to(torch.int32)
+    act = (rand(L, n) < 0.5).to(torch.int32)
+    qa = (rand(L, n) < 0.4).to(torch.int32)
+    pa = ((rand(L, n) < 0.6) & (qa == 0)).to(torch.int32)
+    split = n // 2
+    pb, q_hi, p_hi = bound(n, 1), bound(split), bound(n - split)
+    if case == "ties":
+        mask[:, 0] |= 1
+        adj[:, :, 0] |= 1
+        adj[:, [40, 70, 99]] = 0
+        idx = torch.arange(n, dtype=torch.int32, device=dev).expand(L, n)
+        act[:] = 1
+        pb[:] = n
+    elif case == "p0":
+        act[:] = qa[:] = pa[:] = 0
+        pb[:] = q_hi[:] = p_hi[:] = 0
+    elif case == "p1":
+        act[:] = qa[:] = pa[:] = 0
+        act[:, 0] = qa[:, 0] = 1
+        pa[:, split] = 1
+        pb[:] = q_hi[:] = p_hi[:] = 1
+    elif case == "pn":
+        act[:] = 1
+        pb[:] = n
+        q_hi[:] = split
+        p_hi[:] = n - split
+    elif case == "lastbit":
+        act[:] = qa[:] = pa[:] = 0
+        act[:, n - 2] = pa[:, n - 2] = 1
+        qa[:, n - 3] = 1
+        pb[:] = n - 1
+        q_hi[:] = split
+        p_hi[:] = n - split - 1
+    elif case == "idx_range":
+        idx[:, :6] = torch.tensor([-1, -n, -n - 3, n, n + 5, -(1 << 30)],
+                                  dtype=torch.int32, device=dev)
+        idx[:, -3:] = torch.tensor([1 << 30, -2, n - 1], dtype=torch.int32,
+                                   device=dev)
+    elif case == "empty":
+        mask[:] = 0
+    idx = idx.contiguous()
+    a = adj if per_lane else adj[0]
+    nlp = bitset.count(mask)
+    idx2 = torch.cat([idx.flip(-1), idx], dim=-1).contiguous()
+    wc = dict(with_counts=True)
+    return {
+        fs.fused_select: ((a, mask, act), {}),
+        fs.fused_select_packed: ((a, mask, bitset.from_bool(act > 0)), {}),
+        fs.fused_select_prefix: ((a, mask, pb), {}),
+        fs.fused_select_gathered: ((a, idx, mask, act), {}),
+        fs.fused_select_gathered_prefix: ((a, idx, mask, pb), {}),
+        fc.fused_check_packed: ((a, mask, nlp, bitset.from_bool(qa > 0),
+                                 bitset.from_bool(pa > 0)), wc),
+        fc.fused_check: ((a, mask, nlp, qa, pa), wc),
+        fc.fused_check_prefix2: ((a, mask, nlp, q_hi, p_hi),
+                                 dict(wc, split=split)),
+        fc.fused_check_gathered: ((a, idx, mask, nlp, qa, pa), wc),
+        fc.fused_check_gathered_prefix2: ((a, idx2, mask, nlp, q_hi, p_hi),
+                                          wc),
+    }
+
+
+def _same(got, want):
+    return all((a is None and b is None) or (
+        a is not None and b is not None and a.dtype == b.dtype
+        and torch.equal(a, b)) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("case", list(ROW_EDGES))
+@pytest.mark.parametrize("per_lane", [False, True])
+def test_row_kernels_at_tile_edges_match_plain(card, case, per_lane):
+    calls = _row_case(case, per_lane, len(case) + per_lane, card)
+    for fn, (args, kw) in calls.items():
+        got = fn(*args, impl="pallas", **kw)
+        want = fn(*args, impl="jnp", **kw)
+        assert _same(got, want), (fn.__name__, case, per_lane)
+
+
+def test_row_kernels_past_the_residency_gate(card):
+    """K1 and K4 at 26,000 rows of 813 words (scalar loads, a row walked
+    in 4 chunks), every kind."""
+    calls = _row_case("wide", False, 5, card, n_w=(26_000, 813))
+    for fn, (args, kw) in calls.items():
+        assert _same(fn(*args, impl="pallas", **kw),
+                     fn(*args, impl="jnp", **kw)), fn.__name__
+
+
+def _alternating(card):
+    calls = _row_case("wide", True, 11, card)
+    (a, m, nlp, qw, pw), _ = calls[fc.fused_check_packed]
+    _, _, act = calls[fs.fused_select][0]
+    counts = fc.fused_check_packed(a, m, nlp, qw, pw, impl="jnp",
+                                   with_counts=True)[4]
+    q_on = bitset.from_bool(counts == nlp[:, None])
+    late = act.clone()
+    late[:, :256] = 0
+    seq = [(q_on, act), (torch.zeros_like(q_on), late), (q_on, act)]
+
+    def k1(q, impl):
+        return fc.fused_check_packed(a, m, nlp, q, pw, impl=impl)
+
+    def k4(x, impl):
+        return fs.fused_select(a, m, x, impl=impl)
+    return seq, k1, k4
+
+
+def test_row_kernels_scratch_reset_between_calls(card):
+    """Back-to-back calls (no sync between) whose violation flags
+    alternate true, false, true and whose argmins differ: each reads its
+    own result, so every launch left its scratch slots zeroed."""
+    seq, k1, k4 = _alternating(card)
+    got = [(k1(q, "pallas"), k4(x, "pallas")) for q, x in seq]
+    want = [(k1(q, "jnp"), k4(x, "jnp")) for q, x in seq]
+    assert [g[0][0].tolist() for g in got] == [[True] * 2, [False] * 2,
+                                               [True] * 2]
+    assert got[0][1][0].tolist() != got[1][1][0].tolist()
+    for (g1, g4), (w1, w4) in zip(got, want):
+        assert _same(g1, w1) and _same(g4, w4)
+
+
+def test_row_kernels_on_two_streams_at_once(card):
+    seq, k1, k4 = _alternating(card)
+    want = [(k1(q, "jnp"), k4(x, "jnp")) for q, x in seq[:2]]
+    streams = [torch.cuda.Stream(card), torch.cuda.Stream(card)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(card))
+    outs = [[], []]
+    for _ in range(20):
+        for k, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                q, x = seq[k]
+                outs[k].append((k1(q, "pallas"), k4(x, "pallas")))
+    torch.cuda.synchronize()
+    for k in (0, 1):
+        for g1, g4 in outs[k]:
+            assert _same(g1, want[k][0]) and _same(g4, want[k][1])
+
+
+def test_row_kernels_one_device_kernel_per_call(card):
+    from torch.profiler import ProfilerActivity, profile
+    calls = _row_case("wide", True, 3, card)
+    for fn, (args, kw) in calls.items():
+        fn(*args, impl="pallas", **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn(*args, impl="pallas", **kw)
+            torch.cuda.synchronize()
+        seen = {e.key: e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+        name = "fused_check_kernel" if "check" in fn.__name__ \
+            else "fused_select_kernel"
+        assert sum(seen.values()) == 5 and all(name in k for k in seen), \
+            (fn.__name__, seen)
