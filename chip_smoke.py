@@ -34,14 +34,22 @@ makes the script exit non-zero):
               whose flags and argmins alternate (the scratch reset), two
               streams at once, one device kernel per wrapper call
               (profiler), and a scratch slot left set before a call (a
-              planted fault the check must flag); flash_fwd (K7) against its plain version at the
+              planted fault the check must flag); intersect_count (K5)
+              on the row tiles at n 1 .. 1024 across the tile edges, w
+              1, 5 and 64, no lane dim and 1 to 3 lanes with shared and
+              per-lane adjacency, through idx with negative and
+              out-of-range entries, unaligned operands, 2 x 26,000 x
+              813 words, one device kernel a call (profiler), and a
+              flipped adjacency bit (one row's count off by one) the
+              check must flag; flash_fwd (K7) against its plain version at the
               qwen3-1.7b prefill layer shapes (1, 4096), (4, 4096) and
               (1, 32768) (its first and last 512 query rows), bf16 and
               fp32, causal, ragged (S = 1000 and 4097) and non-causal,
               hd 64 with G = 3, element-wise and per query row
-              (tolerances at K7_TOL, K7_ROW_RTOL), every case run twice
-              with bit-identical o and lse, and two planted faults the
-              check must flag; the K7 backward
+              (tolerances at K7_TOL, K7_ROW_RTOL), fp32 also at the grad
+              path's (2, 4096), hd 32 and hd 16, every case run twice
+              with bit-identical o and lse, and two planted faults in
+              bf16 and two in fp32 the check must flag; the K7 backward
               (bf16: the fused dq / dk / dv kernel; fp32: K7 dq and dkv)
               against ``flash_bwd_ref`` at the training layer shapes
               (1, 4096) and (2, 4096), bf16 and fp32, causal, ragged
@@ -99,7 +107,8 @@ makes the script exit non-zero):
               on the same operands, and for the K7 backward SDPA's
               backward; the fp32 K7 forward, dq and dkv at (2, 4096)
               beside SDPA's fp32 forward and backward and the kernels
-              SDPA ran for them),
+              SDPA ran for them, the forward's shares of its FP32 and
+              3xTF32 bounds; K5 with its queued device time),
               and the device's busy share over main-path windows.
 
 Every phase runs on every call; the script takes no arguments.  The line
@@ -780,6 +789,129 @@ def check_row_kernels(dev):
     return errs
 
 
+# K5 on the row tiles (csrc/intersect_count.cu): row counts at the 32-row
+# tiles' edges, widths with w % 4 != 0 (one-word loads) and 16-byte units
+K5_NS = (1, 31, 32, 33, 63, 64, 65, 512, 1024)
+K5_WS = (1, 5, 64)
+# (lanes, per-lane adjacency): 0 = no lane dim
+K5_LANES = ((0, False), (1, True), (2, False), (3, True))
+
+
+def k5_operands(n, w, lanes, per_lane, seed, dev, unaligned=False):
+    """K5 operands made on the card from a seeded generator: adjacency
+    (lanes or none, n, w), masks (lanes, w) and an ``idx`` of positions
+    with negative and out-of-range entries (JAX's gather rule);
+    ``unaligned`` puts adj and mask 4 bytes past a 16-byte boundary (the
+    one-word path)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    L = max(lanes, 1)
+
+    def words(*shape):
+        def one():
+            return torch.randint(-(1 << 31), 1 << 31, shape, generator=g,
+                                 device=dev, dtype=torch.int32)
+        x = one() & one()
+        if not unaligned:
+            return x
+        buf = torch.empty(x.numel() + 4, dtype=torch.int32, device=dev)
+        y = buf[1:1 + x.numel()].view(shape)
+        y.copy_(x)
+        return y
+    adj = words(L if per_lane else 1, n, w)
+    mask = words(L, w)
+    adj[:, ::7] |= mask[:, None, :] if per_lane else mask[:1, None, :]
+    adj[:, 3::11] = 0
+    idx = torch.argsort(torch.rand(L, n, generator=g, device=dev),
+                        dim=-1).to(torch.int32)
+    edge = torch.tensor([-1, -n, -n - 3, n, n + 5, -(1 << 30), 1 << 30],
+                        dtype=torch.int32, device=dev)
+    idx[:, :min(n, 7)] = edge[:min(n, 7)]
+    idx = idx.contiguous()
+    a = adj if per_lane else adj[0]
+    if lanes == 0:
+        return a, mask[0], idx[0]
+    return a, mask, idx
+
+
+def check_k5_tiles(dev):
+    """K5 against its plain version on the card, bit for bit: n at the row
+    tiles' edges (``K5_NS``), w 1, 5 and 64 (``K5_WS``), no lane dim, 1, 2
+    and 3 lanes with shared and per-lane adjacency (``K5_LANES``), rows in
+    order and through an ``idx`` with negative and out-of-range entries;
+    operands off 16-byte boundaries (the one-word path); 2 lanes of 26,000
+    x 813 words (one-word loads, a row walked in 4 chunks); one device
+    kernel a wrapper call (profiler); and a planted fault (one adjacency
+    bit under the mask flipped, one row's count off by one) that the check
+    must flag.  Returns the largest |err|."""
+    import torch
+    from repro_torch.kernels.intersect_count.ops import intersect_count
+    worst, n_checks = 0, 0
+
+    def held(a, m, i, what):
+        nonlocal worst, n_checks
+        got = intersect_count(a, m, idx=i, impl="pallas")
+        want = intersect_count(a, m, idx=i, impl="jnp")
+        err = max_err(got, want)
+        require(err == 0 and got.shape == want.shape
+                and got.dtype == want.dtype,
+                f"intersect_count {what}: differs (max |err| {err})")
+        worst = max(worst, err)
+        n_checks += 1
+    for n in K5_NS:
+        for w in K5_WS:
+            for lanes, per_lane in K5_LANES:
+                a, m, i = k5_operands(n, w, lanes, per_lane,
+                                      n * 131 + w * 7 + lanes, dev)
+                for ix in (None, i):
+                    held(a, m, ix, f"n={n} w={w} lanes={lanes} per-lane "
+                                   f"adj={per_lane} idx={ix is not None}")
+        a, m, i = k5_operands(n, 64, 2, True, n, dev, unaligned=True)
+        require(a.data_ptr() % 16 and m.data_ptr() % 16,
+                "the unaligned K5 operands are aligned")
+        held(a, m, i, f"n={n} w=64 unaligned")
+    a, m, i = k5_operands(26_000, 813, 2, False, 5, dev)
+    for ix in (None, i):
+        held(a, m, ix, f"26,000 x 813 idx={ix is not None}")
+    log(f"  intersect_count tiles: {n_checks} checks bit-exact (n {K5_NS}, "
+        f"w {K5_WS}, lanes/per-lane {K5_LANES}, rows in order and through "
+        f"idx with negative and out-of-range entries, unaligned operands, "
+        f"2 x 26,000 x 813)")
+
+    # one device kernel a wrapper call, and nothing else on the device
+    a, m, i = k5_operands(512, 64, 2, True, 9, dev)
+    intersect_count(a, m, idx=i, impl="pallas")
+    _, _, by_kernel = profile_window(
+        lambda: [intersect_count(a, m, idx=i, impl="pallas")
+                 for _ in range(10)])
+    seen = {k[:60]: v[1] for k, v in by_kernel.items()}
+    require(sum(seen.values()) == 10
+            and all("intersect_count_kernel" in k for k in seen),
+            f"intersect_count: 10 calls ran {seen} on the device, not 10 "
+            f"intersect_count_kernel launches")
+    log("  intersect_count: one device kernel per wrapper call (profiler, "
+        "10 calls)")
+
+    # planted fault: one bit of lane 0's row 0 under its mask, flipped in
+    # the kernel's copy of the adjacency; held against the plain version
+    # on the right operands, the counts of row 0 (at every position idx
+    # sends to it) are off by one
+    want = intersect_count(a, m, idx=i, impl="jnp")
+    bit = m[0, 0] & -m[0, 0]
+    require(int(bit) != 0, "the K5 control's mask word is 0")
+    bad = a.clone()
+    bad[0, 0, 0] ^= bit
+    got = intersect_count(bad, m, idx=i, impl="pallas")
+    diff = (got - want).abs()
+    flagged = max_err(got, want) != 0
+    log(f"  control (lane 0's row 0, bit {int(bit)} flipped): "
+        f"{int((diff > 0).sum())} counts off, by {int(diff.max())}: "
+        f"flagged {flagged}")
+    require(flagged and int(diff.max()) == 1,
+            "the K5 check passes a planted fault")
+    return worst
+
+
 # K7 fwd at the prefill shapes of qwen3-1.7b (KV 8, G 2, hd 128) and
 # ragged / non-causal ones: (B, S, H, KV, hd, dtype, causal, rows).  The
 # (1, 32768) layer is held on its first and last K7_SPAN query rows
@@ -797,7 +929,19 @@ K7_CASES = (
     (2, 1000, 12, 4, 64, "bfloat16", True, None),   # hd 64, G = 3
     (2, 256, 8, 2, 128, "bfloat16", False, None),
     (1, 512, 16, 8, 128, "float32", True, None),
+    # fp32 (the micro-tile kernel): the fp32 grad path's layer (the planted
+    # faults' case, K7_F32_CONTROL), ragged, S % 4 != 0, hd 64 with G = 3,
+    # non-causal, hd 32 and hd 16
+    (2, 4096, 16, 8, 128, "float32", True, None),
+    (2, 1000, 16, 8, 128, "float32", True, None),
+    (1, 4097, 16, 8, 128, "float32", True, None),
+    (2, 1000, 12, 4, 64, "float32", True, None),
+    (2, 256, 8, 2, 128, "float32", False, None),
+    (2, 1000, 8, 4, 32, "float32", True, None),
+    (2, 333, 8, 2, 16, "float32", False, None),
 )
+# the fp32 controls' case: the fp32 grad path's layer
+K7_F32_CONTROL = K7_CASES.index((2, 4096, 16, 8, 128, "float32", True, None))
 # Tolerances.  Element-wise, bf16 o 3e-2 abs/rel (tests/test_flash_kernel.py:
 # bf16 keeps ~3 decimal digits, and the kernel rounds p at its running
 # maximum where the plain version rounds it at the final one); fp32 o 1e-4
@@ -909,9 +1053,10 @@ def check_k7(dev):
         require(same, f"K7 {K7_CASES[i]}: o or lse differs between two "
                       f"runs on the same operands")
         worst = max(worst, e["abs"])
-        if i == 0:
-            # controls: the kernel with a planted fault, held against the
-            # plain version of the right function, must come out wrong
+        if i in (0, K7_F32_CONTROL):
+            # controls (bf16 and fp32): the kernel with a planted fault,
+            # held against the plain version of the right function, must
+            # come out wrong
             for what, args, ckw in (
                     ("late V tiles misplaced",
                      (qp, kp, late_v_tiles_misplaced(vp)), kw),
@@ -920,7 +1065,7 @@ def check_k7(dev):
                 co, cl = flash_fwd(*args, **ckw)
                 ce = k7_errors(qp, kp, vp, co, cl, spans=k7_spans(S, rows),
                                **kw)
-                log(f"  control ({what}) at {K7_CASES[i][:5]}: o max |err| "
+                log(f"  control ({what}) at {K7_CASES[i][:6]}: o max |err| "
                     f"{ce['abs']:.3g} ({ce['bad']} past {K7_TOL[dt]}), row "
                     f"rel err {ce['row']:.3g}, lse rel err {ce['lse']:.3g}: "
                     f"flagged {not k7_ok(ce, dt)} (element-wise alone: "
@@ -2435,6 +2580,14 @@ def k7_bwd_times(dev, by_path, errs, train, early):
                  library_call="F.scaled_dot_product_attention(is_causal="
                               "True, enable_gqa=True), fp32",
                  shape=f"(B, S, H, KV, hd) = {(B, S, H, KV, hd)} fp32 causal")
+    # roofline shares: the bound over the call's time and over the device
+    # time, against the FP32 CUDA-core peak and against 3xTF32's
+    dev_ms = fwd32["device_ms"]
+    for tag, bms in (("fp32", fwd32["bound_ms"]),
+                     ("3xtf32", fwd32["bound_ms_3xtf32"])):
+        fwd32[f"bound_share_{tag}"] = bms / fms
+        fwd32[f"bound_share_{tag}_device"] = (None if not dev_ms
+                                              else bms / dev_ms)
     del ops, qp, kp, vp, dop, lse, dD, dq, dk, dv
     torch.cuda.empty_cache()
     log(f"  flash_bwd dq / dkv at {(B, S, H, KV, hd)} fp32 causal: "
@@ -2749,6 +2902,8 @@ def main() -> int:
     errs.update(check_slice2_kernels(dev))
     for k, v in check_row_kernels(dev).items():
         errs[k] = max(errs.get(k, 0), v)
+    errs["intersect_count"] = max(errs["intersect_count"],
+                                  check_k5_tiles(dev))
     errs["flash_fwd"] = check_k7(dev)
     bwd_errs, _, bwd_early = check_k7_bwd(dev)
     errs.update(bwd_errs)

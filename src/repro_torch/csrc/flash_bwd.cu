@@ -99,6 +99,12 @@
 
 namespace {
 
+using flash::Cols;
+using flash::cp_async16;
+using flash::cp_async4;
+using flash::cp_async_commit;
+using flash::cp_async_wait0;
+using flash::cp_async_wait1;
 using flash::key_end;
 using flash::live;
 using flash::pack_bf16;
@@ -480,35 +486,6 @@ constexpr int KV_BK = 64;       // dkv: keys per block
 constexpr int KV_BQ = 16 * NJ;  // dkv: q rows per tile
 constexpr int XP = 64 + 4;      // pitch of the transposed dS / P tiles
 
-// cp.async: 16 (or 4) bytes from device into shared memory, zero-filled
-// and reading nothing when !ok
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(hopper::smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(hopper::smem_u32(dst)), "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most one group (the last committed) is still in flight
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait0() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // rows [r0, r0 + N) of a (.., HD) fp32 matrix into a tile of pitch
 // HD + 4, by cp.async; rows at or past `rows` are zero
 template <int HD, int N>
@@ -522,42 +499,6 @@ __device__ __forceinline__ void stage_tile(float* dst, const float* src,
                src + (ok ? static_cast<long long>(r0 + r) * HD + c : 0), ok);
   }
 }
-
-// Each thread's share of an output row of HD columns, as HD / 16 columns
-// in 16-byte chunks where there are four or more: lane group g (0 .. 15)
-// takes chunks g and g + 16 (hd 128) or chunk g (hd 64), else HD / 16
-// adjacent columns.  A warp's loads of one row then cover distinct
-// chunks (no bank conflict).
-template <int HD>
-struct Cols {
-  static constexpr int N = HD / 16;
-  __device__ __forceinline__ static int at(int g, int j) {
-    return N >= 4 ? (j / 4) * 64 + 4 * g + j % 4 : N * g + j;
-  }
-  // the N values of row `row` of a tile of pitch ld at this thread's
-  // columns
-  __device__ __forceinline__ static void load(float (&x)[N], const float* t,
-                                              int ld, int row, int g) {
-    if constexpr (N >= 4) {
-#pragma unroll
-      for (int j = 0; j < N; j += 4) {
-        const float4 v =
-            *reinterpret_cast<const float4*>(t + row * ld + at(g, j));
-        x[j] = v.x;
-        x[j + 1] = v.y;
-        x[j + 2] = v.z;
-        x[j + 3] = v.w;
-      }
-    } else if constexpr (N == 2) {
-      const float2 v =
-          *reinterpret_cast<const float2*>(t + row * ld + at(g, 0));
-      x[0] = v.x;
-      x[1] = v.y;
-    } else {
-      x[0] = t[row * ld + at(g, 0)];
-    }
-  }
-};
 
 // Two score products of a thread's 4 x NJ micro-tile, contracting over HD
 // in order (d = 0, 1, ..: one fmaf chain an output, as the plain

@@ -54,8 +54,26 @@
 //    (32) take 160 registers a thread, and with a third warpgroup, or a
 //    ninth warp, ptxas's budget falls below what the kernel needs and it
 //    serializes every wgmma (flash_bwd.cu).
-//  * fp32 (the tight comparisons): CUDA cores, 256 threads, four per
-//    query row; scores, P and the accumulator in fp32 throughout.
+//  * fp32 (the tight comparisons): CUDA cores, fp32 throughout, one
+//    block of 256 threads per 64 query rows of one head, heads fastest in
+//    the grid.  What bounds it: 4 hd FLOPs a live pair against the 67
+//    TFLOP/s FP32 CUDA-core peak (operations), and beside the FMAs the
+//    shared-memory words that feed them: an SM delivers 32 words a clock
+//    from shared memory against 128 FMAs, so a loop that loads more than a
+//    quarter of a word an FMA is held below the FP32 rate by shared memory
+//    (one load an FMA: near a quarter of it).  Each thread therefore
+//    computes register micro-tiles: 4 rows x 4 keys of S from 16-byte
+//    loads along the head dim (half a word an FMA), then 4 rows x hd / 16
+//    columns of O (3/8 of a word an FMA at hd 128); P goes through shared
+//    memory between the two products.  K / V tiles of 64 keys arrive by
+//    cp.async into two buffers, the next tile's copies in flight under
+//    this tile's products.  The online softmax keeps its 32-key steps (a
+//    64-key tile is two), and every output keeps the rounding sequence of
+//    the earlier design that gave each query row four threads, so the
+//    results are bit-identical to it (see flash_fwd_f32_kernel).  The
+//    shared-memory attribute is set once a process and device
+//    (flash::smem_once), not per launch.
+#include <atomic>
 #include <cstdint>
 #include <type_traits>
 #include <cuda.h>
@@ -370,106 +388,247 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// fp32: CUDA cores
+// fp32: CUDA cores, register micro-tiles, cp.async staging
 // ---------------------------------------------------------------------------
 
-constexpr int BQ32 = 64;    // q rows per block, four threads per row
-constexpr int BK32 = 32;    // keys per tile
-constexpr int T32 = 256;
+constexpr int BQ32 = 64;         // q rows per block
+constexpr int BK32 = 32;         // keys per softmax step: the running max
+//                                  and sum move every 32 keys
+constexpr int KT32 = 2 * BK32;   // keys per staged K / V tile: two steps
+constexpr int T32 = 256;         // eight warps
+constexpr int XP32 = BQ32 + 4;   // pitch of the key-major P tile
 
 template <int HD>
-__global__ void __launch_bounds__(T32)
+struct Fwd32 {
+  static constexpr int LQ = HD + 4;                    // Q, K row pitch
+  static constexpr int OFF_K = BQ32 * LQ;              // [2][KT32][LQ]
+  static constexpr int OFF_V = OFF_K + 2 * KT32 * LQ;  // [2][KT32][HD]
+  static constexpr int OFF_P = OFF_V + 2 * KT32 * HD;  // [KT32][XP32]
+  static constexpr int OFF_S = OFF_P + KT32 * XP32;    // [2 steps][BQ32]
+  static constexpr int SMEM = 4 * (OFF_S + 2 * BQ32);  // bytes
+  static_assert(HD >= 16 && HD % 16 == 0, "head dims 16 .. 128");
+};
+
+// K and V rows [k0, k0 + KT32) into one buffer by cp.async (K at pitch
+// LQ, V at pitch HD), rows at or past sk zero
+template <int HD>
+__device__ __forceinline__ void stage_kv(float* Kb, float* Vb,
+                                         const float* k, const float* v,
+                                         int k0, int sk) {
+  constexpr int CH = HD / 4;               // 16-byte chunks a row
+  for (int i = threadIdx.x; i < KT32 * CH; i += T32) {
+    const int r = i / CH, c = (i % CH) * 4;
+    const bool ok = k0 + r < sk;
+    const long long off = ok ? static_cast<long long>(k0 + r) * HD + c : 0;
+    flash::cp_async16(Kb + r * (HD + 4) + c, k + off, ok);
+    flash::cp_async16(Vb + r * HD + c, v + off, ok);
+  }
+}
+
+// One block per (head, 64-row q tile), the heads fastest in the grid (the
+// G query heads of a KV group run side by side and share K / V in L2) and
+// the heaviest causal tiles first.  Q is staged once; 64-key K / V tiles
+// (two softmax steps) stream through two buffers by cp.async, tile t + 1's
+// copies in flight while tile t is used.  Thread (warp w, lane) owns rows
+// 4 rg .. 4 rg + 3 (rg = 2 w + lane / 16) and, with g = lane % 16, keys
+// g + 16 j of a tile (j < 2: step 0) and O columns Cols<HD>::at(g, .):
+//  * S: a 4 x 4 micro-tile from 16-byte loads along the head dim (8 loads
+//    feed 64 FMAs), one fmaf chain an output over d in order;
+//  * a step's row max over the 16 lanes of the rows (xor 1 .. 8), then
+//    corr = expf(m - mn) and p = expf(s - mn) per step, as before;
+//  * P into a key-major tile; a step's row sum in the grouping of the
+//    kernel that gave each row four threads (thread (row, sub) adds the
+//    keys sub + 4 j of the step in order, then xor 1, then xor 2) by the
+//    warp's (row, sub) threads from that tile, into a step-sum slot;
+//  * l = l * corr + ps rounded twice (a multiply, then an add, as that
+//    kernel compiled), o rescaled by corr at each step and summed over the
+//    step's keys in order: a 4 x hd / 16 micro-tile, each key's four P
+//    values (one 16-byte load) and hd / 16 V columns feeding hd / 4 FMAs.
+// P and the step sums of a row are written and read by its own warp.
+template <int HD>
+__global__ void __launch_bounds__(T32, 1)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ lse, int G, int Sqp, int Skp, int sq,
                      int sk, float scale, int causal) {
-  constexpr int LQ = HD + 1;           // padded rows: no bank conflicts
-  constexpr int DPT = HD / 4;          // head dims per thread (d = sub + 4i)
-  constexpr int KPT = BK32 / 4;        // keys per thread (c = sub + 4j)
-  extern __shared__ __align__(16) char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);   // [BQ32][LQ]
-  float* Ks = Qs + BQ32 * LQ;                   // [BK32][LQ]
-  float* Vs = Ks + BK32 * LQ;                   // [BK32][HD]
-  float* Ps = Vs + BK32 * HD;                   // [BQ32][BK32 + 1]
+  using F = Fwd32<HD>;
+  using C = flash::Cols<HD>;
+  constexpr int LQ = F::LQ;
+  constexpr unsigned ALL = 0xffffffffu;
+  extern __shared__ __align__(16) float smem32[];
+  float* Qs = smem32;                      // [BQ32][LQ]
+  float* Ks = smem32 + F::OFF_K;
+  float* Vs = smem32 + F::OFF_V;
+  float* Ps = smem32 + F::OFF_P;           // P^T: [key][row]
+  float* Ss = smem32 + F::OFF_S;           // step sums: [step][row]
 
-  const int nq = gridDim.x;
-  const int qt = nq - 1 - blockIdx.x;
-  const int h = blockIdx.y;
+  const int h = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ32;
   const long long qbase = static_cast<long long>(h) * Sqp * HD;
-  const long long kbase = static_cast<long long>(h / G) * Skp * HD;
-  const int q0 = qt * BQ32;
-  const int rl = threadIdx.x >> 2, sub = threadIdx.x & 3;
-  const int row = q0 + rl;
-
-  for (int i = threadIdx.x; i < BQ32 * HD; i += T32) {
-    const int r = i / HD, c = i % HD;
-    Qs[r * LQ + c] = q0 + r < Sqp
-        ? q[qbase + static_cast<long long>(q0 + r) * HD + c] : 0.f;
-  }
-  float acc[DPT];
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
-  float m = NEG, l = 0.f;
-
+  const float* kh = k + static_cast<long long>(h / G) * Skp * HD;
+  const float* vh = v + static_cast<long long>(h / G) * Skp * HD;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = 2 * warp + (lane >> 4);   // rows 4 rg .. 4 rg + 3
+  const int g = lane & 15;                 // keys g + 16 j; column group
+  const int srow = 8 * warp + (lane >> 2); // the row-sum pass: row, sub
+  const int sub = lane & 3;
   const int kend = key_end(q0, BQ32, sq, sk, causal);
-  for (int kb = 0; kb < kend; kb += BK32) {
-    __syncthreads();                   // Qs written / last tile consumed
-    for (int i = threadIdx.x; i < BK32 * HD; i += T32) {
-      const int r = i / HD, c = i % HD;
-      float kx = 0.f, vx = 0.f;
-      if (kb + r < sk) {
-        const long long off = kbase + static_cast<long long>(kb + r) * HD + c;
-        kx = k[off];
-        vx = v[off];
-      }
-      Ks[r * LQ + c] = kx;
-      Vs[r * HD + c] = vx;
-    }
-    __syncthreads();
-    float s[KPT];
-#pragma unroll
-    for (int j = 0; j < KPT; ++j) s[j] = 0.f;
-    for (int d = 0; d < HD; ++d) {
-      const float qd = Qs[rl * LQ + d];
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) s[j] = fmaf(qd, Ks[(sub + 4 * j) * LQ + d], s[j]);
-    }
-    float mx = NEG;
-#pragma unroll
-    for (int j = 0; j < KPT; ++j) {
-      s[j] = live(row, kb + sub + 4 * j, sq, sk, causal) ? s[j] * scale : NEG;
-      mx = fmaxf(mx, s[j]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float mn = fmaxf(m, mx);
-    const float corr = expf(m - mn);
-    m = mn;
-    float ps = 0.f;
-#pragma unroll
-    for (int j = 0; j < KPT; ++j) {
-      const float p = expf(s[j] - mn);
-      ps += p;
-      Ps[rl * (BK32 + 1) + sub + 4 * j] = p;
-    }
-    ps += __shfl_xor_sync(0xffffffffu, ps, 1);
-    ps += __shfl_xor_sync(0xffffffffu, ps, 2);
-    l = l * corr + ps;
-    __syncwarp();                      // a row's P: written and read in-warp
-#pragma unroll
-    for (int i = 0; i < DPT; ++i) acc[i] *= corr;
-    for (int c = 0; c < BK32; ++c) {
-      const float p = Ps[rl * (BK32 + 1) + c];
-#pragma unroll
-      for (int i = 0; i < DPT; ++i) acc[i] = fmaf(p, Vs[c * HD + sub + 4 * i], acc[i]);
+  const int nt = (kend + KT32 - 1) / KT32;
+
+  {
+    constexpr int CH = HD / 4;
+    for (int i = threadIdx.x; i < BQ32 * CH; i += T32) {
+      const int r = i / CH, c = (i % CH) * 4;
+      const bool ok = q0 + r < Sqp;
+      flash::cp_async16(
+          Qs + r * LQ + c,
+          q + qbase + (ok ? static_cast<long long>(q0 + r) * HD + c : 0), ok);
     }
   }
-  l = fmaxf(l, 1e-30f);
-  if (row < Sqp) {
+  if (nt > 0) stage_kv<HD>(Ks, Vs, kh, vh, 0, sk);
+  flash::cp_async_commit();
+
+  float acc[4][C::N];
 #pragma unroll
-    for (int i = 0; i < DPT; ++i)
-      o[qbase + static_cast<long long>(row) * HD + sub + 4 * i] = acc[i] / l;
-    if (sub == 0) lse[static_cast<long long>(h) * Sqp + row] = m + logf(l);
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int x = 0; x < C::N; ++x) acc[i][x] = 0.f;
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG;
+    l[i] = 0.f;
+  }
+
+  for (int t = 0; t < nt; ++t) {
+    if (t + 1 < nt)
+      stage_kv<HD>(Ks + ((t + 1) & 1) * KT32 * LQ,
+                   Vs + ((t + 1) & 1) * KT32 * HD, kh, vh, (t + 1) * KT32,
+                   sk);
+    flash::cp_async_commit();
+    flash::cp_async_wait1();               // tile t (and Q) landed
+    __syncthreads();
+    const float* Kt = Ks + (t & 1) * KT32 * LQ;
+    const float* Vt = Vs + (t & 1) * KT32 * HD;
+    const int kb = t * KT32;
+    const bool two = kb + BK32 < kend;     // step 1 is visited
+
+    // S of rows 4 rg + i and keys kb + g + 16 j, over d in order
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < HD; d += 4) {
+      float4 a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = *reinterpret_cast<const float4*>(Qs + (4 * rg + i) * LQ + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        b[j] = *reinterpret_cast<const float4*>(Kt + (g + 16 * j) * LQ + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
+          s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
+          s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
+          s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
+        }
+    }
+
+    // scale and mask; each step's running max (exact in any order) and
+    // corr; P = expf(s - max) of the key's step
+    float corr[2][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + 4 * rg + i;
+      float mx[2] = {NEG, NEG};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = live(row, kb + g + 16 * j, sq, sk, causal)
+                      ? s[i][j] * scale : NEG;
+        mx[j >> 1] = fmaxf(mx[j >> 1], s[i][j]);
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) {
+        mx[0] = fmaxf(mx[0], __shfl_xor_sync(ALL, mx[0], off));
+        mx[1] = fmaxf(mx[1], __shfl_xor_sync(ALL, mx[1], off));
+      }
+      const float mn0 = fmaxf(m[i], mx[0]);
+      corr[0][i] = expf(m[i] - mn0);
+      float mn1 = mn0;
+      corr[1][i] = 1.f;
+      if (two) {
+        mn1 = fmaxf(mn0, mx[1]);
+        corr[1][i] = expf(mn0 - mn1);
+      }
+      m[i] = mn1;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = expf(s[i][j] - (j < 2 ? mn0 : mn1));
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(Ps + (g + 16 * j) * XP32 + 4 * rg) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    __syncwarp();                          // the warp's rows of P written
+
+    // each step's row sums: thread (srow, sub) adds keys sub + 4 u of the
+    // step in order, then the row's four threads meet by xor 1, xor 2
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+      if (st == 1 && !two) break;
+      float ps = 0.f;
+#pragma unroll
+      for (int u = 0; u < BK32 / 4; ++u)
+        ps += Ps[(st * BK32 + sub + 4 * u) * XP32 + srow];
+      ps += __shfl_xor_sync(ALL, ps, 1);
+      ps += __shfl_xor_sync(ALL, ps, 2);
+      if (sub == 0) Ss[st * BQ32 + srow] = ps;
+    }
+    __syncwarp();                          // the warp's step sums written
+
+    // l and O, step by step: rescaled, then the step's keys in order
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+      if (st == 1 && !two) break;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        l[i] = __fadd_rn(__fmul_rn(l[i], corr[st][i]),
+                         Ss[st * BQ32 + 4 * rg + i]);
+#pragma unroll
+        for (int x = 0; x < C::N; ++x) acc[i][x] *= corr[st][i];
+      }
+#pragma unroll 4
+      for (int c = st * BK32; c < (st + 1) * BK32; ++c) {
+        const float4 p = *reinterpret_cast<const float4*>(Ps + c * XP32 +
+                                                          4 * rg);
+        const float pr[4] = {p.x, p.y, p.z, p.w};
+        float vx[C::N];
+        C::load(vx, Vt, HD, c, g);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int x = 0; x < C::N; ++x)
+            acc[i][x] = fmaf(pr[i], vx[x], acc[i][x]);
+      }
+    }
+    __syncthreads();                       // buffer t & 1 free
+  }
+  flash::cp_async_wait0();
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * rg + i;
+    const float li = fmaxf(l[i], 1e-30f);
+    if (row < Sqp) {
+      float* out = o + qbase + static_cast<long long>(row) * HD;
+#pragma unroll
+      for (int x = 0; x < C::N; ++x) out[C::at(g, x)] = acc[i][x] / li;
+      if (g == 0) lse[static_cast<long long>(h) * Sqp + row] = m[i] + logf(li);
+    }
   }
 }
 
@@ -506,14 +665,15 @@ static cudaError_t dispatch(int dtype, int heads, int G, int Sqp, int Skp,
   if (dtype == 1)
     return launch_bf16<HD>(heads, G, Sqp, Skp, sq, sk, scale, causal, stream,
                            q, k, v, o, lse);
-  const dim3 grid((Sqp + BQ32 - 1) / BQ32, heads);
-  const int smem = 4 * (BQ32 * (HD + 1) + BK32 * (HD + 1) + BK32 * HD +
-                        BQ32 * (BK32 + 1));
+  using F = Fwd32<HD>;
+  if ((Sqp + BQ32 - 1) / BQ32 > 65535) return cudaErrorInvalidValue;
   auto kern = flash_fwd_f32_kernel<HD>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static std::atomic<unsigned long long> smem_set{0};
+  const cudaError_t e = flash::smem_once(kern, F::SMEM, smem_set);
   if (e != cudaSuccess) return e;
-  kern<<<grid, T32, smem, stream>>>(
+  // heads fastest: the heaviest q tiles of every head go out first
+  const dim3 grid(heads, (Sqp + BQ32 - 1) / BQ32);
+  kern<<<grid, T32, F::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, G, Sqp, Skp,
       sq, sk, scale, causal);

@@ -1,7 +1,8 @@
 // Row helpers shared by the AND+popcount kernels (fused_check.cu,
 // fused_select.cu, intersect_count.cu).
 //
-// The row-tile design of K1 (fused_check.cu) and K4 (fused_select.cu):
+// The row-tile design of K1 (fused_check.cu), K4 (fused_select.cu) and K5
+// (intersect_count.cu):
 //
 //   * Tiles.  A CTA owns `rows` consecutive row positions of one lane
 //     (grid (ceil(n / rows), lanes)); `rows` is a multiple of 32, so a
@@ -21,24 +22,22 @@
 //     of them (at most LOADS units at once), so a tile costs one round of
 //     dependent global loads, not one per row.  No shared-memory copy of
 //     the mask and no barrier before counting.
-//   * The fold across CTAs (fold_flag, fold_key).  Each CTA folds its own
-//     result, then one thread ORs it (K1) or max-combines its inverted
-//     key (K4) into the lane's slot of a scratch buffer and takes a ticket
-//     (atomicAdd after __threadfence); the lane's last CTA reads the slot
-//     back, writes the output, and resets the slot and the ticket to 0.
-//     The scratch is a zeroed int32 buffer the wrapper allocates once per
-//     (device, stream) (dispatch.row_scratch) and the kernels leave zeroed
-//     after every launch, so a call is one kernel and allocates nothing.
-//     Launches on one stream run in order; another stream has its own
-//     buffer.  OR and max do not depend on the order in which CTAs
-//     arrive, so the outputs are deterministic.
+//   * The fold across CTAs (fold_flag, fold_key; K1 and K4 only).  Each
+//     CTA folds its own result, then one thread ORs it (K1) or
+//     max-combines its inverted key (K4) into the lane's slot of a scratch
+//     buffer and takes a ticket (atomicAdd after __threadfence); the
+//     lane's last CTA reads the slot back, writes the output, and resets
+//     the slot and the ticket to 0.  The scratch is a zeroed int32 buffer
+//     the wrapper allocates once per (device, stream) (dispatch.row_scratch)
+//     and the kernels leave zeroed after every launch, so a call is one
+//     kernel and allocates nothing.  Launches on one stream run in order;
+//     another stream has its own buffer.  OR and max do not depend on the
+//     order in which CTAs arrive, so the outputs are deterministic.  K5
+//     writes each row's count where it is counted and needs no fold.
 //
-// What bounds K1 and K4 now: at the engines' sizes (<= 2 x 1024 rows of
-// <= 128 words) the launch latency and the one round of loads, a few
+// What bounds K1, K4 and K5 now: at the engines' sizes (<= 2 x 1024 rows
+// of <= 128 words) the launch latency and the one round of loads, a few
 // microseconds; the rows read (bytes) only far past the residency gate.
-//
-// intersect_count.cu (K5) keeps the older form: `group_count` over a
-// mask in shared memory, `group` from dispatch.plan_blocks.
 #pragma once
 
 #include <cstdint>
@@ -62,21 +61,7 @@ __device__ __forceinline__ int gather(const int* idx, long long i,
   return r < 0 ? 0 : (r >= n_adj ? n_adj - 1 : r);
 }
 
-// popcount(a & m) over w words by a group of G threads; every lane of
-// the group gets the sum.  `live` false contributes 0 (the shuffle still
-// runs).  K5's form: every thread of a warp must reach the shuffle.
-__device__ __forceinline__ uint32_t group_count(const uint32_t* a,
-                                                const uint32_t* m, int w,
-                                                int gl, int G, bool live) {
-  uint32_t sum = 0;
-  if (live)
-    for (int k = gl; k < w; k += G) sum += __popc(a[k] & m[k]);
-  for (int off = G >> 1; off > 0; off >>= 1)
-    sum += __shfl_xor_sync(FULL, sum, off);
-  return sum;
-}
-
-// ---- the row-tile pass of K1 and K4 ---------------------------------------
+// ---- the row-tile pass of K1, K4 and K5 ----------------------------------
 
 template <bool VEC>
 struct Units;

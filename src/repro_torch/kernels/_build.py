@@ -89,17 +89,14 @@ def _build(out: pathlib.Path) -> None:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    # K1 and K4 take one packed argument block (fused_check/ops.py and
-    # fused_select/ops.py: _ARGS), passed as the bytes object's buffer
-    for fn in (lib.rt_fused_check, lib.rt_fused_select):
+    P, I = ctypes.c_void_p, ctypes.c_int
+    # K1, K4 and K5 take one packed argument block (fused_check/ops.py,
+    # fused_select/ops.py and intersect_count/ops.py: _ARGS), passed as the
+    # bytes object's buffer
+    for fn in (lib.rt_fused_check, lib.rt_fused_select,
+               lib.rt_intersect_count):
         fn.restype = I
         fn.argtypes = [ctypes.c_char_p]
-    lib.rt_intersect_count.restype = I
-    lib.rt_intersect_count.argtypes = [
-        P, LL, I, P, P, P,              # adj, adj stride, n_adj, mask, idx,
-        #                                 counts
-        I, I, I, I, I, P]               # batch, n, w, threads, group, stream
     # the lane kernels take one LaneArgs struct by pointer, the launch's
     # sequence number and the stream
     for fn in (lib.rt_resident_step, lib.rt_resident_pool):
@@ -152,8 +149,3 @@ def check(rc: int, what: str) -> None:
 def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
-
-
-def ptr(t) -> int | None:
-    """Device address of an optional tensor operand (None -> NULL)."""
-    return None if t is None else t.data_ptr()

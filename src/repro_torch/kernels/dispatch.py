@@ -12,11 +12,11 @@ the tensors instead of the JAX default backend:
 * ``"auto"``   — ``"pallas"`` on a CUDA tensor, ``"jnp"`` on a CPU one.
 
 ``plan_rows`` is the Hopper launch plan of the row-tile kernels K1
-(``fused_check``) and K4 (``fused_select``): rows a CTA, threads, the
-thread group that reduces one adjacency row and how a thread walks it
-(see ``csrc/rows.cuh``); ``row_scratch`` the zeroed per-lane slots their
-cross-CTA fold uses; ``Outputs`` one allocation for a call's outputs.
-``plan_blocks`` is the older plan K5 (``intersect_count``) keeps.
+(``fused_check``), K4 (``fused_select``) and K5 (``intersect_count``):
+rows a CTA, threads, the thread group that reduces one adjacency row and
+how a thread walks it (see ``csrc/rows.cuh``); ``row_scratch`` the zeroed
+per-lane slots the cross-CTA fold of K1 and K4 uses; ``Outputs`` one
+allocation for a call's outputs.
 ``expect`` and ``lane_layout`` are the operand checks every wrapper makes
 before a launch; ``take_rows`` is the gather rule of the ``idx``
 (compact-array) kinds.
@@ -122,24 +122,11 @@ def lane_layout(adj: torch.Tensor, lead: tuple, what: str) -> tuple[int, int]:
                      f"dims {lead}")
 
 
-class LaunchPlan(NamedTuple):
-    threads: int        # threads per block (a multiple of 32)
-    group: int          # threads reducing one row (power of two <= 32)
-
-
 def _pow2_ceil(n: int) -> int:
     return 1 << max(int(n) - 1, 0).bit_length()
 
 
-def plan_blocks(w: int, threads: int = 256) -> LaunchPlan:
-    """Launch plan for an AND+popcount pass over rows of ``w`` words:
-    ``group`` lanes share one row so that narrow rows (w < 32 words) do
-    not idle most of a warp and wide rows read coalesced,
-    ``threads / group`` rows in flight per block."""
-    return LaunchPlan(threads=threads, group=min(WARP, _pow2_ceil(max(w, 1))))
-
-
-# ---- the row-tile kernels K1 and K4 (csrc/rows.cuh) ------------------------
+# ---- the row-tile kernels K1, K4 and K5 (csrc/rows.cuh) -------------------
 
 ROW_TILE = 32           # rows a CTA (chip_smoke.py's sweep, PERF.md)
 ROW_THREADS = 256       # threads a CTA, at most (the same sweep)
@@ -170,7 +157,7 @@ class RowPlan(NamedTuple):
 def plan_rows(n: int, w: int, lanes: int, vec: bool = True,
               rows: int = ROW_TILE,
               max_threads: int | None = None) -> RowPlan:
-    """Launch plan of K1 / K4 over ``lanes`` lanes of ``n`` rows of ``w``
+    """Launch plan of K1 / K4 / K5 over ``lanes`` lanes of ``n`` rows of ``w``
     words (``vec``: the operands allow 16-byte loads; it also needs
     ``w % 4 == 0``).  ``rows`` (a tile) and ``max_threads`` are the sweep's
     knobs (by default ROW_THREADS, or ROW_THREADS_LONG where a thread
@@ -206,7 +193,7 @@ def plan_rows(n: int, w: int, lanes: int, vec: bool = True,
 
 
 def aligned16(adj: torch.Tensor, mask: torch.Tensor, w: int) -> bool:
-    """Whether K1 / K4 may read 16-byte units: w % 4 == 0 (every row and
+    """Whether K1 / K4 / K5 may read 16-byte units: w % 4 == 0 (every row and
     per-lane block then starts on 16 bytes) and both bases aligned."""
     return w % 4 == 0 and adj.data_ptr() % 16 == 0 \
         and mask.data_ptr() % 16 == 0

@@ -471,3 +471,88 @@ def test_row_kernels_one_device_kernel_per_call(card):
             else "fused_select_kernel"
         assert sum(seen.values()) == 5 and all(name in k for k in seen), \
             (fn.__name__, seen)
+
+
+# -- K5 on the row tiles ----------------------------------------------------
+
+K5_NS = [1, 31, 32, 33, 63, 64, 65, 512, 1024]
+K5_WS = [1, 5, 64]
+
+
+def _k5_case(n, w, lanes, per_lane, seed, dev, unaligned=False):
+    """K5 operands (as chip_smoke.py's ``k5_operands``): ``lanes`` lanes
+    (0: no lane dim), an idx with negative and out-of-range entries;
+    ``unaligned`` puts adj and mask 4 bytes past a 16-byte boundary."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    L = max(lanes, 1)
+
+    def words(*shape):
+        x = torch.randint(-(1 << 31), 1 << 31, shape, generator=g,
+                          device=dev, dtype=torch.int32)
+        x &= torch.randint(-(1 << 31), 1 << 31, shape, generator=g,
+                           device=dev, dtype=torch.int32)
+        if unaligned:
+            buf = torch.empty(x.numel() + 4, dtype=torch.int32, device=dev)
+            buf[1:1 + x.numel()].view(shape).copy_(x)
+            x = buf[1:1 + x.numel()].view(shape)
+        return x
+    adj = words(L if per_lane else 1, n, w)
+    mask = words(L, w)
+    adj[:, ::7] |= mask[:, None, :] if per_lane else mask[:1, None, :]
+    idx = torch.argsort(torch.rand(L, n, generator=g, device=dev),
+                        dim=-1).to(torch.int32)
+    edge = torch.tensor([-1, -n, -n - 3, n, n + 5, -(1 << 30), 1 << 30],
+                        dtype=torch.int32, device=dev)[:n]
+    idx[:, :len(edge)] = edge
+    a = adj if per_lane else adj[0]
+    if lanes == 0:
+        return a, mask[0], idx[0].contiguous()
+    return a, mask, idx.contiguous()
+
+
+@pytest.mark.parametrize("w", K5_WS)
+@pytest.mark.parametrize("n", K5_NS)
+def test_intersect_count_at_tile_edges_matches_plain(card, n, w):
+    """K5 at n across the 32-row tiles' edges, w % 4 != 0 and w = 1 (one-
+    word loads) and 16-byte units, no lane dim and 1 to 3 lanes with
+    shared and per-lane adjacency, rows in order and through idx, and
+    operands off 16-byte boundaries."""
+    for lanes, per_lane in ((0, False), (1, True), (2, False), (3, True)):
+        a, m, i = _k5_case(n, w, lanes, per_lane, n + w + lanes, card)
+        for ix in (None, i):
+            got = intersect_count(a, m, idx=ix, impl="pallas")
+            want = intersect_count(a, m, idx=ix, impl="jnp")
+            assert torch.equal(got, want), (n, w, lanes, per_lane, ix is None)
+    a, m, i = _k5_case(n, 64, 2, True, n, card, unaligned=True)
+    assert a.data_ptr() % 16 and m.data_ptr() % 16
+    assert torch.equal(intersect_count(a, m, idx=i, impl="pallas"),
+                       intersect_count(a, m, idx=i, impl="jnp"))
+
+
+def test_intersect_count_past_the_residency_gate(card):
+    """2 lanes of 26,000 rows of 813 words: one-word loads, a row walked
+    in 4 chunks."""
+    a, m, i = _k5_case(26_000, 813, 2, False, 5, card)
+    for ix in (None, i):
+        assert torch.equal(intersect_count(a, m, idx=ix, impl="pallas"),
+                           intersect_count(a, m, idx=ix, impl="jnp"))
+
+
+def test_intersect_count_one_device_kernel_per_call(card):
+    from torch.profiler import ProfilerActivity, profile
+    a, m, i = _k5_case(512, 64, 2, True, 3, card)
+    n = intersect_count.launches
+    intersect_count(a, m, idx=i, impl="pallas")
+    torch.cuda.synchronize()
+    # CPU activity beside CUDA, as chip_smoke.py's profile_window: a
+    # CUDA-only window has dropped a kernel of the five on the card
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            intersect_count(a, m, idx=i, impl="pallas")
+        torch.cuda.synchronize()
+    seen = {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert sum(seen.values()) == 5 and all(
+        "intersect_count_kernel" in k for k in seen), seen
+    assert intersect_count.launches == n + 6

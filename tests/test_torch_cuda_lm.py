@@ -149,3 +149,27 @@ def test_prefill_kernel_path_matches_torch_op_path(card, dtype):
         nxt = make_prefill_step(dataclasses.replace(base, attn_impl="pallas"))(
             params, dict(tokens=toks))
         assert nxt.tolist() == out["xla"][:, -1].argmax(-1).tolist()
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal", [
+    (2, 1000, 16, 8, 128, True), (1, 4097, 16, 8, 128, True),
+    (2, 1000, 12, 4, 64, True), (2, 300, 6, 2, 32, True),
+    (2, 333, 6, 2, 16, True), (2, 256, 8, 2, 128, False),
+    (1, 97, 6, 2, 64, False), (2, 130, 4, 4, 16, False)])
+def test_flash_fwd_fp32_micro_tiles_match_plain(card, B, S, H, KV, hd,
+                                                causal):
+    """The fp32 forward (register micro-tiles, two 32-key softmax steps a
+    64-key tile) at every head dim, ragged S (a tile's second step past
+    the keys), G = 3 and non-causal; bit-identical run to run."""
+    qp, kp, vp = _packed(card, B, S, H, KV, hd, torch.float32, 4, S + 7)
+    kw = dict(causal=causal, scale=hd ** -0.5, sq=S, sk=S)
+    o, lse = flash_fwd(qp, kp, vp, **kw)
+    o2, lse2 = flash_fwd(qp, kp, vp, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    ro, rl = flash_fwd_ref(qp, kp, vp, **kw)
+    torch.testing.assert_close(o[..., :S, :], ro[..., :S, :], rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(lse[..., :S], rl[..., :S], rtol=1e-4,
+                               atol=1e-4)
+    assert _row_rel(o[..., :S, :], ro[..., :S, :]) <= 1e-5
