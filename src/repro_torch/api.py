@@ -13,12 +13,15 @@ port-only field, ``device`` (default ``"cuda"``), threaded through the
 server, the executor and the engine.  ``device="cuda"`` without a card
 raises; nothing continues on the CPU in its place.
 
-The port serves the ``dense`` and ``compact`` engines on the local route.
-Options that need unported parts raise ``NotImplementedError`` naming the
-ROADMAP Queue 1 item that ports them when set to anything but their
-default: ``engine`` ``"count"`` or ``"mce"`` (item 7), ``mesh`` and
-``big_graph_threshold`` (item 8), ``admission`` and ``trace_path``
-(item 9), ``retry`` and ``fault_injector`` (item 10).
+The port serves every registered engine (``dense``, ``compact``,
+``count``, ``mce``) on the local route and on the work-stealing
+big-graph route (``big_graph_threshold``, ``big_workers``,
+``work_stealing``: the routed graph's root tasks on ``big_workers``
+workers of the one device).  Options that need unported parts raise
+``NotImplementedError`` naming the ROADMAP Queue 1 item that ports them
+when set to anything but their default: ``mesh`` (several devices, the
+rest of item 8), ``admission`` and ``trace_path`` (item 9), ``retry``
+and ``fault_injector`` (item 10).
 """
 from __future__ import annotations
 
@@ -37,10 +40,10 @@ from repro_torch.serving.scheduler import MBEServer, imbalance
 
 # (option, ROADMAP Queue 1 item) of the reference options the port does
 # not serve yet: any value but the default raises
-_NOT_YET = (("mesh", 8), ("big_graph_threshold", 8), ("admission", 9),
-            ("trace_path", 9), ("retry", 10), ("fault_injector", 10))
-# reference engines still to port (ROADMAP Queue 1 item 7)
-_ENGINES_NOT_YET = ("count", "mce")
+_NOT_YET = (("mesh", "the rest of item 8: lane pools and the big lane "
+                     "over several devices"),
+            ("admission", "item 9"), ("trace_path", "item 9"),
+            ("retry", "item 10"), ("fault_injector", "item 10"))
 
 
 def engines() -> list[str]:
@@ -100,16 +103,12 @@ class MBEOptions:
     #                               fallback), the tests pass 'cpu'
 
     def __post_init__(self):
-        if self.engine in _ENGINES_NOT_YET:
-            raise NotImplementedError(
-                f"engine {self.engine!r} is not ported yet (ROADMAP "
-                f"Queue 1 item 7); the port serves {list_engines()}")
         get_engine(self.engine)
         for name, item in _NOT_YET:
             if getattr(self, name) is not None:
                 raise NotImplementedError(
                     f"MBEOptions({name}=...) is not ported yet "
-                    f"(ROADMAP Queue 1 item {item})")
+                    f"(ROADMAP Queue 1 {item})")
 
     def engine_params(self) -> dict:
         return dict(count_pq=(self.count_p, self.count_q))

@@ -3,10 +3,10 @@
 Twin of ``src/repro/configs/__init__.py``.  Each module defines CONFIG
 (the exact published config) and SMOKE (a reduced same-family config for
 CPU tests); the modules are copies of the reference's, pure data.
-``input_specs`` (the dry-run's abstract inputs) and the cache sizing
-``round_up`` / ``cache_len`` wait for the dry run (ROADMAP Queue 1
-item 12), and ``cumbe`` for the distributed runner whose
-``DistConfig`` it holds (Queue 1 item 8).
+``cumbe`` is the paper's own workload (an ``MBEWorkload``, not a
+``ModelConfig``).  ``input_specs`` (the dry-run's abstract inputs) and
+the cache sizing ``round_up`` / ``cache_len`` wait for the dry run
+(ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -34,10 +34,6 @@ ARCH_IDS = [k for k in _MODULES if k != "cumbe"]
 def _mod(arch: str):
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
-    if arch == "cumbe":
-        raise NotImplementedError(
-            "the cumbe workload holds the distributed runner's DistConfig, "
-            "not ported yet (ROADMAP Queue 1 item 8)")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
 
 

@@ -4,9 +4,11 @@ Twin of ``src/repro/core/engine.py``.  The serving stack drives engines
 only through the ``Engine`` ABC: constructors (``make_context``,
 ``init_state``, ``dummy_context``, ``config``), the resumable stepper
 (``run``/``run_batch``) and the result schema (``finish``/``partial``/
-``counters``/``make_result``).  Registered: ``dense`` (bitmask stacks,
-with resident kernels) and ``compact`` (the paper's compact array); the
-``count`` and ``mce`` engines are still to port (ROADMAP Queue 1 item 7).
+``counters``/``stacked_counters``/``finish_workers``/``make_result``).
+Registered: ``dense`` (bitmask stacks, with resident kernels),
+``compact`` (the paper's compact array), and, lazily on the first lookup
+that misses, ``count`` ((p,q)-biclique counting) and ``mce`` (maximal
+cliques of unipartite embeds).
 
 ``Engine.run``/``run_batch`` are the twin of the reference's generic
 ``lax.while_loop`` driver: the shared lane-batched host loop
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import abc
 import dataclasses
+import importlib
 
 import numpy as np
 import torch
@@ -131,6 +134,17 @@ class Engine(abc.ABC):
         return dict(n_max=int(s.n_max), cs=int(s.cs) % _U32_MOD,
                     nodes=int(s.nodes), steps=int(s.steps))
 
+    def stacked_counters(self, stacked) -> dict:
+        """``counters`` summed over a leading worker axis (the big-graph
+        lane's stacked state); the fingerprint is an order-independent
+        uint32 sum, so the worker-wise sum is the serial value."""
+        def total(x):
+            return int(x.to(torch.int64).sum())
+        return dict(n_max=total(stacked.n_max),
+                    cs=int((stacked.cs.to(torch.int64) & 0xFFFFFFFF).sum())
+                    % _U32_MOD,
+                    nodes=total(stacked.nodes), steps=total(stacked.steps))
+
     def finish(self, cfg: EngineConfig, s, *, n_u: int, n_v: int,
                swapped: bool = False, collect: bool = False) -> dict:
         """Result payload for ONE completed lane state."""
@@ -142,6 +156,35 @@ class Engine(abc.ABC):
                 bic = [(R, L) for L, R in bic]
             out["bicliques"] = bic
             out["truncated"] = int(s.n_max) > int(s.out_n)
+        return out
+
+    def _collect_workers(self, cfg: EngineConfig, stacked, n_workers: int,
+                         n_u: int, n_v: int) -> tuple[list, bool]:
+        """Every worker's decoded collect buffer, concatenated, and
+        whether any worker's buffer overflowed."""
+        out, truncated = [], False
+        n_max = stacked.n_max.tolist()
+        out_n = stacked.out_n.tolist()
+        for w in range(n_workers):
+            ws = type(stacked)(*[x[w] for x in stacked])
+            out.extend(self.collected(cfg, ws, n_u, n_v))
+            truncated |= n_max[w] > out_n[w]
+        return out, truncated
+
+    def finish_workers(self, cfg: EngineConfig, stacked, n_workers: int,
+                       *, n_u: int, n_v: int, swapped: bool = False,
+                       collect: bool = False) -> dict:
+        """Result payload for a completed big-graph lane: counters summed
+        across the stacked worker states, collect buffers concatenated."""
+        out = self.stacked_counters(stacked)
+        out.update(bicliques=None, truncated=False)
+        if collect:
+            bic, truncated = self._collect_workers(cfg, stacked, n_workers,
+                                                   n_u, n_v)
+            if swapped:
+                bic = [(R, L) for L, R in bic]
+            out["bicliques"] = bic
+            out["truncated"] = truncated
         return out
 
     def partial(self, counters: dict | None,
@@ -246,6 +289,16 @@ class CompactEngine(Engine):
 
 _REGISTRY: dict[str, Engine] = {}
 
+# built-in engines that register themselves on import; loaded lazily so
+# this module (which they import) stays cycle-free
+_BUILTIN_MODULES = ("repro_torch.core.engine_count",
+                    "repro_torch.core.engine_mce")
+
+
+def _load_builtins() -> None:
+    for mod in _BUILTIN_MODULES:
+        importlib.import_module(mod)
+
 
 def register_engine(engine: Engine, *, override: bool = False) -> Engine:
     """Register an engine under its ``name`` (duplicates raise unless
@@ -263,6 +316,8 @@ def get_engine(engine: str | Engine) -> Engine:
     """Resolve a registry name (or pass an ``Engine`` through)."""
     if isinstance(engine, Engine):
         return engine
+    if engine not in _REGISTRY:
+        _load_builtins()
     try:
         return _REGISTRY[engine]
     except KeyError:
@@ -271,6 +326,8 @@ def get_engine(engine: str | Engine) -> Engine:
 
 
 def list_engines() -> list[str]:
+    """Names of every registered engine (built-ins included)."""
+    _load_builtins()
     return sorted(_REGISTRY)
 
 

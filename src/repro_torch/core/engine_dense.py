@@ -136,7 +136,7 @@ class DenseState(NamedTuple):
 
 # leaves that hold packed words (uint32 at the NumPy boundary)
 WORD_LEAVES = frozenset(("adj", "l_root", "lmask", "pmask", "qmask",
-                         "rmask", "cs", "out_l", "out_r"))
+                         "rmask", "xmask", "cs", "out_l", "out_r"))
 
 
 # ---------------------------------------------------------------------------

@@ -1,2 +1,2 @@
 """Launchers of the port (twin of ``src/repro/launch``): the LM mode of
-``serve``."""
+``serve``, ``train`` and the work-stealing MBE launcher ``mbe_run``."""

@@ -1,13 +1,16 @@
 """Pluggable execution backends for the MBE serving layer.
 
 Twin of ``src/repro/serving/executor.py``: ``LanePool``,
-``RoundTelemetry``, the ``Executor`` interface and ``LocalExecutor``
+``RoundTelemetry``, the ``Executor`` interface, ``LocalExecutor``
 (single-device lane pools, one lane per graph, one cached ``run_batch``
-callable per ``(bucket, batch, budget)``).  The scheduler speaks only
-this interface.
+callable per ``(bucket, batch, budget)``) and ``BigGraphLane`` (one
+heavy graph's root tasks strided over ``big_workers`` workers on the
+executor's device, pending tasks stolen at round barriers: the paper's
+work stealing between thread blocks).  The scheduler speaks only this
+interface.
 
-Not in this slice: ``ShardedExecutor`` and ``BigGraphLane`` (ROADMAP
-Queue 1 item 8); ``big_lane`` raises ``NotImplementedError``.
+Not in this slice: ``ShardedExecutor`` (lane pools and the big lane over
+several devices, the rest of ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -17,11 +20,19 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import distributed as dd
 from repro_torch.core import engine_dense as ed
 from repro_torch.core.engine import DENSE, Engine
 from repro_torch.kernels.dispatch import check_device
 from repro_torch.serving.buckets import BucketPolicy, plan_batch_size
 from repro_torch.serving.cache import ExecutableCache
+
+# Round budget for the big-graph lane when the bucket policy runs
+# unbounded rounds (steps_per_round == 0): work stealing only happens at
+# round barriers, so the big lane must stay bounded even in flush mode.
+DEFAULT_BIG_ROUND_STEPS = 2048
+# the reference's serving mesh axis, named in the big lane's placement
+MBE_LANE_AXIS = "mbe_lanes"
 
 
 def _stack(items):
@@ -123,10 +134,12 @@ class Executor(abc.ABC):
     def placement(self, n_lanes: int) -> str:
         """Human-readable lane placement for the routing log."""
 
-    def big_lane(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the work-stealing big-graph lane is not ported yet "
-            "(ROADMAP Queue 1 item 8)")
+    @abc.abstractmethod
+    def big_lane(self, cfg: ed.EngineConfig, ctx, n_roots: int,
+                 cache: ExecutableCache, budget: int | None,
+                 engine: Engine | None = None,
+                 steps_per_call: int = 1) -> "BigGraphLane":
+        """Work-stealing lane for one routed-big graph on this backend."""
 
 
 class LocalExecutor(Executor):
@@ -157,3 +170,81 @@ class LocalExecutor(Executor):
 
     def placement(self, n_lanes: int) -> str:
         return f"1 device x {n_lanes} vmap lanes"
+
+    def big_lane(self, cfg, ctx, n_roots, cache, budget, engine=None,
+                 steps_per_call=1):
+        return BigGraphLane(self.name, cfg, self.device, MBE_LANE_AXIS,
+                            self.big_workers, ctx, n_roots, cache, budget,
+                            engine=engine, work_stealing=self.work_stealing,
+                            steps_per_call=steps_per_call)
+
+
+class BigGraphLane:
+    """One heavy graph served cuMBE-style: root tasks strided across the
+    workers, pending tasks stolen at round barriers.
+
+    The round function is ``distributed.make_round_fn(with_telemetry=
+    True)`` (one shared graph, the stacked worker state on
+    the executor's device), cached under the reference's key shape with
+    the device in the mesh's place, so same-bucket big graphs reuse one
+    entry.  Per-worker busy steps accumulate in ``busy_per_worker`` (the
+    paper's Fig.-5 load-distribution view)."""
+
+    n_devices = 1
+
+    def __init__(self, backend: str, cfg: ed.EngineConfig, device,
+                 axis: str, workers_per_device: int, ctx, n_roots: int,
+                 cache: ExecutableCache, budget: int | None,
+                 engine: Engine | None = None, work_stealing: bool = True,
+                 steps_per_call: int = 1):
+        self.cfg = cfg
+        self.device = device
+        self.axis = axis
+        self.engine = engine or DENSE
+        self.n_workers = self.n_devices * workers_per_device
+        self.round_steps = (budget if budget and budget > 0
+                            else DEFAULT_BIG_ROUND_STEPS)
+        dist = dd.DistConfig(steps_per_round=self.round_steps,
+                             workers_per_device=workers_per_device,
+                             work_stealing=work_stealing,
+                             steps_per_call=steps_per_call)
+        key = (("ws", backend, self.engine.name, work_stealing, str(device),
+                axis, workers_per_device, cfg),
+               self.n_workers, self.round_steps)
+        if steps_per_call != 1:
+            key = key + (steps_per_call,)
+
+        def build():
+            fn, _, _ = dd.make_round_fn(cfg, self.n_devices, dist,
+                                        with_telemetry=True,
+                                        engine=self.engine)
+            return fn
+
+        self._entry = cache.get_entry(key, build)
+        # strided initial deal of the REAL root tasks (padding vertices
+        # own no subtree) into queues of capacity T = cfg.m_real
+        self.state = dd.strided_states(self.engine, cfg, n_roots,
+                                       self.n_workers, device)
+        self.ctx = ctx
+        self.busy_per_worker = np.zeros(self.n_workers, np.int64)
+
+    def run_round(self) -> RoundTelemetry:
+        (out, telem), wall, compile_s = self._entry.timed_call(self.ctx,
+                                                               self.state)
+        self.state = out
+        adv = telem["busy_steps"].cpu().numpy().astype(np.int64)
+        self.busy_per_worker += adv
+        return RoundTelemetry(wall_s=wall, compile_s=compile_s, adv=adv,
+                              pending=telem["pending"].cpu().numpy())
+
+    @property
+    def done(self) -> bool:
+        return bool(self.engine.done(self.state).all())
+
+    def max_worker_steps(self) -> int:
+        return int(self.state.steps.max())
+
+    def placement(self) -> str:
+        return (f"{self.n_workers} stealing workers on {self.n_devices} "
+                f"device(s) (axis {self.axis!r}, round={self.round_steps} "
+                f"steps)")

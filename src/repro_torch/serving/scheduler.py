@@ -1,17 +1,20 @@
 """Continuous-batching MBE scheduler: slot admission + mid-flight refill.
 
-Twin of ``src/repro/serving/scheduler.py``, main path only: ``Request``,
-``_PendingQueue``, ``_LanePool`` (refill / run_round / step cap / demux)
-and ``MBEServer`` with admit / poll / drain / flush / serve / cancel /
-deadlines / reap / stats / reset_stats, over the ``LocalExecutor``.  See
-the reference module for the slot model, the routing and the accounting.
+Twin of ``src/repro/serving/scheduler.py``: ``Request``,
+``_PendingQueue``, ``_LanePool`` (refill / run_round / step cap / demux),
+the big-graph route (``_BigSlot``, ``_start_big`` / ``_poll_big`` /
+``_demux_big``: a request whose canonical ``n_u`` meets
+``BucketPolicy.big_graph_threshold`` runs as work-stealing workers on the
+executor's device) and ``MBEServer`` with admit / poll / drain / flush /
+serve / cancel / deadlines / reap / stats / reset_stats, over the
+``LocalExecutor``.  See the reference module for the slot model, the
+routing and the accounting.
 
 ``stats()`` keeps the reference's full ``STATS_SCHEMA`` key set.  Keys of
-features not ported yet report their neutral values (0, ``{}``, ``[]``,
-1.0).  Those features raise ``NotImplementedError`` when asked for,
-naming the ROADMAP Queue 1 item that ports them: admission control and
-tracing (item 9), retry / fault injection / failover (item 10), the
-big-graph lane (item 8).
+features not ported yet report their neutral values (0, ``{}``).  Those
+features raise ``NotImplementedError`` when asked for, naming the ROADMAP
+Queue 1 item that ports them: admission control and tracing (item 9),
+retry / fault injection / failover (item 10).
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ from repro_torch.core.results import EngineResult, MBEResult  # noqa: F401
 from repro_torch.serving.buckets import (BucketPolicy, BucketSpec,
                                          plan_bucket, plan_route)
 from repro_torch.serving.cache import ExecutableCache
-from repro_torch.serving.executor import Executor, LocalExecutor
+from repro_torch.serving.executor import (BigGraphLane, Executor,
+                                          LocalExecutor)
 
 
 def imbalance(per_worker) -> float:
@@ -280,6 +284,18 @@ class _LanePool:
         return results
 
 
+class _BigSlot:
+    """Host-side bookkeeping for the active big-graph request: the
+    work-stealing lane plus the request's latency accumulators."""
+
+    def __init__(self, lane: BigGraphLane, req: Request, queue_s: float):
+        self.lane = lane
+        self.req = req
+        self.queue_s = queue_s
+        self.service_s = 0.0
+        self.compile_s = 0.0
+
+
 class MBEServer:
     """Continuous-batching multi-graph MBE serving (main path)."""
 
@@ -310,10 +326,6 @@ class MBEServer:
                     f"MBEServer({name}=...) is not ported yet "
                     f"(ROADMAP Queue 1 item {item})")
         self.policy = policy or BucketPolicy()
-        if self.policy.big_graph_threshold is not None:
-            raise NotImplementedError(
-                "big_graph_threshold routes to the work-stealing big-graph "
-                "lane, which is not ported yet (ROADMAP Queue 1 item 8)")
         self.collect_cap = collect_cap
         self.collect = collect
         self.engine_params = dict(engine_params or {})
@@ -330,6 +342,8 @@ class MBEServer:
         self.routing_log: list[dict] = []
         self._queues: dict[BucketSpec, _PendingQueue] = {}
         self._pools: dict[BucketSpec, _LanePool] = {}
+        self._big_queue: _PendingQueue = _PendingQueue()
+        self._big: _BigSlot | None = None
         self._completed: dict[int, EngineResult] = {}
         self._next_rid = 0
         self._rid_tenant: dict[int, str] = {}
@@ -359,12 +373,25 @@ class MBEServer:
         self._n_admitted += 1
         self._tenant_stat(tenant, "admitted")
         self._rid_tenant[rid] = tenant
-        self._queues.setdefault(bucket, _PendingQueue()).append(req)
-        self.routing_log.append(dict(
-            event="route", rid=rid, graph=gc.name, route="lane",
-            bucket=(bucket.n_u, bucket.n_v), executor=self.executor.name,
-            reason="no big_graph_threshold set"
-                   + ": one vmap lane in the bucket pool"))
+        thr = self.policy.big_graph_threshold
+        if req.big:
+            self._big_queue.append(req)
+            self.routing_log.append(dict(
+                event="route", rid=rid, graph=gc.name, route="big",
+                bucket=(bucket.n_u, bucket.n_v),
+                executor=self.executor.name,
+                reason=f"n_u={gc.n_u} >= big_graph_threshold={thr}: "
+                       f"root tasks spread over mesh workers with "
+                       f"work stealing"))
+        else:
+            self._queues.setdefault(bucket, _PendingQueue()).append(req)
+            self.routing_log.append(dict(
+                event="route", rid=rid, graph=gc.name, route="lane",
+                bucket=(bucket.n_u, bucket.n_v),
+                executor=self.executor.name,
+                reason=("no big_graph_threshold set" if thr is None else
+                        f"n_u={gc.n_u} < big_graph_threshold={thr}")
+                + ": one vmap lane in the bucket pool"))
         return rid
 
     submit = admit
@@ -398,7 +425,8 @@ class MBEServer:
         return sorted(live, key=lambda b: (b.n_u, b.n_v))
 
     def _has_work(self) -> bool:
-        return bool(self._buckets_with_work())
+        return bool(self._buckets_with_work() or self._big_queue
+                    or self._big is not None)
 
     def _ensure_pool(self, bucket: BucketSpec) -> _LanePool:
         pool = self._pools.get(bucket)
@@ -435,6 +463,95 @@ class MBEServer:
             lanes=n_lanes, was=old.B, executor=self.executor.name,
             placement=self.executor.placement(n_lanes)))
         return new
+
+    # -- big-graph lane -------------------------------------------------
+    def _start_big(self) -> None:
+        req = self._big_queue.popleft()
+        cfg = self._engine_config(req.bucket)
+        ctx = self.engine.make_context(req.graph, cfg, self.executor.device)
+        lane = self.executor.big_lane(cfg, ctx, req.graph.n_u, self.cache,
+                                      self.policy.steps_per_round or None,
+                                      engine=self.engine,
+                                      steps_per_call=
+                                      self.policy.steps_per_call)
+        self._big = _BigSlot(lane, req,
+                             queue_s=time.perf_counter() - req.t_admit)
+        self.routing_log.append(dict(
+            event="big-lane", rid=req.rid, graph=req.graph.name,
+            bucket=(req.bucket.n_u, req.bucket.n_v),
+            executor=self.executor.name, placement=lane.placement()))
+
+    def _poll_big(self) -> None:
+        """Advance the big-graph lane one work-stealing round: place the
+        next queued big request if the lane is free, run a round, demux on
+        completion, enforce the step cap (typed ``step_capped`` result,
+        or evict-then-raise under ``strict_step_cap``)."""
+        if self._big is None:
+            if not self._big_queue:
+                return
+            self._start_big()
+        slot = self._big
+        tel = slot.lane.run_round()
+        exec_s = max(tel.wall_s - tel.compile_s, 0.0)
+        slot.service_s += exec_s
+        slot.compile_s += tel.compile_s
+        # the big lane enters the same occupancy ledger as the pools:
+        # busy = steps actually advanced, total = workers x critical path
+        busy = int(tel.adv.sum())
+        crit = int(tel.adv.max())
+        self._n_rounds += 1
+        self._busy_steps += busy
+        self._total_lane_steps += slot.lane.n_workers * crit
+        self._exec_wall_s += exec_s
+        # launch accounting mirrors the pool rounds: each device advances
+        # wpd workers, in ONE pool launch per segment when the multi-lane
+        # kernel is active, else wpd
+        spc = max(self.policy.steps_per_call, 1)
+        segments = (crit + spc - 1) // spc
+        n_dev = slot.lane.n_devices
+        wpd = slot.lane.n_workers // n_dev
+        pw = self.engine.pool_lanes(slot.lane.cfg, wpd,
+                                    self.executor.device)
+        self._n_launches += segments * n_dev * (1 if pw else wpd)
+        if self._big_busy_per_worker is None:
+            self._big_busy_per_worker = np.zeros(slot.lane.n_workers,
+                                                 np.int64)
+        if len(self._big_busy_per_worker) == slot.lane.n_workers:
+            self._big_busy_per_worker += tel.adv
+        if slot.lane.done:
+            self._completed[slot.req.rid] = self._demux_big(slot)
+            self._big = None
+            return
+        cap = self.max_graph_steps
+        if cap is not None and slot.lane.max_worker_steps() >= cap:
+            rid, name = slot.req.rid, slot.req.graph.name
+            if self.strict_step_cap:
+                self._big = None    # evict: the lane is dropped whole
+                raise RuntimeError(
+                    f"request {rid} ({name}) exceeded "
+                    f"max_graph_steps={cap} without finishing; evicted "
+                    f"(other requests remain servable)")
+            counters = self.engine.stacked_counters(slot.lane.state)
+            self._big = None        # evict: the lane is dropped whole
+            self._completed[rid] = self._flagged_result(
+                slot.req, queue_s=slot.queue_s,
+                service_s=slot.service_s, compile_s=slot.compile_s,
+                counters=counters, step_capped=True)
+
+    def _demux_big(self, slot: _BigSlot) -> EngineResult:
+        """Merge the work-stealing workers into one result via
+        ``Engine.finish_workers`` (counters summed, collect buffers
+        concatenated)."""
+        lane, r = slot.lane, slot.req
+        payload = self.engine.finish_workers(
+            lane.cfg, lane.state, lane.n_workers,
+            n_u=r.graph.n_u, n_v=r.graph.n_v, swapped=r.swapped,
+            collect=self.collect)
+        return self.engine.make_result(
+            rid=r.rid, name=r.graph.name,
+            latency_s=slot.queue_s + slot.service_s + slot.compile_s,
+            queue_s=slot.queue_s, service_s=slot.service_s,
+            compile_s=slot.compile_s, **payload)
 
     # -- request lifecycle ---------------------------------------------
     def _flagged_result(self, req: Request, *, queue_s: float,
@@ -478,7 +595,7 @@ class MBEServer:
         if rid in self._completed:
             return False
         now = time.perf_counter()
-        for q in self._queues.values():
+        for q in [*self._queues.values(), self._big_queue]:
             req = q.remove(rid)
             if req is not None:
                 self._completed[rid] = self._flagged_result(
@@ -499,12 +616,20 @@ class MBEServer:
                     counters=counters, cancelled=True)
                 self._drop_pool_if_idle(bucket)
                 return True
+        if self._big is not None and self._big.req.rid == rid:
+            slot, self._big = self._big, None
+            counters = self.engine.stacked_counters(slot.lane.state)
+            self._completed[rid] = self._flagged_result(
+                slot.req, queue_s=slot.queue_s, service_s=slot.service_s,
+                compile_s=slot.compile_s, counters=counters,
+                cancelled=True)
+            return True
         return False
 
     def _expire_deadlines(self) -> None:
         """Complete every deadline-expired request as ``timed_out``."""
         now = time.perf_counter()
-        for q in self._queues.values():
+        for q in [*self._queues.values(), self._big_queue]:
             for req in q.expired(now):
                 self._completed[req.rid] = self._flagged_result(
                     req, queue_s=now - req.t_admit, timed_out=True)
@@ -522,13 +647,23 @@ class MBEServer:
                     compile_s=pool._compile_s[i],
                     counters=counters, timed_out=True)
             self._drop_pool_if_idle(bucket)
+        big = self._big
+        if big is not None and big.req.deadline is not None \
+                and now >= big.req.deadline:
+            self._big = None
+            counters = self.engine.stacked_counters(big.lane.state)
+            self._completed[big.req.rid] = self._flagged_result(
+                big.req, queue_s=big.queue_s, service_s=big.service_s,
+                compile_s=big.compile_s, counters=counters,
+                timed_out=True)
 
     # ------------------------------------------------------------------
     def _poll_once(self) -> None:
-        """One scheduling round: expire deadlines, then for every bucket
-        with work refill free lanes, run one bounded round, demux into
-        the stash, enforce the step cap."""
+        """One scheduling round: expire deadlines, advance the big-graph
+        lane, then for every bucket with work refill free lanes, run one
+        bounded round, demux into the stash, enforce the step cap."""
         self._expire_deadlines()
+        self._poll_big()
         for bucket in self._buckets_with_work():
             queue = self._queues.setdefault(bucket, _PendingQueue())
             pool = self._ensure_pool(bucket)
@@ -589,10 +724,14 @@ class MBEServer:
     # ------------------------------------------------------------------
     def stats(self) -> dict:
         total = self._total_lane_steps
+        busy_pw = self._big_busy_per_worker
         return dict(batches=self._n_rounds, lanes=self._n_lanes,
                     pad_lanes=self._n_pad_lanes,
-                    pending=sum(len(q) for q in self._queues.values()),
-                    in_flight=sum(p.n_live() for p in self._pools.values()),
+                    pending=(sum(len(q) for q in self._queues.values())
+                             + len(self._big_queue)),
+                    in_flight=(sum(p.n_live()
+                                   for p in self._pools.values())
+                               + (1 if self._big is not None else 0)),
                     busy_steps=self._busy_steps,
                     total_lane_steps=total,
                     idle_lane_steps=total - self._busy_steps,
@@ -617,7 +756,12 @@ class MBEServer:
                     rejected_backpressure=0, rejected_fairness=0,
                     per_tenant={t: dict(c)
                                 for t, c in self._per_tenant.items()},
-                    big_busy_per_worker=[], big_imbalance=1.0,
+                    big_busy_per_worker=([] if busy_pw is None
+                                         else busy_pw.tolist()),
+                    # the big lane's live Fig.-5 balance number (1.0 when
+                    # no big request ran)
+                    big_imbalance=(1.0 if busy_pw is None
+                                   else imbalance(busy_pw)),
                     **self.cache.stats())
 
     def reset_stats(self) -> None:
@@ -636,6 +780,7 @@ class MBEServer:
         self._n_step_capped = 0
         self._n_admitted = 0
         self._per_tenant: dict[str, dict] = {}
+        self._big_busy_per_worker: np.ndarray | None = None
         self.cache.reset_counters()
 
     def close_trace(self) -> None:

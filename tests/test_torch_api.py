@@ -110,9 +110,9 @@ def test_import_firewall():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(engine="mce"), "item 7"), (dict(mesh=2), "item 8"),
-    (dict(big_graph_threshold=8), "item 8"), (dict(trace_path="t"), "item 9"),
-    (dict(retry=object()), "item 10")])
+    (dict(admission=object()), "item 9"), (dict(mesh=2), "item 8"),
+    (dict(fault_injector=object()), "item 10"),
+    (dict(trace_path="t"), "item 9"), (dict(retry=object()), "item 10")])
 def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         repro_torch.MBEOptions(device="cpu", **kw)

@@ -7,6 +7,7 @@ workers collect the same tests.  Run on the card with:
 
 This file imports no JAX: the machine with the card has none."""
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -455,6 +456,15 @@ def test_row_kernels_on_two_streams_at_once(card):
             assert _same(g1, want[k][0]) and _same(g4, want[k][1])
 
 
+# The profiler drops a device event stamped before its window opened, and
+# the card's kernel timestamps, converted to the host clock, can run
+# milliseconds behind it (chip_profile_windows.py: kept kernels stamped
+# before their own launch calls; windows opened with no wait lose some,
+# windows opened with this one lose none).  So every counted call waits
+# this long after the window opens.
+PROFILE_SETTLE_S = 0.05
+
+
 def test_row_kernels_one_device_kernel_per_call(card):
     from torch.profiler import ProfilerActivity, profile
     calls = _row_case("wide", True, 3, card)
@@ -462,6 +472,7 @@ def test_row_kernels_one_device_kernel_per_call(card):
         fn(*args, impl="pallas", **kw)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_SETTLE_S)
             for _ in range(5):
                 fn(*args, impl="pallas", **kw)
             torch.cuda.synchronize()
@@ -544,10 +555,9 @@ def test_intersect_count_one_device_kernel_per_call(card):
     n = intersect_count.launches
     intersect_count(a, m, idx=i, impl="pallas")
     torch.cuda.synchronize()
-    # CPU activity beside CUDA, as chip_smoke.py's profile_window: a
-    # CUDA-only window has dropped a kernel of the five on the card
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_SETTLE_S)
         for _ in range(5):
             intersect_count(a, m, idx=i, impl="pallas")
         torch.cuda.synchronize()

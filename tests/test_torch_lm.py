@@ -75,8 +75,8 @@ def test_configs_match_the_reference():
                                 for k, v in j_configs.SHAPES.items()}
     with pytest.raises(NotImplementedError, match="item 12"):
         TM.param_specs(t_configs.get_smoke("dbrx-132b"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_configs.get_config("cumbe")
+    assert dataclasses.asdict(t_configs.get_config("cumbe")) == \
+        dataclasses.asdict(j_configs.get_config("cumbe"))
 
 
 def test_param_specs_match_the_reference():
