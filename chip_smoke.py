@@ -92,7 +92,20 @@ makes the script exit non-zero):
               the count engine at (2, 2) and (2, 3), served and through
               the big lane, against the brute-force count;
               ``launch/mbe_run.py`` at the bench default (marvel-like,
-              4 workers);
+              4 workers); the serving layer under SLO and faults:
+              ``serve --mbe`` (defaults with --continuous, K3; --engine
+              mce, K4 packed) against the oracles, a chaos stream (24
+              graphs in lane pools, dblp-like on the big lane) under
+              retries, corrupted done-mask reads, a device loss with
+              failover and checkpoint resume and a poisoned install,
+              held against the fault-free run of the same stream (every
+              payload but the poisoned one's, one failover, the new
+              pools and K3 on the card, the same injector log twice),
+              the retry-off and retry-on walls in turns, a traced stream
+              under backpressure and shed-on-deadline with the cost
+              model calibrated from its trace, and two planted faults
+              (a flipped snapshot bit, a failover onto the CPU) that the
+              checks must flag;
               then the LM paths of qwen3-1.7b at full width (random
               weights from seed 0): ``make_prefill_step`` with
               attn_impl='pallas' at (1, 32768) and (4, 4096), exactly one
@@ -1558,7 +1571,7 @@ def k4_k1_launches(c) -> int:
     return sum(v for k, v in c.items() if k.startswith("fused_"))
 
 
-def main_path(dev):
+def main_path(dev, smi_line):
     """Drive every path of the slice; returns {path label: launch counts},
     each read right after its own drive with the counts set to 0 just
     before it."""
@@ -1689,6 +1702,7 @@ def main_path(dev):
     for row in per_graph:
         log("  per-graph " + json.dumps(row))
     big_lane_path(dev, by_path, truth)
+    serving_path(dev, by_path, truth, smi_line)
     return by_path
 
 
@@ -1843,6 +1857,329 @@ def big_lane_path(dev, by_path, truth):
         path="mbe_run marvel-like", wall_s=time.perf_counter() - t,
         rounds=out["rounds"], imbalance=out["imbalance"],
         launches=nonzero(c))))
+
+
+# ---------------------------------------------------------------------------
+# phase 4 (slice 12): the serving layer under SLO and faults
+# ---------------------------------------------------------------------------
+
+# the chaos stream: random_graph_stream(CHAOS_N, seed 0) in lane pools
+# (canonical n_u 6-25) and dblp-like (n_u 512) alone on the big lane
+CHAOS_N = 24
+CHAOS_POLICY = dict(steps_per_round=64, big_graph_threshold=512)
+# the chaos plan's rates (launch faults, corrupted done-mask reads); its
+# device loss and poisoned install are placed from the fault-free run
+CHAOS_SEED = 12
+CHAOS_RATES = dict(launch_rate=0.15, corrupt_done_rate=0.1)
+
+
+def sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def chaos_drive(server, *, stop_after_failover=False):
+    """Poll ``server`` until it drains (or, with ``stop_after_failover``,
+    until the poll that failed over); returns its results and what the
+    poll that failed over saw: the devices of the pools the new executor
+    built and the launch counts at that moment."""
+    got, seen = {}, None
+    while server.has_work():
+        got.update(server.poll())
+        if seen is None and server.stats()["failovers"]:
+            seen = dict(counts=counters(), pool_devices=sorted(
+                {str(p.pool.state.lvl.device)
+                 for p in server._pools.values()}),
+                executor_device=str(server.executor.device))
+            if stop_after_failover:
+                break
+    sync(server.executor.device)
+    return got, seen
+
+
+def on_device(seen, dev) -> bool:
+    """Whether the poll that failed over left the new executor and every
+    pool it built on ``dev``'s kind of device (and built one at all)."""
+    return (seen is not None and bool(seen["pool_devices"])
+            and seen["executor_device"].startswith(dev.type)
+            and all(d.startswith(dev.type) for d in seen["pool_devices"]))
+
+
+def fault_schedule(graphs, policy, dev):
+    """Where the chaos plan's poisoned install and device loss go, from
+    a fault-free run behind an injector with no faults: the lane install
+    half the way through the installs (k), and the launch half the way
+    from that install to the last pool round (N), while lane requests are
+    still in flight."""
+    from repro_torch.serving import (FaultInjector, FaultPlan,
+                                     LocalExecutor, MBEServer)
+    ex = FaultInjector(LocalExecutor(device=str(dev)), FaultPlan())
+    installs, pool_rounds = [], []
+    real_install, real_round = ex.install, ex.run_round
+
+    def install(pool, idx, states, ctxs):
+        installs.extend([ex._launches] * len(idx))
+        return real_install(pool, idx, states, ctxs)
+
+    def run_round(pool, cache, budget, unroll=1):
+        pool_rounds.append(ex._launches)
+        return real_round(pool, cache, budget, unroll)
+    ex.install, ex.run_round = install, run_round
+    srv = MBEServer(policy, executor=ex)
+    for g in graphs:
+        srv.admit(g)
+    srv.drain()
+    k = len(installs) // 2
+    return k, installs[k - 1] + (pool_rounds[-1] - installs[k - 1]) // 2
+
+
+def chaos_mismatches(base, chaos, poisoned) -> list:
+    """The rids whose chaos payload differs from the fault-free run's
+    (every field but the measured ``*_s``), the poisoned ones left out."""
+    def payload(r):
+        return {k: getattr(r, k) for k in r.__dataclass_fields__
+                if not k.endswith("_s")}
+    return [rid for rid in base if rid not in poisoned
+            and payload(base[rid]) != payload(chaos[rid])]
+
+
+def serving_path(dev, by_path, truth, smi_line):
+    """The slice-12 drives, each with the launch counters set to 0 just
+    before it and read just after: ``serve --mbe`` on the card (defaults
+    with --continuous, and --engine mce) against the oracles; the chaos
+    stream (retries, corrupted done-mask reads, a device loss with a
+    failover and checkpoint resume, a poisoned install isolated by
+    quarantine) against the fault-free run of the same stream, twice
+    with the same plan (the same injector log), with the retry-off and
+    retry-on walls in turns; a traced stream under backpressure and
+    shed-on-deadline, with the cost model calibrated from its trace and
+    its replay beside the measurement; and two planted faults the checks
+    must flag (one bit flipped in a snapshot's word leaf, a failover
+    onto the CPU)."""
+    from repro_torch import MBEClient, MBEOptions
+    from repro_torch.baselines.oracles import enumerate_maximal_cliques
+    from repro_torch.data.generators import (dataset_suite,
+                                             random_graph_stream)
+    from repro_torch.launch import serve as t_serve
+    from repro_torch.serving import (BucketPolicy, FaultPlan,
+                                     LocalExecutor, MBEServer, RetryPolicy,
+                                     plan_bucket, scheduler)
+    from repro_torch.serving.faults import fingerprint
+    from repro_torch.serving.slo import (AdmissionPolicy, TraceReader,
+                                         compare_trace, replay)
+    t_all = time.perf_counter()
+
+    # 1. serve --mbe on the card
+    for label, argv, need in (
+            ("serve --mbe --continuous", ["--continuous"],
+             "resident_pool"),
+            ("serve --mbe --engine mce", ["--engine", "mce"],
+             "fused_select_packed")):
+        reset_counters()
+        out = t_serve.serve(["--mbe", *argv], device=str(dev))
+        sync(dev)
+        by_path[label] = c = counters()
+        engine = "mce" if "mce" in argv else "dense"
+        graphs = t_serve._request_stream(engine, out["requests"], 0)
+        for g, r in zip(graphs, out["results"]):
+            require(r.status == "done", f"{label}: {g.name} {r.status}")
+            if engine == "mce":
+                exp = len(enumerate_maximal_cliques(g))
+                require(r.n_max == exp, f"{label}: {g.name} n_max "
+                                        f"{r.n_max} != oracle {exp}")
+            else:
+                require((r.n_max, r.cs) == truth[key(g)],
+                        f"{label}: {g.name} {(r.n_max, r.cs)} != oracle "
+                        f"{truth[key(g)]}")
+        require(c[need] > 0, f"{need} not launched: {label}")
+        log("  slice12 " + json.dumps(dict(
+            path=label, wall_s=out["wall_s"], rounds=out["batches"],
+            metric=out["metric"], launches=nonzero(c))))
+
+    # 2. the chaos stream
+    graphs = [*random_graph_stream(CHAOS_N, seed=0),
+              dataset_suite("bench")["dblp-like"]]
+    policy = BucketPolicy(**CHAOS_POLICY)
+
+    def server(retry=None, plan=None, **kw):
+        srv = MBEServer(policy, retry=retry, fault_injector=plan,
+                        executor=LocalExecutor(device=str(dev)), **kw)
+        for g in graphs:
+            srv.admit(g)
+        return srv
+
+    retry = RetryPolicy(max_attempts=4, checkpoint_interval=2)
+    walls, runs = {}, {}
+    # no faults, the retry policy off and on, in turns: what the verified
+    # reads and the checkpoints cost
+    for label in ("retry off", "retry on", "retry on", "retry off"):
+        reset_counters()
+        srv = server(retry if label == "retry on" else None)
+        t = time.perf_counter()
+        got, _ = chaos_drive(srv)
+        walls.setdefault(label, []).append(time.perf_counter() - t)
+        by_path[f"chaos stream {label}"] = counters()
+        runs[label] = (srv, got)
+    base_srv, base = runs["retry off"]
+    st = base_srv.stats()
+    for rid, g in enumerate(graphs):
+        require(base[rid].status == "done"
+                and (base[rid].n_max, base[rid].cs) == truth[key(g)],
+                f"chaos stream fault-free: {g.name} != oracle")
+    require(by_path["chaos stream retry off"]["resident_pool"] > 0,
+            "resident_pool not launched on the chaos stream")
+    k, n = fault_schedule(graphs, policy, dev)
+    plan = FaultPlan(seed=CHAOS_SEED, device_lost_after=n,
+                     poison_nth_install=k, **CHAOS_RATES)
+    restores = []
+    real_restore = scheduler.restore_state
+
+    def counted_restore(state, device):
+        restores.append(str(device))
+        return real_restore(state, device)
+    scheduler.restore_state = counted_restore
+    try:
+        logs = []
+        for rep in range(2):
+            reset_counters()
+            srv = server(retry, plan)
+            t = time.perf_counter()
+            chaos, seen = chaos_drive(srv)
+            walls.setdefault("chaos", []).append(
+                time.perf_counter() - t)
+            by_path["chaos stream faults"] = c = counters()
+            logs.append([i.log for i in srv._injectors])
+            if rep == 0:
+                first = (srv, chaos, seen, c, list(restores))
+    finally:
+        scheduler.restore_state = real_restore
+    srv, chaos, seen, c, restored = first
+    cs_ = srv.stats()
+    poison_fps = srv._injectors[0]._poison_fps
+
+    def poisoned_rids(server):
+        out = []
+        for rid, g in enumerate(graphs):
+            gc = g.canonical()
+            cfg = server._engine_config(plan_bucket(gc, server.policy))
+            if fingerprint(server.engine.make_context(gc, cfg, dev)) \
+                    in poison_fps:
+                out.append(rid)
+        return out
+    poisoned = poisoned_rids(srv)
+    failed = [rid for rid, r in chaos.items() if r.status == "failed"]
+    require(len(poisoned) == 1 and failed == poisoned,
+            f"chaos: failed {failed}, poisoned {poisoned}")
+    bad = chaos_mismatches(base, chaos, poisoned)
+    require(not bad, f"chaos: rids {bad} differ from the fault-free run")
+    require(cs_["failovers"] == 1, f"chaos: failovers {cs_['failovers']}")
+    require(on_device(seen, dev), f"chaos: after the failover {seen}")
+    k3_after = c["resident_pool"] - seen["counts"]["resident_pool"]
+    require(k3_after > 0, "chaos: no K3 launch after the failover")
+    require(restored and all(d.startswith(dev.type) for d in restored),
+            f"chaos: checkpoint restores {restored}")
+    require(logs[0] == logs[1], "chaos: the same plan gave another "
+                                "injector log")
+    log("  slice12 " + json.dumps(dict(
+        path="chaos stream faults", graphs=len(graphs),
+        plan=dataclasses.asdict(plan), poisoned_rid=poisoned[0],
+        retries=cs_["retries"], faults_injected=cs_["faults_injected"],
+        checkpoints=cs_["checkpoints"], quarantined=cs_["quarantined"],
+        failovers=cs_["failovers"], restores=len(restored),
+        k3_after_failover=k3_after, pool_devices=seen["pool_devices"],
+        launches=nonzero(c), log_entries=len(logs[0][0]))))
+    log(f"  slice12 walls (s, same call, turns off/on/on/off): "
+        f"{json.dumps(walls)} on {smi_line}")
+
+    # 3. SLO on the card: a traced stream under backpressure and
+    # shed-on-deadline (the kernels were built and warmed above)
+    trace = os.path.join(HERE, "build", "slice12_trace.jsonl")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    stream = random_graph_stream(32, seed=0)
+    reset_counters()
+    client = MBEClient(MBEOptions(
+        steps_per_round=64, trace_path=trace, device=str(dev),
+        admission=AdmissionPolicy(max_pending=8, shed_on_deadline=True)))
+    futs = []
+    for i, g in enumerate(stream):
+        # waves of 16 with a poll between (the queue outgrows 8 pending);
+        # every fourth request asks for an impossible 100 us, the rest
+        # for a minute or nothing
+        futs.append(client.submit(g, deadline_s=(1e-4 if i % 4 == 1 else
+                                                 60.0 if i % 4 == 2
+                                                 else None)))
+        if i % 16 == 15:
+            client.poll()
+    client.drain()
+    sync(dev)
+    client.server.close_trace()
+    by_path["slo traced stream"] = c = counters()
+    res = [f.result() for f in futs]
+    reader = TraceReader(trace)
+    st = client.stats()
+    admitted = [r for r in reader.requests if r.admitted]
+    require(st["rejected"] > 0 and st["shed"] > 0
+            and st["rejected_backpressure"] > 0,
+            f"slo: rejections {st['rejected']} (shed {st['shed']}, "
+            f"backpressure {st['rejected_backpressure']})")
+    for g, r in zip(stream, res):
+        if r.rejected:
+            require(r.status == "rejected" and r.steps == 0,
+                    f"slo: {g.name} rejected as {r.status}")
+        else:
+            require(r.status == "done" and (r.n_max, r.cs) == truth[key(g)],
+                    f"slo: {g.name} {r.status} {(r.n_max, r.cs)}")
+    results = [e for e in reader.events if e["event"] == "result"]
+    require(sorted(e["rid"] for e in results) == list(range(len(stream)))
+            and all(a.status is not None for a in admitted),
+            "slo: a request has no result event, or more than one")
+    require(c["resident_pool"] > 0, "resident_pool not launched: slo")
+    cost = reader.cost_model()
+    rep = replay(reader.requests, BucketPolicy(steps_per_round=64), cost,
+                 polls=reader.polls())
+    cmp = compare_trace(reader.requests, rep)
+    log("  slice12 " + json.dumps(dict(
+        path="slo traced stream", admitted=st["admitted"],
+        rejected=st["rejected"], shed=st["shed"],
+        backpressure=st["rejected_backpressure"],
+        cost_from_trace=dict(steps_per_s=cost.steps_per_s,
+                             service_steps_per_s=cost.service_steps_per_s,
+                             compile_s=cost.compile_s,
+                             step_density=cost.step_density),
+        measured_mean_latency_s=cmp["measured_mean_latency_s"],
+        predicted_mean_latency_s=cmp["predicted_mean_latency_s"],
+        latency_ratio=cmp["latency_ratio"], launches=nonzero(c))))
+
+    # 4. planted faults the checks must flag
+    # (a) one bit of the cs word of one snapshot, flipped just before the
+    # failover: that request's payload must differ from the fault-free one
+    flipped = []
+    srv = server(retry, plan)
+    real_failover = srv._failover
+
+    def failover_with_flip(err):
+        for rid in srv._ckpt.rids():
+            snap = srv._ckpt.get(rid).state
+            snap.cs[...] ^= 1 << 7
+            flipped.append(rid)
+            break
+        real_failover(err)
+    srv._failover = failover_with_flip
+    planted, _ = chaos_drive(srv)
+    require(flipped, "planted snapshot flip: no snapshot before failover")
+    bad = chaos_mismatches(base, planted, poisoned)
+    require(flipped[0] in bad, f"planted snapshot flip on rid "
+                               f"{flipped[0]} not flagged (mismatches {bad})")
+    # (b) the failover pointed at a CPU executor: the device check must
+    # flag it (stopped at the poll that failed over)
+    srv = server(retry, plan, failover_executor=LocalExecutor(device="cpu"))
+    _, seen = chaos_drive(srv, stop_after_failover=True)
+    require(not on_device(seen, dev),
+            f"planted CPU failover not flagged: {seen}")
+    log(f"  slice12 planted faults flagged: snapshot bit flip on rid "
+        f"{flipped[0]} (mismatches {bad}), CPU failover ({seen}); "
+        f"[slice12] {time.perf_counter() - t_all:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -3238,7 +3575,7 @@ def main() -> int:
     log(f"[kernels] {n} pool configurations + lanes bit-exact, max |err| "
         f"{errs}, {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    by_path = main_path(dev)
+    by_path = main_path(dev, smi_line)
     lm = lm_path(dev, by_path)
     train = train_path(dev, by_path)
     log(f"[main] {time.perf_counter() - t0:.1f} s, launches by path "

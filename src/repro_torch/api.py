@@ -17,11 +17,14 @@ The port serves every registered engine (``dense``, ``compact``,
 ``count``, ``mce``) on the local route and on the work-stealing
 big-graph route (``big_graph_threshold``, ``big_workers``,
 ``work_stealing``: the routed graph's root tasks on ``big_workers``
-workers of the one device).  Options that need unported parts raise
-``NotImplementedError`` naming the ROADMAP Queue 1 item that ports them
-when set to anything but their default: ``mesh`` (several devices, the
-rest of item 8), ``admission`` and ``trace_path`` (item 9), ``retry``
-and ``fault_injector`` (item 10).
+workers of the one device), with the SLO layer (``admission``:
+backpressure, weighted per-tenant fairness through
+``submit(..., tenant=)``, shed-on-deadline; ``trace_path``: the JSONL
+request trace) and the fault-tolerance layer (``retry``: retries,
+checkpoints, quarantine and the one failover, which stays on the same
+device; ``fault_injector``: a deterministic ``FaultPlan``).  Only
+``mesh`` raises ``NotImplementedError`` when set: lane pools over
+several devices are the rest of ROADMAP Queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -36,14 +39,10 @@ from repro_torch.kernels.dispatch import check_device
 from repro_torch.serving.buckets import BucketPolicy
 from repro_torch.serving.cache import ExecutableCache
 from repro_torch.serving.executor import LocalExecutor
+from repro_torch.serving.faults import FaultPlan
+from repro_torch.serving.recovery import RetryPolicy
 from repro_torch.serving.scheduler import MBEServer, imbalance
-
-# (option, ROADMAP Queue 1 item) of the reference options the port does
-# not serve yet: any value but the default raises
-_NOT_YET = (("mesh", "the rest of item 8: lane pools and the big lane "
-                     "over several devices"),
-            ("admission", "item 9"), ("trace_path", "item 9"),
-            ("retry", "item 10"), ("fault_injector", "item 10"))
+from repro_torch.serving.slo.admission import AdmissionPolicy
 
 
 def engines() -> list[str]:
@@ -84,11 +83,12 @@ class MBEOptions:
     max_graph_steps: int | None = None
     cache_capacity: int | None = ExecutableCache.DEFAULT_CAPACITY
 
-    # -- SLO layer, fault tolerance (not ported yet) --------------------
-    admission: object | None = None
+    # -- SLO layer (serving.slo), fault tolerance (serving.faults /
+    # serving.recovery): all off by default ------------------------------
+    admission: AdmissionPolicy | None = None
     trace_path: str | None = None
-    retry: object | None = None
-    fault_injector: object | None = None
+    retry: RetryPolicy | None = None
+    fault_injector: FaultPlan | None = None
     strict_step_cap: bool = False
 
     # -- placement --------------------------------------------------------
@@ -104,11 +104,11 @@ class MBEOptions:
 
     def __post_init__(self):
         get_engine(self.engine)
-        for name, item in _NOT_YET:
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"MBEOptions({name}=...) is not ported yet "
-                    f"(ROADMAP Queue 1 {item})")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "MBEOptions(mesh=...) is not ported yet (ROADMAP Queue 1 "
+                "the rest of item 8: lane pools and the big lane over "
+                "several devices)")
 
     def engine_params(self) -> dict:
         return dict(count_pq=(self.count_p, self.count_q))
@@ -138,6 +138,10 @@ class MBEOptions:
             engine_params=self.engine_params(),
             resident_lanes=self.resident_lanes,
             resident_rebalance=self.resident_rebalance,
+            admission=self.admission,
+            trace_path=self.trace_path,
+            retry=self.retry,
+            fault_injector=self.fault_injector,
             strict_step_cap=self.strict_step_cap)
 
 

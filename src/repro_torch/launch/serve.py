@@ -1,7 +1,22 @@
-"""LM serving: the continuous-batching decode loop.
+"""Batched serving launchers: the LM continuous-batching decode loop and the
+multi-graph MBE front end.
 
-Twin of the LM mode of ``src/repro/launch/serve.py`` (``serve``), with the
-same flags and the same loop: a fixed-slot batch, each slot holding one
+Twin of ``src/repro/launch/serve.py`` (``serve``), with the same flags and
+their defaults.
+
+MBE mode (``--mbe``, ``serve_mbe``): a synthetic mixed-size request
+stream (symmetric embeds for ``--engine mce``) through ``MBEClient`` on
+the card, with the reference's policies built from flags: admission
+(``--admit-max-pending``, ``--admit-shed``, ``--shed-slack``,
+``--deadline-s``), tracing (``--trace``), recovery (``--retry``,
+``--checkpoint-interval``) and chaos (``--fault-launch-rate``,
+``--fault-seed``, ``--fault-device-lost-at``).  Every routing decision
+and pool placement is printed (``[route]`` / ``[pool]`` / ``[big]``),
+then one ``[serve-mbe]`` summary line with the reference's fields.
+``--mesh`` (lane pools over several devices) raises: the rest of ROADMAP
+Queue 1 item 8.
+
+LM mode: the same loop as the reference: a fixed-slot batch, each slot holding one
 request's KV state; a request is prefilled by replaying its prompt through
 decode steps; every step decodes one token for every slot at the slot's
 own position (greedy argmax); finished requests leave and queued requests
@@ -10,12 +25,17 @@ here the slots are the batch dimension of one ``decode_step`` with a
 per-slot position vector, each slot writing its own cache position and
 attending over its own prefix.
 
-The MBE mode (``--mbe``) is ROADMAP Queue 1 item 11, and a model-parallel
-mesh (``--model-parallel`` > 1) item 12; both raise here.
+A model-parallel mesh (``--model-parallel`` > 1) is ROADMAP Queue 1
+item 12 and raises here.
 
 Usage (on the card):
   python -m repro_torch.launch.serve --arch qwen3-1.7b --smoke \
       --requests 8 --max-new 32
+  python -m repro_torch.launch.serve --mbe --continuous --steps-per-round 64
+  python -m repro_torch.launch.serve --mbe --retry 3 \
+      --fault-launch-rate 0.2 --fault-device-lost-at 6
+  python -m repro_torch.launch.serve --mbe --trace build/trace.jsonl \
+      --admit-max-pending 4 --admit-shed --deadline-s 0.5
 """
 from __future__ import annotations
 
@@ -98,11 +118,224 @@ def serve_lm(cfg: ModelConfig, params: dict, prompts: list[np.ndarray], *,
                 outputs=outputs)
 
 
+def _print_routing(server) -> None:
+    """Per-request routing decisions + per-bucket placements (anything
+    with a ``routing_log``: MBEClient or MBEServer)."""
+    for e in server.routing_log:
+        if e["event"] == "route":
+            print(f"[route] rid={e['rid']} {e['graph']}: -> {e['route']} "
+                  f"(bucket {e['bucket']}, executor={e['executor']}) — "
+                  f"{e['reason']}")
+        elif e["event"] in ("pool", "pool-grow"):
+            grew = (f" (grown from {e['was']})"
+                    if e["event"] == "pool-grow" else "")
+            print(f"[pool]  bucket {e['bucket']}: {e['lanes']} lanes on "
+                  f"{e['placement']}{grew}")
+        elif e["event"] == "big-lane":
+            print(f"[big]   rid={e['rid']} {e['graph']}: {e['placement']}")
+
+
+def _request_stream(engine_name: str, n_requests: int, seed: int):
+    """The synthetic request stream matched to the engine's workload:
+    unipartite engines (``mce``) get symmetric embeds, everything else
+    the mixed-size bipartite stream."""
+    from repro_torch.core.engine import get_engine
+    from repro_torch.data.generators import (random_graph_stream,
+                                             random_unipartite)
+    if get_engine(engine_name).unipartite:
+        rng = np.random.default_rng(seed)
+        return [random_unipartite(int(rng.integers(8, 24)),
+                                  float(rng.uniform(0.2, 0.5)),
+                                  seed=int(rng.integers(1 << 30)),
+                                  name=f"req{i}-uni")
+                for i in range(n_requests)]
+    return random_graph_stream(n_requests, seed=seed)
+
+
+def _retry_policy(args):
+    """The ``RetryPolicy`` of the command line, or None with ``--retry 0``
+    (the default: no recovery machinery at all)."""
+    if not args.retry:
+        return None
+    from repro_torch.serving import RetryPolicy
+    return RetryPolicy(max_attempts=args.retry,
+                       checkpoint_interval=args.checkpoint_interval)
+
+
+def _fault_plan(args):
+    """The chaos ``FaultPlan``, or None when no fault flag was given (no
+    injector wrapper at all)."""
+    if not args.fault_launch_rate and args.fault_device_lost_at is None:
+        return None
+    from repro_torch.serving import FaultPlan
+    return FaultPlan(seed=args.fault_seed,
+                     launch_rate=args.fault_launch_rate,
+                     device_lost_after=args.fault_device_lost_at)
+
+
+def _admission_policy(args):
+    """The ``AdmissionPolicy`` of the command line, or None when no
+    admission flag was given (the SLO layer stays out of the path)."""
+    if args.admit_max_pending is None and not args.admit_shed:
+        return None
+    from repro_torch.serving.slo import AdmissionPolicy
+    return AdmissionPolicy(max_pending=args.admit_max_pending,
+                           shed_on_deadline=args.admit_shed,
+                           shed_slack=args.shed_slack)
+
+
+def serve_mbe(args, device="cuda") -> dict:
+    """Serve a synthetic mixed-size request stream through ``MBEClient``
+    on ``device``, with any registered engine; returns the reference's
+    dict plus ``results`` (in submit order)."""
+    from repro_torch.api import MBEClient, MBEOptions
+    graphs = _request_stream(args.engine, args.requests, args.seed)
+    spr = args.steps_per_round if args.continuous else 0
+    client = MBEClient(MBEOptions(
+        engine=args.engine, count_p=args.count_p, count_q=args.count_q,
+        bucket_mode=args.policy,
+        kernel_impl=args.kernel_impl,
+        resident_lanes=args.resident_lanes,
+        resident_rebalance=args.resident_rebalance,
+        max_batch=args.max_batch, steps_per_round=spr,
+        steps_per_call=args.steps_per_call,
+        big_graph_threshold=args.big_graph_threshold,
+        mesh=args.mesh or None,
+        admission=_admission_policy(args),
+        trace_path=args.trace,
+        retry=_retry_policy(args),
+        fault_injector=_fault_plan(args),
+        strict_step_cap=args.strict_step_cap, device=device))
+    t0 = time.perf_counter()
+    if args.deadline_s is not None:
+        futs = [client.submit(g, deadline_s=args.deadline_s)
+                for g in graphs]
+        client.drain()
+        results = [f.result() for f in futs]
+    else:
+        results = client.enumerate_many(graphs)
+    dt = time.perf_counter() - t0
+    stats = client.stats()
+    # engine-agnostic headline: bicliques/cliques found, or the count
+    metric = sum(r.metric for r in results)
+    mode = f"continuous(r={spr})" if args.continuous else "flush"
+    _print_routing(client)
+    slo = ""
+    if _admission_policy(args) is not None:
+        slo = (f"admitted {stats['admitted']}, "
+               f"rejected {stats['rejected']} "
+               f"(shed {stats['shed']}, "
+               f"backpressure {stats['rejected_backpressure']}), "
+               f"timed_out {stats['timed_out']}, ")
+    ft = ""
+    if _retry_policy(args) is not None or _fault_plan(args) is not None:
+        ft = (f"faults {stats['faults_injected']}, "
+              f"retries {stats['retries']}, "
+              f"checkpoints {stats['checkpoints']}, "
+              f"quarantined {stats['quarantined']}, "
+              f"failovers {stats['failovers']}, "
+              f"failed {stats['failed']}, ")
+    print(f"[serve-mbe] {args.requests} graphs, policy={args.policy}, "
+          f"engine={stats['engine']}, executor={stats['executor']}, "
+          f"kernels={stats['kernel_impl']} "
+          f"(x{stats['steps_per_call']}/call), "
+          f"{mode}: metric total {metric}, "
+          f"{stats['batches']} rounds, "
+          f"{stats['misses']} compiles ({stats['hits']} cache hits), "
+          f"{slo}{ft}"
+          f"occupancy {stats['occupancy']:.2f}, "
+          f"{stats['busy_steps'] / dt:.0f} steps/s "
+          f"({stats['steps_per_poll']:.0f} steps/poll, "
+          f"{stats['launches_per_poll']:.1f} launches/poll), "
+          f"{dt:.2f}s ({args.requests / dt:.1f} graphs/s)")
+    if args.trace:
+        client.server.close_trace()
+        print(f"[trace] wrote {args.trace}")
+    # the reference's dict, plus the results in submit order
+    return dict(requests=args.requests, metric=metric, wall_s=dt,
+                results=results, **stats)
+
+
 def serve(argv=None, *, device="cuda") -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mbe", action="store_true",
-                    help="serve bipartite graphs (MBE) instead of LM decode "
-                         "(not ported yet)")
+                    help="serve bipartite graphs (MBE) instead of LM decode")
+    ap.add_argument("--policy", default="pow2",
+                    choices=["pow2", "linear", "exact"])
+    ap.add_argument("--engine", default="dense",
+                    help="MBE: workload engine by registry name (dense, "
+                         "compact, count, mce)")
+    ap.add_argument("--count-p", type=int, default=2,
+                    help="count engine: p of the (p,q)-biclique count")
+    ap.add_argument("--count-q", type=int, default=2,
+                    help="count engine: q of the (p,q)-biclique count")
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--continuous", action="store_true",
+                    help="MBE: bounded-round slot scheduling with "
+                         "mid-flight lane refill")
+    ap.add_argument("--steps-per-round", type=int, default=64,
+                    help="MBE continuous mode: engine steps per round")
+    ap.add_argument("--steps-per-call", type=int, default=1,
+                    help="MBE: engine steps per kernel segment "
+                         "(bit-identical results)")
+    ap.add_argument("--kernel-impl", default="auto",
+                    choices=["auto", "jnp", "pallas"],
+                    help="MBE: step-kernel path — 'pallas' = the "
+                         "hand-written kernels, 'auto' = by device")
+    ap.add_argument("--resident-lanes",
+                    type=lambda v: v if v == "auto" else int(v),
+                    default="auto",
+                    help="MBE: multi-lane resident pool kernel — 'auto' "
+                         "= one launch per pool whenever the gate admits "
+                         "it, int k caps the pool width, 0/1 one launch "
+                         "per lane")
+    ap.add_argument("--resident-rebalance", action="store_true",
+                    help="MBE pool path: rebalance surplus step budget "
+                         "from finished to busy lanes at segment "
+                         "boundaries")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="MBE: lane pools over N devices (not ported: "
+                         "ROADMAP Queue 1 item 8; 0 = LocalExecutor)")
+    ap.add_argument("--big-graph-threshold", type=int, default=None,
+                    help="MBE: route graphs with >= K root tasks to the "
+                         "work-stealing big-graph lane")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="MBE: record a JSONL request trace "
+                         "(serving.slo.trace)")
+    ap.add_argument("--admit-max-pending", type=int, default=None,
+                    help="MBE admission control: bounded-queue "
+                         "backpressure — reject (typed 'rejected' "
+                         "result) once this many requests are pending")
+    ap.add_argument("--admit-shed", action="store_true",
+                    help="MBE admission control: shed-on-deadline — "
+                         "reject at admit when the simulated completion "
+                         "time exceeds the request deadline")
+    ap.add_argument("--shed-slack", type=float, default=1.0,
+                    help="MBE shed-on-deadline: admit while "
+                         "est_completion <= deadline * slack")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="MBE: per-request wall-clock deadline in "
+                         "seconds (enables timed_out, and with "
+                         "--admit-shed, at-admit shedding)")
+    ap.add_argument("--retry", type=int, default=0,
+                    help="MBE fault tolerance: retry failed round "
+                         "launches up to N attempts (with checkpointing, "
+                         "quarantine and failover; 0 = recovery off)")
+    ap.add_argument("--checkpoint-interval", type=int, default=4,
+                    help="MBE fault tolerance: polls between lane-state "
+                         "checkpoints (0 = no checkpointing)")
+    ap.add_argument("--fault-launch-rate", type=float, default=0.0,
+                    help="MBE chaos testing: inject transient launch "
+                         "faults at this per-launch rate")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="MBE chaos testing: fault-schedule seed")
+    ap.add_argument("--fault-device-lost-at", type=int, default=None,
+                    help="MBE chaos testing: the Nth launch raises a "
+                         "persistent DeviceLostError (checkpoint-restore "
+                         "failover)")
+    ap.add_argument("--strict-step-cap", action="store_true",
+                    help="MBE: evict + raise at max_graph_steps instead "
+                         "of typed status=='step_capped' results")
     ap.add_argument("--arch", default=None)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--slots", type=int, default=4)
@@ -115,9 +348,7 @@ def serve(argv=None, *, device="cuda") -> dict:
     args = ap.parse_args(argv)
 
     if args.mbe:
-        raise NotImplementedError(
-            "the MBE mode of serve is not ported yet (ROADMAP Queue 1 item "
-            "11); serve graphs with repro_torch.MBEClient")
+        return serve_mbe(args, device=device)
     if args.arch is None:
         ap.error("--arch is required unless --mbe is given")
     if args.model_parallel > 1:

@@ -10,11 +10,16 @@ serve / cancel / deadlines / reap / stats / reset_stats, over the
 ``LocalExecutor``.  See the reference module for the slot model, the
 routing and the accounting.
 
-``stats()`` keeps the reference's full ``STATS_SCHEMA`` key set.  Keys of
-features not ported yet report their neutral values (0, ``{}``).  Those
-features raise ``NotImplementedError`` when asked for, naming the ROADMAP
-Queue 1 item that ports them: admission control and tracing (item 9),
-retry / fault injection / failover (item 10).
+The SLO hooks (``serving.slo``: the admission offer in ``admit``, the
+trace's admit / poll / result events) and the recovery ladder
+(``serving.faults`` / ``serving.recovery``: ``_with_retry``, verified
+done-mask reads, quarantine bisection, checkpoints every K polls, the
+one device-lost failover with checkpoint resume) are the reference's,
+call for call, so one ``FaultPlan`` gives the same injector log in both
+packages.  Recovery never leaves the device: the default failover
+target is a ``LocalExecutor`` on the failed executor's device, and a
+restored checkpoint goes to the device of the executor that installs
+it.  ``stats()`` keeps the reference's full ``STATS_SCHEMA`` key set.
 """
 from __future__ import annotations
 
@@ -32,6 +37,13 @@ from repro_torch.serving.buckets import (BucketPolicy, BucketSpec,
 from repro_torch.serving.cache import ExecutableCache
 from repro_torch.serving.executor import (BigGraphLane, Executor,
                                           LocalExecutor)
+from repro_torch.serving.faults import (DeviceLostError, FaultInjector,
+                                        FaultPlan)
+from repro_torch.serving.recovery import (CheckpointStore, RetryPolicy,
+                                          restore_state, verified_read)
+from repro_torch.serving.slo.admission import (AdmissionController,
+                                               AdmissionPolicy)
+from repro_torch.serving.slo.trace import TraceRecorder
 
 
 def imbalance(per_worker) -> float:
@@ -138,7 +150,6 @@ class _PendingQueue:
         return (r for _, r in self._items)
 
 
-
 class _LanePool:
     """Host-side half of one bucket's live pool: per-slot bookkeeping
     (which request occupies each lane, latency accumulators) around the
@@ -171,13 +182,24 @@ class _LanePool:
                 continue
             r = queue.popleft()
             idx.append(i)
-            ctxs.append(server.engine.make_context(
-                r.graph, self.cfg, server.executor.device))
-            states.append(server.engine.fresh_lane_state(
-                self.cfg, r.graph.n_u, server.executor.device))
-            self._queue_s[i] = time.perf_counter() - r.t_admit
-            self._service_s[i] = 0.0
-            self._compile_s[i] = 0.0
+            dev = server.executor.device
+            ctxs.append(server.engine.make_context(r.graph, self.cfg, dev))
+            snap = server._resume.pop(r.rid, None)
+            if snap is not None:
+                # failover / quarantine-exoneration resume: the lane
+                # restarts from its last host-side checkpoint, on this
+                # executor's device (engines are deterministic, so the
+                # rounds replayed since the snapshot are bit-identical)
+                states.append(restore_state(snap.state, dev))
+                self._queue_s[i] = snap.queue_s
+                self._service_s[i] = snap.service_s
+                self._compile_s[i] = snap.compile_s
+            else:
+                states.append(server.engine.fresh_lane_state(
+                    self.cfg, r.graph.n_u, dev))
+                self._queue_s[i] = time.perf_counter() - r.t_admit
+                self._service_s[i] = 0.0
+                self._compile_s[i] = 0.0
             self.reqs[i] = r
         if idx:
             server.executor.install(self.pool, idx, states, ctxs)
@@ -185,12 +207,12 @@ class _LanePool:
 
     def run_round(self, server: "MBEServer") -> bool:
         """One bounded executor round over all lanes; occupancy
-        accounting.  Returns True (the reference returns False when its
-        recovery layer consumed the round, which is not ported yet)."""
+        accounting.  Returns False when the recovery layer consumed the
+        round instead (retries exhausted -> quarantine)."""
         budget = server._round_budget()
-        tel = server.executor.run_round(
-            self.pool, server.cache, budget,
-            unroll=server.policy.steps_per_call)
+        tel = server._run_pool_round(self, budget)
+        if tel is None:
+            return False
         exec_s = max(tel.wall_s - tel.compile_s, 0.0)
         adv = tel.adv                                   # per-lane steps
         busy = int(adv.sum())
@@ -232,7 +254,7 @@ class _LanePool:
         cap = server.max_graph_steps
         if cap is None:
             return
-        done = server.executor.done_mask(self.pool)
+        done = server._pool_done_mask(self)
         steps = server.executor.steps(self.pool)
         dead = [i for i, r in enumerate(self.reqs)
                 if r is not None and not done[i] and int(steps[i]) >= cap]
@@ -264,7 +286,7 @@ class _LanePool:
         """Decode every finished lane into a result and free its slot.
         The payload comes from ``Engine.finish`` — the scheduler never
         names a concrete result class."""
-        done = server.executor.done_mask(self.pool)
+        done = server._pool_done_mask(self)
         results: dict[int, EngineResult] = {}
         for i, r in enumerate(self.reqs):
             if r is None or not done[i]:
@@ -311,20 +333,14 @@ class MBEServer:
                  engine_params: dict | None = None,
                  resident_lanes: int | str = "auto",
                  resident_rebalance: bool = False,
-                 admission=None, trace_path: str | None = None,
-                 retry=None, fault_injector=None,
+                 admission: AdmissionController | AdmissionPolicy
+                 | None = None,
+                 trace_path: str | None = None,
+                 retry: RetryPolicy | None = None,
+                 fault_injector: FaultPlan | None = None,
                  strict_step_cap: bool = False,
                  failover_executor: Executor | None = None,
                  device: str = "cuda"):
-        not_yet = [("admission", admission, 9),
-                   ("trace_path", trace_path, 9),
-                   ("retry", retry, 10), ("fault_injector", fault_injector, 10),
-                   ("failover_executor", failover_executor, 10)]
-        for name, value, item in not_yet:
-            if value is not None:
-                raise NotImplementedError(
-                    f"MBEServer({name}=...) is not ported yet "
-                    f"(ROADMAP Queue 1 item {item})")
         self.policy = policy or BucketPolicy()
         self.collect_cap = collect_cap
         self.collect = collect
@@ -337,8 +353,26 @@ class MBEServer:
         self.max_graph_steps = max_graph_steps
         self.strict_step_cap = strict_step_cap
         self.executor = executor or LocalExecutor(device=device)
+        # fault / recovery (serving.faults, serving.recovery) and the SLO
+        # layer (serving.slo): all OFF by default, and then the admit /
+        # poll / demux paths take no extra branch
+        self.retry = retry
+        self.failover_executor = failover_executor
+        self._injectors: list[FaultInjector] = []
+        if fault_injector is not None:
+            self.executor = FaultInjector(self.executor, fault_injector)
+            self._injectors.append(self.executor)
+        self._ckpt = CheckpointStore() if retry is not None else None
+        self._resume: dict[int, object] = {}    # rid -> LaneSnapshot to
+        #                                         restore at next placement
+        self._poll_i = 0
+        self._failed_over = False
         self.engine = get_engine(engine)
         self.cache = ExecutableCache(capacity=cache_capacity)
+        self.admission = (AdmissionController(admission)
+                          if isinstance(admission, AdmissionPolicy)
+                          else admission)
+        self.trace = TraceRecorder(trace_path) if trace_path else None
         self.routing_log: list[dict] = []
         self._queues: dict[BucketSpec, _PendingQueue] = {}
         self._pools: dict[BucketSpec, _LanePool] = {}
@@ -355,7 +389,10 @@ class MBEServer:
               deadline_s: float | None = None,
               tenant: str = "default") -> int:
         """Enqueue one graph; returns the request id used to demux (see
-        the reference for canonicalisation, priority and deadlines)."""
+        the reference for canonicalisation, priority and deadlines).
+        With an admission controller attached the request may be refused
+        here: it never queues, and its typed ``status == "rejected"``
+        result is delivered by the next ``poll`` / ``reap``."""
         gc = g.canonical() if self.engine.canonicalize else g
         if gc.n_u < 1:
             raise ValueError("empty graphs are not servable")
@@ -370,9 +407,32 @@ class MBEServer:
                       deadline=None if deadline_s is None
                       else t0 + float(deadline_s),
                       deadline_s=deadline_s, tenant=tenant)
+        self._rid_tenant[rid] = tenant
+        if self.admission is not None:
+            decision = self._offer_admission(req)
+            if not decision.admitted:
+                self._n_rejected += 1
+                self._tenant_stat(tenant, "rejected")
+                self._completed[rid] = self._flagged_result(
+                    req, queue_s=0.0, rejected=True,
+                    reject_reason=decision.reason)
+                if self.trace is not None:
+                    self.trace.admit(
+                        rid=rid, name=gc.name, n_u=gc.n_u, n_v=gc.n_v,
+                        engine=self.engine.name, route=route,
+                        bucket=(bucket.n_u, bucket.n_v),
+                        priority=priority, deadline_s=deadline_s,
+                        tenant=tenant, admitted=False,
+                        reason=decision.reason)
+                return rid
         self._n_admitted += 1
         self._tenant_stat(tenant, "admitted")
-        self._rid_tenant[rid] = tenant
+        if self.trace is not None:
+            self.trace.admit(
+                rid=rid, name=gc.name, n_u=gc.n_u, n_v=gc.n_v,
+                engine=self.engine.name, route=route,
+                bucket=(bucket.n_u, bucket.n_v), priority=priority,
+                deadline_s=deadline_s, tenant=tenant, admitted=True)
         thr = self.policy.big_graph_threshold
         if req.big:
             self._big_queue.append(req)
@@ -402,6 +462,48 @@ class MBEServer:
                          cancelled=0, timed_out=0, failed=0,
                          step_capped=0))
         t[key] += n
+
+    # -- admission (serving.slo) ----------------------------------------
+    def _tenants_pending(self) -> dict[str, int]:
+        out: dict[str, int] = {}
+        for q in [*self._queues.values(), self._big_queue]:
+            for r in q:
+                out[r.tenant] = out.get(r.tenant, 0) + 1
+        return out
+
+    def _bucket_backlog_steps(self, bucket: BucketSpec) -> int:
+        """Estimated engine steps queued + in flight ahead of a new
+        request in this bucket: the shape estimate of every pending
+        request, half of it for each in-flight lane (its progress is
+        unknown without a device read)."""
+        cost = self.admission.policy.cost
+        est = 0
+        for r in self._queues.get(bucket, ()):
+            est += cost.estimate_steps(r.graph.n_u, r.graph.n_v)
+        pool = self._pools.get(bucket)
+        if pool is not None:
+            for r in pool.reqs:
+                if r is not None:
+                    est += cost.estimate_steps(r.graph.n_u,
+                                               r.graph.n_v) // 2
+        return est
+
+    def _offer_admission(self, req: Request):
+        bucket = req.bucket
+        backlog = len(self._queues.get(bucket, ()))
+        pool = self._pools.get(bucket)
+        lanes = pool.B if pool is not None else \
+            self.executor.plan_lanes(backlog + 1, self.policy)
+        return self.admission.offer(
+            n_u=req.graph.n_u, n_v=req.graph.n_v,
+            bucket=(bucket.n_u, bucket.n_v),
+            route="big" if req.big else "lane", tenant=req.tenant,
+            deadline_s=req.deadline_s,
+            pending=(sum(len(q) for q in self._queues.values())
+                     + len(self._big_queue)),
+            tenants_pending=self._tenants_pending(),
+            backlog_steps=self._bucket_backlog_steps(bucket),
+            lanes=lanes)
 
     # ------------------------------------------------------------------
     def _engine_config(self, bucket: BucketSpec):
@@ -491,7 +593,28 @@ class MBEServer:
                 return
             self._start_big()
         slot = self._big
-        tel = slot.lane.run_round()
+        try:
+            tel = self._with_retry("big", slot.lane.run_round,
+                                   deadline=slot.req.deadline)
+        except DeviceLostError:
+            raise
+        except (self.retry.retry_on if self.retry is not None
+                else ()) as e:
+            # retries exhausted and the lane is alone on its route: the
+            # big graph IS the poison — fail it, keep serving the queue
+            self._n_quarantined += 1
+            counters = self.engine.stacked_counters(slot.lane.state)
+            self._big = None
+            self._completed[slot.req.rid] = self._flagged_result(
+                slot.req, queue_s=slot.queue_s,
+                service_s=slot.service_s, compile_s=slot.compile_s,
+                counters=counters, failed=True,
+                fail_reason=f"big-graph round failed "
+                            f"{self.retry.max_attempts}x: {e}")
+            if self.trace is not None:
+                self.trace.recovery(action="quarantine",
+                                    detail=f"big rid={slot.req.rid}")
+            return
         exec_s = max(tel.wall_s - tel.compile_s, 0.0)
         slot.service_s += exec_s
         slot.compile_s += tel.compile_s
@@ -559,9 +682,14 @@ class MBEServer:
                         counters: dict | None = None,
                         cancelled: bool = False,
                         timed_out: bool = False,
+                        rejected: bool = False,
+                        reject_reason: str = "",
+                        failed: bool = False,
+                        fail_reason: str = "",
                         step_capped: bool = False) -> EngineResult:
         """Terminal result of a request that did not run to completion
-        (cancelled, deadline-expired or step-capped)."""
+        (cancelled, deadline-expired, refused at admission, quarantined
+        as poison, or step-capped)."""
         payload = self.engine.partial(
             counters, cfg=self._engine_config(req.bucket))
         res = self.engine.make_result(
@@ -569,15 +697,22 @@ class MBEServer:
             latency_s=queue_s + service_s + compile_s, queue_s=queue_s,
             service_s=service_s, compile_s=compile_s,
             cancelled=cancelled, timed_out=timed_out,
+            rejected=rejected, reject_reason=reject_reason,
+            failed=failed, fail_reason=fail_reason,
             step_capped=step_capped, **payload)
         self._n_cancelled += int(cancelled)
         self._n_timed_out += int(timed_out)
+        self._n_failed += int(failed)
         self._n_step_capped += int(step_capped)
         self.routing_log.append(dict(
-            event=("cancel" if cancelled else
+            event=("rejected" if rejected else
+                   "cancel" if cancelled else
+                   "failed" if failed else
                    "step-cap" if step_capped else "deadline"),
-            rid=req.rid, graph=req.graph.name,
-            executor=self.executor.name))
+            rid=req.rid,
+            graph=req.graph.name, executor=self.executor.name,
+            **(dict(reason=reject_reason) if rejected else
+               dict(reason=fail_reason) if failed else {})))
         return res
 
     def _lane_counters(self, lane) -> dict:
@@ -657,11 +792,249 @@ class MBEServer:
                 compile_s=big.compile_s, counters=counters,
                 timed_out=True)
 
+    # -- recovery (serving.faults / serving.recovery) -------------------
+    def _pool_done_mask(self, lanepool: _LanePool) -> np.ndarray:
+        """The one done-mask read point: with a retry policy attached the
+        read is VERIFIED (voted re-reads, ``recovery.verified_read``),
+        without one it is the plain single read."""
+        if self.retry is None:
+            return self.executor.done_mask(lanepool.pool)
+        mask, mismatches = verified_read(
+            lambda: self.executor.done_mask(lanepool.pool))
+        if mismatches and self.trace is not None:
+            self.trace.fault(site="done_mask", kind="corrupted-read")
+        return mask
+
+    def _with_retry(self, site: str, fn, deadline: float | None = None):
+        """Run ``fn`` under the retry policy: on a retryable fault sleep
+        the policy's deterministic backoff (clamped so it never sleeps
+        past ``deadline``) and try again, up to ``max_attempts`` tries.
+        ``DeviceLostError`` is never retried here (the poll-level
+        failover handles it); anything outside ``retry_on`` — a real
+        kernel error among them — propagates at once."""
+        pol = self.retry
+        if pol is None:
+            return fn()
+        attempt = 0
+        while True:
+            attempt += 1
+            try:
+                return fn()
+            except DeviceLostError:
+                raise
+            except pol.retry_on as e:
+                if self.trace is not None:
+                    self.trace.fault(site=site, kind=type(e).__name__)
+                if attempt >= pol.max_attempts:
+                    raise
+                delay = pol.delay_s(site, attempt)
+                if deadline is not None:
+                    delay = min(delay,
+                                max(deadline - time.perf_counter(), 0.0))
+                self._n_retries += 1
+                if self.trace is not None:
+                    self.trace.retry(site=site, attempt=attempt,
+                                     delay_s=delay)
+                if delay > 0:
+                    time.sleep(delay)
+
+    def _run_pool_round(self, lanepool: _LanePool, budget):
+        """One executor round with the recovery ladder: transient faults
+        retried in place (an injected fault raised before the launch, so
+        the state is untouched), retries exhausted -> quarantine
+        bisection, device-lost -> the poll-level failover.  Returns the
+        round's telemetry, or None when quarantine consumed the round."""
+        def run():
+            return self.executor.run_round(
+                lanepool.pool, self.cache, budget,
+                unroll=self.policy.steps_per_call)
+
+        if self.retry is None:
+            return run()
+        deadlines = [r.deadline for r in lanepool.reqs
+                     if r is not None and r.deadline is not None]
+        site = f"pool[{lanepool.bucket.n_u}x{lanepool.bucket.n_v}]"
+        try:
+            return self._with_retry(
+                site, run, deadline=min(deadlines) if deadlines else None)
+        except DeviceLostError:
+            raise
+        except self.retry.retry_on as e:
+            self._quarantine(lanepool, e)
+            return None
+
+    def _probe_fails(self, lanepool: _LanePool, reqs: list[Request],
+                     budget) -> bool:
+        """Quarantine probe: install ``reqs`` fresh into the emptied
+        pool, run one round under the retry policy, evict again.  True
+        means the group still fails after retries.  Probe work is
+        throwaway and enters no occupancy ledger."""
+        dev = self.executor.device
+        idx = list(range(len(reqs)))
+        states = [self.engine.fresh_lane_state(lanepool.cfg, r.graph.n_u,
+                                               dev) for r in reqs]
+        ctxs = [self.engine.make_context(r.graph, lanepool.cfg, dev)
+                for r in reqs]
+        self.executor.install(lanepool.pool, idx, states, ctxs)
+        try:
+            self._with_retry(
+                "quarantine-probe",
+                lambda: self.executor.run_round(
+                    lanepool.pool, self.cache, budget,
+                    unroll=self.policy.steps_per_call))
+            return False
+        except DeviceLostError:
+            raise
+        except self.retry.retry_on:
+            return True
+        finally:
+            for i in idx:
+                self.executor.evict(lanepool.pool, i)
+
+    def _quarantine(self, lanepool: _LanePool, err: Exception) -> None:
+        """A pool failed ``max_attempts`` consecutive launches: evict
+        every live lane, bisect the suspects with fresh-restart probes,
+        requeue the exonerated (resuming from their checkpoints), and
+        fail the isolated request — confirmed by a solo probe — as a
+        typed ``status="failed"`` result.  A solo probe that passes means
+        a transient streak: everyone is requeued, nobody failed."""
+        bucket = lanepool.bucket
+        queue = self._queues.setdefault(bucket, _PendingQueue())
+        suspects: list[Request] = []
+        for i, r in enumerate(lanepool.reqs):
+            if r is None:
+                continue
+            suspects.append(r)
+            self.executor.evict(lanepool.pool, i)
+            lanepool.reqs[i] = None
+        self.routing_log.append(dict(
+            event="quarantine", bucket=(bucket.n_u, bucket.n_v),
+            suspects=[r.rid for r in suspects],
+            executor=self.executor.name, reason=str(err)))
+        if self.trace is not None:
+            self.trace.recovery(
+                action="quarantine",
+                detail=f"bucket={bucket.n_u}x{bucket.n_v} "
+                       f"suspects={[r.rid for r in suspects]}")
+        budget = self._round_budget()
+        cand, cleared = suspects, []
+        while len(cand) > 1:
+            half, rest = cand[: len(cand) // 2], cand[len(cand) // 2:]
+            if self._probe_fails(lanepool, half, budget):
+                cleared.extend(rest)
+                cand = half
+            else:
+                cleared.extend(half)
+                cand = rest
+        poison = cand[0] if cand else None
+        if poison is not None and len(suspects) > 1 \
+                and not self._probe_fails(lanepool, [poison], budget):
+            cleared.append(poison)      # transient streak, not poison:
+            poison = None               # nobody gets failed
+        for r in cleared:
+            snap = self._ckpt.get(r.rid) if self._ckpt is not None \
+                else None
+            if snap is not None:
+                self._resume[r.rid] = snap
+            queue.append(r)
+        if poison is None:
+            return
+        self._n_quarantined += 1
+        self._completed[poison.rid] = self._flagged_result(
+            poison, queue_s=time.perf_counter() - poison.t_admit,
+            failed=True,
+            fail_reason=f"quarantined: pool round failed "
+                        f"{self.retry.max_attempts}x and bisection "
+                        f"isolated this request ({err})")
+
+    def _maybe_checkpoint(self) -> None:
+        """Every ``checkpoint_interval`` polls, snapshot every live
+        lane's engine state host-side (keyed by rid).  The big-graph
+        lane is not checkpointed: failover restarts it fresh."""
+        pol = self.retry
+        if pol is None or self._ckpt is None \
+                or pol.checkpoint_interval <= 0:
+            return
+        self._poll_i += 1
+        if self._poll_i % pol.checkpoint_interval:
+            return
+        for pool in self._pools.values():
+            for i, r in enumerate(pool.reqs):
+                if r is None:
+                    continue
+                self._ckpt.put(
+                    r.rid, self.executor.lane(pool.pool, i),
+                    queue_s=pool._queue_s[i],
+                    service_s=pool._service_s[i],
+                    compile_s=pool._compile_s[i])
+                self._n_checkpoints += 1
+        if self.trace is not None:
+            self.trace.recovery(action="checkpoint",
+                                detail=f"{len(self._ckpt)} lane(s)")
+
+    def _failover(self, err: Exception) -> None:
+        """Persistent executor failure: swap to ``failover_executor``,
+        by default a fresh ``LocalExecutor`` on the failed executor's
+        device (never the CPU in its place), requeue every in-flight
+        request — lane requests resume from their host-side checkpoints,
+        the big-graph request restarts fresh — and record the event.  An
+        injector follows onto the new executor with its device-lost
+        clock disarmed."""
+        self._n_failovers += 1
+        self._failed_over = True
+        old_name = self.executor.name
+        inner = self.failover_executor or LocalExecutor(
+            device=str(self.executor.device))
+        if isinstance(self.executor, FaultInjector):
+            new_exec = self.executor.for_failover(inner)
+            self._injectors.append(new_exec)
+        else:
+            new_exec = inner
+        self.executor = new_exec
+        for bucket, pool in list(self._pools.items()):
+            q = self._queues.setdefault(bucket, _PendingQueue())
+            for r in pool.reqs:
+                if r is None:
+                    continue
+                snap = self._ckpt.get(r.rid) if self._ckpt is not None \
+                    else None
+                if snap is not None:
+                    self._resume[r.rid] = snap
+                q.append(r)
+        self._pools.clear()             # the dead executor's buffers go
+        #                                 with it
+        if self._big is not None:
+            self._big_queue.append(self._big.req)
+            self._big = None
+        self.routing_log.append(dict(
+            event="failover", was=old_name, now=self.executor.name,
+            reason=str(err)))
+        if self.trace is not None:
+            self.trace.recovery(
+                action="failover",
+                detail=f"{old_name} -> {self.executor.name}: {err}")
+
     # ------------------------------------------------------------------
     def _poll_once(self) -> None:
+        """One scheduling round, wrapped in the device-lost failover: a
+        ``DeviceLostError`` escaping the round triggers ONE failover and
+        the poll re-runs on the new executor.  Without a retry policy (or
+        with ``failover=False``, or after the one failover) it
+        propagates."""
+        try:
+            self._poll_inner()
+        except DeviceLostError as e:
+            if self.retry is None or not self.retry.failover \
+                    or self._failed_over:
+                raise
+            self._failover(e)
+            self._poll_inner()
+
+    def _poll_inner(self) -> None:
         """One scheduling round: expire deadlines, advance the big-graph
         lane, then for every bucket with work refill free lanes, run one
-        bounded round, demux into the stash, enforce the step cap."""
+        bounded round, demux into the stash, enforce the step cap; then
+        the checkpoint and the trace's poll event."""
         self._expire_deadlines()
         self._poll_big()
         for bucket in self._buckets_with_work():
@@ -678,16 +1051,38 @@ class MBEServer:
                 pool.enforce_step_cap(self)
             if pool.n_live() == 0 and not queue:
                 del self._pools[bucket]
+        self._maybe_checkpoint()
+        if self.trace is not None:
+            self.trace.poll(
+                busy_steps=self._busy_steps,
+                total_lane_steps=self._total_lane_steps,
+                exec_s=self._exec_wall_s,
+                pending=(sum(len(q) for q in self._queues.values())
+                         + len(self._big_queue)),
+                in_flight=(sum(p.n_live() for p in self._pools.values())
+                           + (1 if self._big is not None else 0)),
+                compiles=self.cache.misses)
 
     def _take_completed(self) -> dict[int, EngineResult]:
         out, self._completed = self._completed, {}
         if out:
             for rid, res in out.items():
+                if self._ckpt is not None:      # delivered: snapshot and
+                    self._ckpt.pop(rid)         # any pending resume are
+                    self._resume.pop(rid, None)  # dead weight
                 tenant = self._rid_tenant.pop(rid, None)
-                if tenant is not None:
+                if tenant is not None and not res.rejected:
                     st = res.status
                     self._tenant_stat(
                         tenant, "completed" if st == "done" else st)
+                if self.trace is not None:
+                    self.trace.result(
+                        rid=rid, status=res.status,
+                        steps=int(res.steps), nodes=int(res.nodes),
+                        metric=int(res.metric), queue_s=res.queue_s,
+                        service_s=res.service_s,
+                        compile_s=res.compile_s,
+                        latency_s=res.latency_s)
             for sink in self._sinks:
                 sink(out)
         return out
@@ -749,11 +1144,24 @@ class MBEServer:
                     engine=self.engine.name,
                     cancelled=self._n_cancelled,
                     timed_out=self._n_timed_out,
-                    failed=0, step_capped=self._n_step_capped,
-                    retries=0, faults_injected=0, checkpoints=0,
-                    quarantined=0, failovers=0,
-                    admitted=self._n_admitted, rejected=0, shed=0,
-                    rejected_backpressure=0, rejected_fairness=0,
+                    # fault / recovery ledger: faults_injected sums
+                    # every injector this server has owned (the
+                    # pre-failover one included), minus the reset base
+                    failed=self._n_failed,
+                    step_capped=self._n_step_capped,
+                    retries=self._n_retries,
+                    faults_injected=(sum(i.n_injected
+                                         for i in self._injectors)
+                                     - self._faults_base),
+                    checkpoints=self._n_checkpoints,
+                    quarantined=self._n_quarantined,
+                    failovers=self._n_failovers,
+                    # admission ledger (all zero with no controller)
+                    admitted=self._n_admitted,
+                    rejected=self._n_rejected,
+                    shed=self._rejected_by("shed"),
+                    rejected_backpressure=self._rejected_by("backpressure"),
+                    rejected_fairness=self._rejected_by("fairness"),
                     per_tenant={t: dict(c)
                                 for t, c in self._per_tenant.items()},
                     big_busy_per_worker=([] if busy_pw is None
@@ -777,11 +1185,27 @@ class MBEServer:
         self._rebalanced_steps = 0
         self._n_cancelled = 0
         self._n_timed_out = 0
+        self._n_failed = 0
         self._n_step_capped = 0
+        self._n_retries = 0
+        self._n_checkpoints = 0
+        self._n_quarantined = 0
+        self._n_failovers = 0
+        self._faults_base = sum(i.n_injected for i in self._injectors)
         self._n_admitted = 0
+        self._n_rejected = 0
         self._per_tenant: dict[str, dict] = {}
         self._big_busy_per_worker: np.ndarray | None = None
+        if self.admission is not None:
+            self.admission.reset_stats()
         self.cache.reset_counters()
 
+    def _rejected_by(self, reason: str) -> int:
+        return (self.admission.rejected_by_reason[reason]
+                if self.admission is not None else 0)
+
     def close_trace(self) -> None:
-        """No-op: tracing is not ported yet (ROADMAP Queue 1 item 9)."""
+        """Flush and close the JSONL trace, if one is attached (a no-op
+        otherwise; idempotent)."""
+        if self.trace is not None:
+            self.trace.close()

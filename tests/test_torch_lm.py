@@ -267,8 +267,8 @@ def test_served_streams_equal_jax_serve(weights, monkeypatch):
 
 
 def test_serve_flags():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        serve(["--mbe"], device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        serve(["--mbe", "--mesh", "2"], device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
         serve(["--arch", ARCH, "--smoke", "--model-parallel", "2"],
               device="cpu")
