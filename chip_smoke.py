@@ -51,9 +51,11 @@ makes the script exit non-zero):
               fp32, causal, ragged (S = 1000 and 4097) and non-causal,
               hd 64 with G = 3, element-wise and per query row
               (tolerances at K7_TOL, K7_ROW_RTOL), fp32 also at the grad
-              path's (2, 4096), hd 32 and hd 16, every case run twice
-              with bit-identical o and lse, and two planted faults in
-              bf16 and two in fp32 the check must flag; the K7 backward
+              path's (2, 4096), hd 32 and hd 16, zamba2-7b's hd 112
+              ((1, 4096) bf16, (2, 1000) bf16 and fp32, 32 heads), every
+              case run twice with bit-identical o and lse, and two
+              planted faults in bf16 and two in fp32 (at hd 128 and again
+              at hd 112) the check must flag; the K7 backward
               (bf16: the fused dq / dk / dv kernel; fp32: K7 dq and dkv)
               against ``flash_bwd_ref`` at the training layer shapes
               (1, 4096) and (2, 4096), bf16 and fp32, causal, ragged
@@ -114,12 +116,21 @@ makes the script exit non-zero):
               the checked forward against its plain version, and a
               planted K7 fault that both checks must flag;
               decode == prefill in fp32; the LM ``serve`` loop; then
-              the training paths of qwen3-1.7b at full width: the train
-              step's fp32 grads (remat on, microbatch (2, 4096) from the
-              port's SyntheticSource) with attn_impl='pallas' against
-              'xla' per parameter, in bf16 at 28 layers (with a planted
-              K7 bwd fault that must be flagged) and in fp32 at 2 layers
-              (TRAIN_GRAD_RTOL); 3 AdamW steps with accum=2 on (4, 4096)
+              the other model families at full width, each model freed
+              before the next (granite-moe-1b-a400m, internvl2-2b with
+              its 256 patch rows, musicgen-medium, zamba2-7b, xlstm-1.3b):
+              ``make_prefill_step`` at (1, 4096) with attn_impl='pallas'
+              (exactly 24 / 24 / 48 / 13 / 0 K7 launches), logits against
+              'xla' at every position with every K7 call held against its
+              plain version and a planted K7 fault flagged, decode ==
+              prefill in fp32 (but vlm), and ``serve`` (4 slots, 4
+              requests); then the training paths of qwen3-1.7b at full
+              width: the train step's fp32 grads (remat on, microbatch
+              (2, 4096) from the port's SyntheticSource) with
+              attn_impl='pallas' against 'xla' per parameter, in bf16 at 28
+              layers (with a planted K7 bwd fault that must be flagged) and in
+              fp32 at 2 layers (TRAIN_GRAD_RTOL); 3 AdamW steps with accum=2 on
+              (4, 4096)
               (per step 112 K7 fwd, 56 fused bwd; finite loss and grad
               norm; params moved; peak memory) and a profiled step; the
               launcher ``repro_torch.launch.train`` at the smoke config
@@ -132,12 +143,12 @@ makes the script exit non-zero):
               (K2 / K3 in place, every rep on its own copy of the state,
               at steps_per_call 1 and 16, per step, at 128 / 256 / 512
               threads, and dblp-large's 1024 x 4096 cluster)
-              (and for K7 the time of ``F.scaled_dot_product_attention``
-              on the same operands, and for the K7 backward SDPA's
-              backward; the fp32 K7 forward, dq and dkv at (2, 4096)
-              beside SDPA's fp32 forward and backward and the kernels
-              SDPA ran for them, the forward's shares of its FP32 and
-              3xTF32 bounds; K5 with its queued device time),
+              (and for K7, at hd 128 and at hd 112, the time of
+              ``F.scaled_dot_product_attention`` on the same operands,
+              and for the K7 backward SDPA's backward; the fp32 K7
+              forward, dq and dkv at (2, 4096) beside SDPA's fp32 forward and
+              backward and the kernels SDPA ran for them, the forward's shares
+              of its FP32 and 3xTF32 bounds; K5 with its queued device time),
               and the device's busy share over main-path windows.
 
 Every phase runs on every call; the script takes no arguments.  The line
@@ -1115,9 +1126,19 @@ K7_CASES = (
     (2, 256, 8, 2, 128, "float32", False, None),
     (2, 1000, 8, 4, 32, "float32", True, None),
     (2, 333, 8, 2, 16, "float32", False, None),
+    # zamba2-7b's shared attention block (hd 112, 32 heads, G = 1): the
+    # prefill layer, ragged, and fp32 (the decode == prefill path)
+    (1, 4096, 32, 32, 112, "bfloat16", True, None),
+    (2, 1000, 32, 32, 112, "bfloat16", True, None),
+    (2, 1000, 32, 32, 112, "float32", True, None),
 )
 # the fp32 controls' case: the fp32 grad path's layer
 K7_F32_CONTROL = K7_CASES.index((2, 4096, 16, 8, 128, "float32", True, None))
+# the hd-112 controls' cases (bf16 and fp32)
+K7_HD112_CONTROLS = (K7_CASES.index((1, 4096, 32, 32, 112, "bfloat16", True,
+                                     None)),
+                     K7_CASES.index((2, 1000, 32, 32, 112, "float32", True,
+                                     None)))
 # Tolerances.  Element-wise, bf16 o 3e-2 abs/rel (tests/test_flash_kernel.py:
 # bf16 keeps ~3 decimal digits, and the kernel rounds p at its running
 # maximum where the plain version rounds it at the final one); fp32 o 1e-4
@@ -1201,11 +1222,12 @@ K7_EARLY = {}
 def check_k7(dev):
     """K7 fwd against ``flash_fwd_ref`` on the card at K7_CASES, then two
     planted faults that the check must flag; returns the largest max
-    |err| of o over the cases.  Also takes K7's stand-alone device time
-    at K7_TIME_SHAPES into K7_EARLY."""
+    |err| of o over the cases, {"flash_fwd": at hd 16-128,
+    "flash_fwd_hd112": at hd 112}.  Also takes K7's stand-alone device
+    time at K7_TIME_SHAPES into K7_EARLY."""
     import torch
     from repro_torch.kernels.flash_attention import flash_fwd
-    worst = 0.0
+    worst = {"flash_fwd": 0.0, "flash_fwd_hd112": 0.0}
     for i, (B, S, H, KV, hd, dt, causal, rows) in enumerate(K7_CASES):
         qp, kp, vp = k7_operands(B, S, H, KV, hd, dt, dev, seed=100 + i)
         kw = dict(causal=causal, scale=hd ** -0.5, sq=S, sk=S)
@@ -1214,6 +1236,9 @@ def check_k7(dev):
         if (B, S, H, KV, hd) in K7_TIME_SHAPES and dt == "bfloat16":
             K7_EARLY[S] = device_ms(lambda: flash_fwd(qp, kp, vp, **kw),
                                     K7_FWD_KERNEL, reps=20 if S < 32768 else 5)
+        if (B, S, H, KV, hd) == K7_HD112_SHAPE and dt == "bfloat16":
+            K7_EARLY["hd112"] = device_ms(lambda: flash_fwd(qp, kp, vp, **kw),
+                                          K7_FWD_KERNEL)
         e = k7_errors(qp, kp, vp, o, lse, spans=k7_spans(S, rows), **kw)
         # the forward has no atomics: a second run is bit-identical
         o2, lse2 = flash_fwd(qp, kp, vp, **kw)
@@ -1228,8 +1253,9 @@ def check_k7(dev):
         require(k7_ok(e, dt), f"K7 {K7_CASES[i]}: {e}")
         require(same, f"K7 {K7_CASES[i]}: o or lse differs between two "
                       f"runs on the same operands")
-        worst = max(worst, e["abs"])
-        if i in (0, K7_F32_CONTROL):
+        name = "flash_fwd_hd112" if hd == 112 else "flash_fwd"
+        worst[name] = max(worst[name], e["abs"])
+        if i in (0, K7_F32_CONTROL, *K7_HD112_CONTROLS):
             # controls (bf16 and fp32): the kernel with a planted fault,
             # held against the plain version of the right function, must
             # come out wrong
@@ -2434,6 +2460,218 @@ def lm_path(dev, by_path):
 
 
 # ---------------------------------------------------------------------------
+# phase 4 (families): the moe, vlm, audio, hybrid and ssm models at full
+# width
+# ---------------------------------------------------------------------------
+
+# (arch, K7 launches a prefill): one per attention layer, the hybrid's one
+# per application of its shared block (81 // 6), none for ssm
+FAMILIES = (("granite-moe-1b-a400m", 24), ("internvl2-2b", 24),
+            ("musicgen-medium", 48), ("zamba2-7b", 13), ("xlstm-1.3b", 0))
+# the prefill: 4096 tokens (internvl2: after its 256 patch rows)
+FAMILY_PREFILL = (1, 4_096)
+# decode == prefill in fp32: (B, positions)
+FAMILY_DECODE = (2, 32)
+FAMILY_SERVE = ["--slots", "4", "--requests", "4", "--prompt-len", "16",
+                "--max-new", "8", "--max-seq", "64"]
+
+
+def family_batch(cfg, B, S, dev, seed):
+    """tokens (B, S[, n_cb]) and, for vlm, patch_emb (B, n_patch, d) in
+    ``cfg.dtype`` (the reference's stub frontend: random rows of 0.02)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cb = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    out = dict(tokens=torch.randint(0, cfg.vocab, (B, S) + cb, device=dev,
+                                    generator=g))
+    if cfg.family == "vlm":
+        out["patch_emb"] = (torch.randn(B, cfg.patch_tokens, cfg.d_model,
+                                        device=dev, generator=g) * 0.02
+                            ).to(getattr(torch, cfg.dtype))
+    return out
+
+
+def family_logits(pal, xla, params, batch, nxt, n_k7, label) -> dict:
+    """A family's prefill logits, every position (audio: every codebook's
+    too), of the K7 path against the torch-op path, with every K7 call
+    held against its plain version; the floor: the torch-op path against
+    itself with half its key tile (the same attention summed in another
+    order, which is what K7 against the torch-op path is); the limits:
+    the qwen3 phase's, or twice the floor where a deep stack carries that
+    rounding further (logged); then the control, K7 reading misplaced
+    late V tiles in every call, which both checks must flag."""
+    import dataclasses
+    import torch
+    from repro_torch.models import model as M
+    pe = batch.get("patch_emb")
+
+    def logits(cfg):
+        return M.forward(cfg, params, batch["tokens"], patch_emb=pe)[0]
+
+    with torch.no_grad():
+        lx = logits(xla)
+        with k7_held() as seen:
+            lp = logits(pal)
+        require(torch.equal(nxt.long(), lp[:, -1].argmax(-1)),
+                f"{label}: prefill_step tokens != argmax of its logits")
+        finite = bool(torch.isfinite(lp).all() and torch.isfinite(lx).all())
+        # audio: each codebook's logits a position of its own
+        lp, lx = lp.flatten(1, -2), lx.flatten(1, -2)
+        sound = logit_errors(lp, lx)
+        del lp
+        half = dataclasses.replace(xla, attn_chunk_k=xla.attn_chunk_k // 2)
+        floor = logit_errors(logits(half).flatten(1, -2), lx)
+        with k7_held(late_v_tiles_misplaced) as seen_c:
+            control = logit_errors(logits(pal).flatten(1, -2), lx)
+        del lx
+    rtol = max(LM_LOGIT_RTOL, 2 * floor["rel"])
+    atol = max(LM_LOGIT_TOL, 2 * floor["last_abs"])
+    k7, k7c = worst_k7(seen), worst_k7(seen_c)
+    k7_flagged = not all(k7_ok(e, "bfloat16") for e in seen_c)
+    lm_flagged = control["rel"] > rtol or control["last_abs"] > atol
+    out = dict(sound=sound, floor=floor, rtol=rtol, atol=atol, k7_held=k7,
+               control=control, control_k7=k7c)
+    log(f"  {label}: logits vs attn_impl='xla': " + json.dumps(sound)
+        + f"; floor (xla, key tile {half.attn_chunk_k} vs "
+        f"{xla.attn_chunk_k}): " + json.dumps(floor) + f"; limits "
+        f"{rtol:.3g} every position, {atol:.3g} last (qwen3's "
+        f"{LM_LOGIT_RTOL}, {LM_LOGIT_TOL}, or twice the floor); K7 calls "
+        f"held: " + json.dumps(k7))
+    log(f"  {label} control (K7 reads misplaced late V tiles): logits "
+        + json.dumps(control) + f"; flagged by the kernel check "
+        f"{k7_flagged}, by the logits check {lm_flagged}")
+    require(finite and sound["rel"] <= rtol and sound["last_abs"] <= atol,
+            f"{label}: logits against the torch-op path: {sound} (limits "
+            f"{rtol}, {atol}; floor {floor})")
+    require(k7["calls"] == n_k7 and all(k7_ok(e, "bfloat16") for e in seen),
+            f"{label}: K7 calls against the plain version: {k7}")
+    require(k7_flagged and lm_flagged,
+            f"{label}: the planted K7 fault passed (kernel check "
+            f"{k7_flagged}, logits check {lm_flagged})")
+    return out
+
+
+def families_path(dev, by_path):
+    """Each family's full config in turn, its model freed before the
+    next: the bf16 prefill through ``make_prefill_step`` with
+    attn_impl='pallas' (exactly the table's K7 launches and no other
+    kernel; ``family_logits``: logits against attn_impl='xla', every K7
+    call against its plain version, a planted K7 fault flagged), decode
+    == prefill in fp32 (moe with the capacity raised so that no token
+    drops; vlm skipped, as in tests/test_archs.py), and the served loop
+    through ``serve``.  Returns the measurements."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import init_params
+    from repro_torch.training.step import make_prefill_step
+    info = {}
+    t_phase = time.perf_counter()
+    for arch, n_k7 in FAMILIES:
+        cfg = configs.get_config(arch)
+        t0 = time.perf_counter()
+        master = init_params(M.param_specs(cfg), 0, device=dev)
+        params = M.cast_params(cfg, master)
+        torch.cuda.synchronize()
+        r = info[arch] = dict(params=cfg.n_params(),
+                              init_s=time.perf_counter() - t0)
+        log(f"  {arch} ({cfg.family}): {cfg.n_params():,} params, init "
+            f"{r['init_s']:.1f} s")
+        pal = dataclasses.replace(cfg, attn_impl="pallas")
+        xla = dataclasses.replace(cfg, attn_impl="xla")
+        B, S = FAMILY_PREFILL
+        batch = family_batch(cfg, B, S, dev, seed=S + B)
+        prefill = make_prefill_step(pal)
+        prefill(params, batch)                  # warm-up (cuBLAS plans)
+        torch.cuda.synchronize()
+        label = f"{arch} prefill ({B}, {S}) pallas"
+        reset_counters()
+        t = time.perf_counter()
+        nxt = prefill(params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        by_path[label] = c = counters()
+        require(c["flash_fwd"] == n_k7 and sum(c.values()) == n_k7,
+                f"{label}: launches {nonzero(c)}, expected {n_k7} flash_fwd")
+        r.update(prefill_wall_s=wall, prefill_tok_per_s=B * S / wall,
+                 k7_launches=c["flash_fwd"])
+        log(f"  {label}: {wall:.3f} s ({B * S / wall:,.0f} tok/s), launches "
+            f"{nonzero(c)}")
+        if n_k7:
+            r["logits"] = family_logits(pal, xla, params, batch, nxt, n_k7,
+                                        label)
+        else:
+            with torch.no_grad():
+                lp = M.forward(pal, params, batch["tokens"])[0]
+            require(bool(torch.isfinite(lp).all())
+                    and torch.equal(nxt.long(), lp[:, -1].argmax(-1)),
+                    f"{label}: non-finite logits, or prefill_step tokens != "
+                    f"argmax of its logits")
+            log(f"  {label}: no attention, so attn_impl='xla' runs the same "
+                f"code; logits finite")
+            del lp
+        del params, batch, nxt
+        torch.cuda.empty_cache()
+        if cfg.family != "vlm":
+            f32 = dataclasses.replace(pal, dtype="float32")
+            if cfg.is_moe:
+                f32 = dataclasses.replace(f32, capacity_factor=float(
+                    cfg.n_experts) / cfg.top_k + 1.0)
+            B, S = FAMILY_DECODE
+            toks = family_batch(f32, B, S, dev, seed=7)["tokens"]
+            reset_counters()
+            t = time.perf_counter()
+            with torch.no_grad():
+                full = M.forward(f32, master, toks)[0]
+                n_f = counters()["flash_fwd"]
+                cache = M.init_cache(f32, B, S, device=dev)
+                dec = torch.stack([M.decode_step(f32, master, cache,
+                                                 toks[:, i], i)[0]
+                                   for i in range(S)], 1)
+            torch.cuda.synchronize()
+            by_path[f"{arch} decode == prefill fp32"] = counters()
+            err = float((dec - full).abs().max())
+            r.update(decode_err=err, decode_wall_s=time.perf_counter() - t)
+            log(f"  {arch} decode == prefill fp32 (B={B}, {S} positions): "
+                f"max |err| {err:.3g} (tol {LM_DECODE_TOL}), K7 launches "
+                f"{n_f} (forward), {r['decode_wall_s']:.2f} s")
+            require(n_f == n_k7 and bool(torch.isfinite(full).all())
+                    and torch.allclose(dec, full, rtol=LM_DECODE_TOL,
+                                       atol=LM_DECODE_TOL),
+                    f"{arch}: decode != prefill in fp32: max |err| {err}, "
+                    f"K7 launches {n_f}")
+            del cache, full, dec, toks
+        del master
+        torch.cuda.empty_cache()
+        # the served loop, through the user's entry point
+        argv = ["--arch", arch] + FAMILY_SERVE
+        reset_counters()
+        out = serve(argv, device=str(dev))
+        by_path[f"{arch} serve"] = c = counters()
+        outs = out["outputs"]
+        toks = [t for v in outs.values() for x in v
+                for t in (x if isinstance(x, list) else [x])]
+        cb = cfg.n_codebooks or 1
+        require(out["tokens"] == 4 * 8
+                and all(len(v) == 8 for v in outs.values())
+                and len(toks) == 4 * 8 * cb
+                and all(0 <= t < cfg.padded_vocab for t in toks),
+                f"{arch} serve: {out['tokens']} tokens, lengths "
+                f"{[len(v) for v in outs.values()]}")
+        r["serve"] = {k: out[k] for k in ("tokens", "steps", "decode_calls",
+                                          "wall_s", "tok_per_s")}
+        log(f"  {arch} serve {' '.join(argv)}: " + json.dumps(r["serve"])
+            + f", launches {nonzero(c)}")
+        del out
+        torch.cuda.empty_cache()
+    info["wall_s"] = time.perf_counter() - t_phase
+    log(f"  [families] {info['wall_s']:.1f} s")
+    return info
+
+
+# ---------------------------------------------------------------------------
 # phase 4 (training): qwen3-1.7b train step at full width
 # ---------------------------------------------------------------------------
 
@@ -2700,6 +2938,7 @@ KERNEL_PATH = {
     "fused_check_gathered_prefix2": "compact stream",
     "intersect_count": "compact unfused impl=pallas",
     "flash_fwd": f"prefill {LM_PREFILL[0]} pallas",
+    "flash_fwd_hd112": "zamba2-7b prefill (1, 4096) pallas",
     "flash_bwd_fused": f"train ({TRAIN_MICRO * TRAIN_ACCUM}, {TRAIN_SEQ}) "
                        f"accum={TRAIN_ACCUM}",
     "flash_bwd_dq": f"train grads ({TRAIN_MICRO}, {TRAIN_SEQ}) fp32 2 layers",
@@ -2789,16 +3028,18 @@ def k1_lane_inputs(lanes, n, w, seed, dev):
     return tuple(torch.stack(xs) for xs in zip(*parts))
 
 
-def record(name, by_path, errs, **fields):
+def record(name, by_path, errs, counter=None, **fields):
     """One entry of the ``kernels`` line: ``launches`` is the count of
     the kernel's own path (``KERNEL_PATH``), ``launches_by_path`` every
-    drive that launched it."""
+    drive that launched it; ``counter`` names the wrapper's count when it
+    is not ``name`` (a second row of one wrapper)."""
+    key_ = counter or name
     rec = dict(name=name, route="cuda",
-               launches=by_path[KERNEL_PATH[name]][name],
+               launches=by_path[KERNEL_PATH[name]][key_],
                max_abs_err=errs[name], **fields)
     rec["path"] = KERNEL_PATH[name]
-    rec["launches_by_path"] = {k: c[name] for k, c in by_path.items()
-                               if c[name]}
+    rec["launches_by_path"] = {k: c[key_] for k, c in by_path.items()
+                               if c[key_]}
     return rec
 
 
@@ -3092,6 +3333,56 @@ def k7_times(dev, by_path, errs, lm):
                  prefill=lm["prefill"], serve=lm["serve"],
                  prefill_profile=lm["profile"])
     return [rec]
+
+
+# zamba2-7b's shared attention layer: (B, S, H, KV, hd)
+K7_HD112_SHAPE = (1, 4_096, 32, 32, 112)
+
+
+def k7_hd112_times(dev, by_path, errs, fam):
+    """K7 fwd at hd 112 (zamba2-7b's shared block at its prefill): call
+    (CUDA events), device time (profiler), the bound, the plain version
+    and ``F.scaled_dot_product_attention`` on the same operands; the
+    record's launches are the zamba2-7b prefill's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_fwd, flash_fwd_ref
+    B, S, H, KV, hd = K7_HD112_SHAPE
+    qp, kp, vp = k7_operands(B, S, H, KV, hd, "bfloat16", dev, seed=112)
+    kw = dict(causal=True, scale=hd ** -0.5, sq=S, sk=S)
+    k7 = lambda: flash_fwd(qp, kp, vp, **kw)
+    lib = lambda: F.scaled_dot_product_attention(
+        qp.flatten(1, 2), kp, vp, is_causal=True, enable_gqa=True)
+    flops = 4 * hd * H * B * S * (S + 1) // 2
+    nbytes = 2 * B * S * hd * (2 * H + 2 * KV) + 4 * B * H * S
+    b, kind = bound(nbytes, flops, H100_BF16_FLOPS)
+    r = dict(ms=cuda_ms(k7), device_ms=device_ms(k7, K7_FWD_KERNEL),
+             bound_ms=b, bound_by=kind, library_ms=cuda_ms(lib),
+             plain_ms=cuda_ms(lambda: flash_fwd_ref(qp, kp, vp, **kw),
+                              reps=3))
+    r["tflops"] = flops / (r["ms"] * 1e9)
+    x, y = lib().float(), k7()[0].flatten(1, 2).float()
+    r["sdpa_row_rel_diff"] = float(((x - y).norm(dim=-1)
+                                    / x.norm(dim=-1)).max())
+    del x, y
+    require(r["sdpa_row_rel_diff"] <= K7_ROW_RTOL["bfloat16"] * 2,
+            f"SDPA and K7 disagree at hd 112: {r['sdpa_row_rel_diff']}")
+    log(f"  flash_fwd at {K7_HD112_SHAPE} bf16 causal: " + json.dumps(r))
+    return record("flash_fwd_hd112", by_path, errs, counter="flash_fwd",
+                  source="src/repro_torch/csrc/flash_fwd.cu",
+                  replaces="src/repro/kernels/flash_attention/kernel.py:47",
+                  ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b,
+                  bound_by=kind, library_ms=r["library_ms"],
+                  library_call="F.scaled_dot_product_attention("
+                               "is_causal=True, enable_gqa=True)",
+                  device_ms=r["device_ms"] if r["device_ms"] is not None
+                  else K7_EARLY.get("hd112"),
+                  device_ms_from="phase 5" if r["device_ms"] is not None
+                  else "phase 3", tflops=r["tflops"],
+                  shape=f"(B, S, H, KV, hd) = {K7_HD112_SHAPE} bf16 causal, "
+                        f"zamba2-7b's shared attention layer",
+                  families={a: {k: v for k, v in f.items() if k != "logits"}
+                            for a, f in fam.items() if a != "wall_s"},
+                  families_wall_s=fam["wall_s"])
 
 
 # one qwen3-1.7b layer's K7 backward at the training shapes: (B, S, H, KV,
@@ -3569,7 +3860,7 @@ def main() -> int:
         errs[k] = max(errs.get(k, 0), v)
     errs["intersect_count"] = max(errs["intersect_count"],
                                   check_k5_tiles(dev))
-    errs["flash_fwd"] = check_k7(dev)
+    errs.update(check_k7(dev))
     bwd_errs, _, bwd_early = check_k7_bwd(dev)
     errs.update(bwd_errs)
     log(f"[kernels] {n} pool configurations + lanes bit-exact, max |err| "
@@ -3577,6 +3868,7 @@ def main() -> int:
     t0 = time.perf_counter()
     by_path = main_path(dev, smi_line)
     lm = lm_path(dev, by_path)
+    fam = families_path(dev, by_path)
     train = train_path(dev, by_path)
     log(f"[main] {time.perf_counter() - t0:.1f} s, launches by path "
         f"{json.dumps({k: nonzero(c) for k, c in by_path.items()})}")
@@ -3584,6 +3876,7 @@ def main() -> int:
     fwd = k7_times(dev, by_path, errs, lm)
     bwd, fwd[0]["fp32_at_2x4096"] = k7_bwd_times(dev, by_path, errs, train,
                                                  bwd_early)
+    fwd.append(k7_hd112_times(dev, by_path, errs, fam))
     rec = times(dev, by_path, errs) + fwd + bwd
     log(f"[times] {time.perf_counter() - t0:.1f} s; [total] "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -1,9 +1,8 @@
 """CPU oracle implementations of MBE.
 
-Twin of ``src/repro/baselines/mbea.py``: a NumPy copy of the serial
-oracles (the process-pool ``enumerate_parallel`` is not ported), so the
-port and ``chip_smoke.py`` check results without importing the JAX
-package.  The reference module offers three reference points:
+Twin of ``src/repro/baselines/mbea.py``: a NumPy copy of the oracles, so
+the port and ``chip_smoke.py`` check results without importing the JAX
+package.  Three reference points:
 
 * ``enumerate_bruteforce`` — closure-based exhaustive enumeration; ground
   truth for tiny graphs (tests the oracle itself).
@@ -23,7 +22,10 @@ maximal biclique has **both sides non-empty**.
 """
 from __future__ import annotations
 
+import multiprocessing
+import os
 import sys
+from concurrent.futures import ProcessPoolExecutor
 from typing import Iterable
 
 import numpy as np
@@ -189,6 +191,91 @@ def enumerate_mbea(g: BipartiteGraph, order: str = "degeneracy",
 
 def count_mbea(g: BipartiteGraph, order: str = "degeneracy") -> int:
     return enumerate_mbea(g, order=order, collect=False)
+
+
+# ---------------------------------------------------------------------------
+# ParMBE stand-in: process-parallel over first-level subtrees
+# ---------------------------------------------------------------------------
+
+_PAR_STATE: dict = {}
+
+
+def _par_init(adj, n_v, order):
+    _PAR_STATE["adj"] = adj
+    _PAR_STATE["n_v"] = n_v
+    _PAR_STATE["order"] = order
+
+
+def _par_task(args) -> int:
+    """Process one first-level candidate x_i given the candidates are taken
+    in a fixed global order: P for the subtree is the candidates *after* x in
+    that order, Q the ones before (exactly the state Algorithm 1 would have
+    when popping x at the root)."""
+    (i, root_order) = args
+    adj = _PAR_STATE["adj"]
+    n_v = _PAR_STATE["n_v"]
+    order = _PAR_STATE["order"]
+    sys.setrecursionlimit(100000)
+    x = root_order[i]
+    Q = list(root_order[:i])
+    P = list(root_order[i + 1:])
+    L0 = (1 << n_v) - 1
+    cnt = [0]
+
+    def sink(Lp, Rp):
+        cnt[0] += 1
+
+    Lp = L0 & adj[x]
+    if not Lp:
+        return 0
+    nLp = Lp.bit_count()
+    Qp = []
+    for v in Q:
+        c = (adj[v] & Lp).bit_count()
+        if c == nLp:
+            return 0                      # not maximal
+        if c > 0:
+            Qp.append(v)
+    Pp, R_extra = [], []
+    for v in reversed(P):  # reversed: match pop() order of the serial code
+        c = (adj[v] & Lp).bit_count()
+        if c == nLp:
+            R_extra.append(v)
+        elif c > 0:
+            Pp.append(v)
+    cnt[0] += 1
+    if Pp:
+        _mbea_rec(adj, Lp, (x,) + tuple(R_extra), Pp, Qp, order, sink)
+    return cnt[0]
+
+
+def enumerate_parallel(g: BipartiteGraph, workers: int | None = None,
+                       order: str = "degeneracy") -> int:
+    """Count maximal bicliques with first-level subtrees over a process pool.
+
+    This mirrors ParMBE's (and cuMBE's) coarse-grained decomposition: the
+    root-level candidate list is fixed up front; subtree i sees Q = roots
+    before i, P = roots after i.  The pool is started with ``spawn`` (a
+    fork of a process that holds a CUDA context or torch's thread pools
+    can deadlock); the workers run only this module's big-int search and
+    never touch the card.
+    """
+    adj = _adj_ints(g)
+    L0 = (1 << g.n_v) - 1
+    roots = list(range(g.n_u))
+    if order == "degeneracy":
+        roots.sort(key=lambda v: (adj[v] & L0).bit_count())
+    workers = workers or min(os.cpu_count() or 2, 16)
+    if g.n_u == 0:
+        return 0
+    args = [(i, roots) for i in range(len(roots))]
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(
+            max_workers=workers, mp_context=ctx, initializer=_par_init,
+            initargs=(adj, g.n_v, order)) as ex:
+        counts = list(ex.map(_par_task, args,
+                             chunksize=max(1, len(args) // (workers * 8))))
+    return int(sum(counts))
 
 
 def pair_checksum_sum(bicliques, n_u: int, n_v: int) -> int:

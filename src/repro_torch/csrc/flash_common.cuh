@@ -63,21 +63,23 @@ __device__ __forceinline__ void cp_async_wait0() {
 }
 
 // Each thread's share of an output row of HD columns, as HD / 16 columns
-// in 16-byte chunks where there are four or more: lane group g (0 .. 15)
-// takes chunks g and g + 16 (hd 128) or chunk g (hd 64), else HD / 16
-// adjacent columns.  A warp's loads of one row then cover distinct
-// chunks (no bank conflict).
+// in 16-byte chunks where that count is a multiple of four: lane group g
+// (0 .. 15) takes chunks g and g + 16 (hd 128) or chunk g (hd 64), else
+// HD / 16 adjacent columns (hd 16, 32 and 112; at hd 112 seven scalar
+// loads at a lane stride of 7 words, which meet no bank twice).  A warp's
+// loads of one row then cover distinct chunks (no bank conflict).
 template <int HD>
 struct Cols {
   static constexpr int N = HD / 16;
+  static constexpr bool CHUNKS = N % 4 == 0;
   __device__ __forceinline__ static int at(int g, int j) {
-    return N >= 4 ? (j / 4) * 64 + 4 * g + j % 4 : N * g + j;
+    return CHUNKS ? (j / 4) * 64 + 4 * g + j % 4 : N * g + j;
   }
   // the N values of row `row` of a tile of pitch ld at this thread's
   // columns
   __device__ __forceinline__ static void load(float (&x)[N], const float* t,
                                               int ld, int row, int g) {
-    if constexpr (N >= 4) {
+    if constexpr (CHUNKS) {
 #pragma unroll
       for (int j = 0; j < N; j += 4) {
         const float4 v =
@@ -93,7 +95,8 @@ struct Cols {
       x[0] = v.x;
       x[1] = v.y;
     } else {
-      x[0] = t[row * ld + at(g, 0)];
+#pragma unroll
+      for (int j = 0; j < N; ++j) x[j] = t[row * ld + at(g, j)];
     }
   }
 };

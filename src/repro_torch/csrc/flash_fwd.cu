@@ -53,7 +53,14 @@
 //    causal blocks start first.  No producer warp: S (64), O (64) and P
 //    (32) take 160 registers a thread, and with a third warpgroup, or a
 //    ninth warp, ptxas's budget falls below what the kernel needs and it
-//    serializes every wgmma (flash_bwd.cu).
+//    serializes every wgmma (flash_bwd.cu).  Head dims 16, 32, 64, 112 and
+//    128.  A tile's rows are column blocks of min(2 hd, 128) bytes, each
+//    a TMA box; a head dim that is not a whole number of blocks (112) is
+//    padded in shared memory only: the TMA boxes read the columns past hd
+//    as zeros, S skips the all-zero k step and P V runs at n = 128, its
+//    last 16 columns never written (Fwd::HP).  hd 112 thus keeps the
+//    128-byte swizzle of hd 128 and its wgmma shapes (seven 16-column
+//    blocks under the 32-byte swizzle ran 1.3x slower: PERF.md section 6).
 //  * fp32 (the tight comparisons): CUDA cores, fp32 throughout, one
 //    block of 256 threads per 64 query rows of one head, heads fastest in
 //    the grid.  What bounds it: 4 hd FLOPs a live pair against the 67
@@ -107,11 +114,14 @@ template <int HD>
 struct Fwd {
   static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;  // swizzle, bytes
   static constexpr int AE = SW / 2;        // bf16 per swizzled row
-  static constexpr int NB = HD / AE;       // column blocks of a tile
+  // the head dim in shared memory: whole column blocks, the TMA boxes
+  // reading the columns past HD as zeros (hd 112: 128)
+  static constexpr int HP = (HD + AE - 1) / AE * AE;
+  static constexpr int NB = HP / AE;       // column blocks of a tile
   static constexpr int KPA = SW / 32;      // k16 steps per column block
   static constexpr int STAGES = 3;         // K / V ring depth
-  static constexpr int QT = 64 * HD * 2;   // one warpgroup's Q tile, bytes
-  static constexpr int KT = BK * HD * 2;   // K or V tile bytes
+  static constexpr int QT = 64 * HP * 2;   // one warpgroup's Q tile, bytes
+  static constexpr int KT = BK * HP * 2;   // K or V tile bytes
   static constexpr int OFF_Q = 0;          // two Q tiles
   static constexpr int OFF_K = 2 * QT;     // STAGES K tiles
   static constexpr int OFF_V = OFF_K + STAGES * KT;
@@ -119,6 +129,7 @@ struct Fwd {
   static constexpr int BYTES = OFF_B + (1 + 2 * STAGES) * 8 + STAGES * 4;
   static constexpr int SMEM = BYTES + 1024;   // + alignment of the base
   static_assert(QT % 1024 == 0 && KT % 1024 == 0, "1024-byte tiles");
+  static_assert(HD % 16 == 0, "whole k16 steps");
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -199,16 +210,17 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   float sacc[64];                // S of one tile, then exp2(S - m) in place
   uint32_t pa[8][4];             // P of one tile: bf16 pairs, A of P V
-  float oacc[HD / 2];
+  float oacc[F::HP / 2];          // O: HP columns, the last HP - HD zero
 #pragma unroll
   for (int i = 0; i < 64; ++i) sacc[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.f;
+  for (int i = 0; i < F::HP / 2; ++i) oacc[i] = 0.f;
   float m[2] = {NEG, NEG};       // running row max, base-2 units
   float l[2] = {0.f, 0.f};       // running row sum, this thread's columns
 
   // S = Q K^T of tile it into sacc (64 q rows x 128 keys); the k index
-  // (head dim) runs along the rows of both tiles
+  // (head dim) runs along the rows of both tiles, up to HD (the padded
+  // columns are zero)
   auto issue_s = [&](int it) {
     const uint64_t dq_ = desc(sQ, F::SW, 16, 8 * F::SW);
     const uint64_t dk_ = desc(
@@ -306,7 +318,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // fragments of P V
   auto rescale_o = [&](const float (&corr)[2]) {
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < F::HP / 8; ++j) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) oacc[4 * j + r] *= corr[r >> 1];
     }
@@ -407,6 +419,7 @@ struct Fwd32 {
   static constexpr int OFF_S = OFF_P + KT32 * XP32;    // [2 steps][BQ32]
   static constexpr int SMEM = 4 * (OFF_S + 2 * BQ32);  // bytes
   static_assert(HD >= 16 && HD % 16 == 0, "head dims 16 .. 128");
+  static_assert(HD <= 128, "the O micro-tile: HD / 16 columns a thread");
 };
 
 // K and V rows [k0, k0 + KT32) into one buffer by cp.async (K at pitch
@@ -693,6 +706,7 @@ extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v,
     case 16: return static_cast<int>(dispatch<16>(dtype, heads, G, Sqp, Skp, sq, sk, scale, causal, s, q, k, v, o, lse));
     case 32: return static_cast<int>(dispatch<32>(dtype, heads, G, Sqp, Skp, sq, sk, scale, causal, s, q, k, v, o, lse));
     case 64: return static_cast<int>(dispatch<64>(dtype, heads, G, Sqp, Skp, sq, sk, scale, causal, s, q, k, v, o, lse));
+    case 112: return static_cast<int>(dispatch<112>(dtype, heads, G, Sqp, Skp, sq, sk, scale, causal, s, q, k, v, o, lse));
     case 128: return static_cast<int>(dispatch<128>(dtype, heads, G, Sqp, Skp, sq, sk, scale, causal, s, q, k, v, o, lse));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -16,17 +16,29 @@ then one ``[serve-mbe]`` summary line with the reference's fields.
 ``--mesh`` (lane pools over several devices) raises: the rest of ROADMAP
 Queue 1 item 8.
 
-LM mode: the same loop as the reference: a fixed-slot batch, each slot holding one
-request's KV state; a request is prefilled by replaying its prompt through
-decode steps; every step decodes one token for every slot at the slot's
-own position (greedy argmax); finished requests leave and queued requests
-take their slot.  The reference vmaps a one-slot decode over the slots;
-here the slots are the batch dimension of one ``decode_step`` with a
-per-slot position vector, each slot writing its own cache position and
-attending over its own prefix.
+LM mode, every model family: the same loop as the reference: a
+fixed-slot batch, each slot holding one request's cache rows; a request
+is prefilled by replaying its prompt through decode steps; every step
+decodes one token for every slot at the slot's own position (greedy
+argmax); finished requests leave and queued requests take their slot.
+The reference vmaps a one-slot decode over the slots; here the slots are
+the batch dimension of one ``decode_step`` with a per-slot position
+vector, each slot writing its own cache position and attending over its
+own prefix.  What the vmap implies is kept:
+
+* moe routes each slot's token as a capacity group of its own (a batched
+  decode groups the whole batch, and a third slot picking an expert would
+  be dropped where the reference keeps it);
+* the recurrent state of the hybrid and ssm families advances in every
+  slot on every call (prompt replays of a neighbour and idle slots too)
+  and is not reset when a slot takes a request, so such a request's
+  stream depends on its neighbours, as in the reference (ROADMAP
+  Queue 3);
+* audio prompts are (prompt_len, n_cb) and each generated token a list
+  of n_cb codes.
 
 A model-parallel mesh (``--model-parallel`` > 1) is ROADMAP Queue 1
-item 12 and raises here.
+item 12c and raises here.
 
 Usage (on the card):
   python -m repro_torch.launch.serve --arch qwen3-1.7b --smoke \
@@ -40,6 +52,7 @@ Usage (on the card):
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -54,19 +67,24 @@ from repro_torch.training.step import make_serve_step
 
 def serve_lm(cfg: ModelConfig, params: dict, prompts: list[np.ndarray], *,
              slots: int = 4, max_new: int = 24, max_seq: int = 128) -> dict:
-    """Serve ``prompts`` (int32 token arrays) through ``slots`` decode
-    slots on the device that holds ``params``; returns the reference's
-    result dict (``outputs``: request id -> generated tokens) plus the
-    loop's wall time and its decode steps, prompt replay included."""
+    """Serve ``prompts`` (int32 token arrays, (prompt_len,) or
+    (prompt_len, n_cb) for audio) through ``slots`` decode slots on the
+    device that holds ``params``; returns the reference's result dict
+    (``outputs``: request id -> generated tokens) plus the loop's wall
+    time and its decode steps, prompt replay included."""
     dev = params["embed/tok"].device
     params = M.cast_params(cfg, params)     # once per call, not per step
-    step = make_serve_step(cfg)
+    # moe: each slot's token a capacity group of its own, as in the
+    # reference's vmapped one-slot decode
+    step = make_serve_step(dataclasses.replace(cfg, moe_group=1)
+                           if cfg.is_moe else cfg)
     B = slots
     cache = M.init_cache(cfg, B, max_seq, device=dev)
+    cb = (cfg.n_codebooks,) if cfg.n_codebooks else ()
     slot_req = [-1] * B           # request id per slot
     slot_pos = np.zeros(B, np.int32)
     slot_new = np.zeros(B, np.int32)
-    cur_tok = np.zeros(B, np.int32)
+    cur_tok = np.zeros((B,) + cb, np.int32)
     queue = list(range(len(prompts)))
     done, outputs = 0, {i: [] for i in range(len(prompts))}
     steps = calls = 0
@@ -103,7 +121,7 @@ def serve_lm(cfg: ModelConfig, params: dict, prompts: list[np.ndarray], *,
             rid = slot_req[s]
             if rid < 0:
                 continue
-            outputs[rid].append(int(nxt[s]))
+            outputs[rid].append(nxt[s].tolist())
             slot_pos[s] += 1
             slot_new[s] += 1
             cur_tok[s] = nxt[s]
@@ -354,13 +372,15 @@ def serve(argv=None, *, device="cuda") -> dict:
     if args.model_parallel > 1:
         raise NotImplementedError(
             "--model-parallel > 1 needs the sharding port (ROADMAP Queue 1 "
-            "item 12); the port serves on one card")
+            "item 12c); the port serves on one card")
 
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get_config(args.arch))
     params = init_params(M.param_specs(cfg), args.seed, device=device)
     rng = np.random.default_rng(args.seed)
-    prompts = [rng.integers(0, cfg.vocab, (args.prompt_len,)).astype(np.int32)
+    cb = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    prompts = [rng.integers(0, cfg.vocab,
+                            (args.prompt_len,) + cb).astype(np.int32)
                for _ in range(args.requests)]
     out = serve_lm(cfg, params, prompts, slots=args.slots,
                    max_new=args.max_new, max_seq=args.max_seq)

@@ -13,7 +13,8 @@ and the same loop:
   from the last checkpoint.
 
 A model-parallel mesh (``--model-parallel`` > 1) needs the sharding port
-(ROADMAP Queue 1 item 12, ``sharding/*``) and raises.
+(ROADMAP Queue 1 item 12c, ``sharding/*``) and raises; so does a family
+other than dense (its training is item 12b).
 
 Usage (on the card):
   python -m repro_torch.launch.train --arch qwen3-1.7b --smoke --steps 100
@@ -87,7 +88,7 @@ def train(argv=None, *, device="cuda") -> dict:
     if args.model_parallel > 1:
         raise NotImplementedError(
             "--model-parallel > 1 needs the sharding port (sharding/*, "
-            "ROADMAP Queue 1 item 12)")
+            "ROADMAP Queue 1 item 12c)")
     dev = check_device(device)
 
     cfg = (configs.get_smoke(args.arch) if args.smoke

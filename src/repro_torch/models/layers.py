@@ -5,7 +5,7 @@ Twin of ``src/repro/models/layers.py``.  Parameters live in a flat
 declares its parameters as a table of ``ParamSpec(shape, logical_axes,
 init)``, the single source from which initialization and the parameter
 count derive (see ``model.py``).  The logical axes are kept for the
-sharding port (ROADMAP Queue 1 item 12); nothing reads them yet.
+sharding port (ROADMAP Queue 1 item 12c); nothing reads them yet.
 """
 from __future__ import annotations
 

@@ -1,9 +1,18 @@
-"""Model assembly: the dense decoder family.
+"""Model assembly for the six model families.
 
-Twin of ``src/repro/models/model.py`` for ``family == "dense"``: pre-norm
-GQA transformer blocks (optional qk-norm, RoPE), SwiGLU FFN.
-The other families (moe, vlm, audio, hybrid, ssm) raise
-``NotImplementedError`` (ROADMAP Queue 1 item 12).
+Twin of ``src/repro/models/model.py``, driven by ``ModelConfig.family``:
+
+* dense / moe / vlm / audio: pre-norm GQA transformer blocks (optional
+  qk-norm, RoPE), a SwiGLU or MoE FFN; vlm prepends ``patch_emb`` rows,
+  audio sums its codebooks' embeddings and has one LM head a codebook.
+* hybrid (zamba2): a Mamba2 (SSD) backbone with ONE weight-shared
+  attention + MLP block after every ``attn_every`` layers, each
+  application with its own KV cache at decode.
+* ssm (xlstm): mLSTM blocks with an sLSTM block every ``slstm_every``.
+
+The attention of every family but ssm reaches the K7 kernel with
+``attn_impl="pallas"`` exactly where the reference reaches
+``flash_attention_pallas`` (the hybrid's shared block included).
 
 Params are a flat ``dict[str, torch.Tensor]`` with the reference's names
 and layout; stacked layer params carry a leading layer dim and the layer
@@ -18,11 +27,11 @@ single source of truth for shapes.  The reference's sharding constraints
 Weights are cast to ``cfg.dtype`` at use, as in the reference
 (``w.astype(x.dtype)``); ``cast_params`` does that cast once for a caller
 that runs many steps on the same weights, with the same numbers (a cast is
-elementwise and deterministic; 1-D scales stay fp32 because every use
-upcasts them).
+elementwise and deterministic; 1-D scales and the SSM's ``a_log`` /
+``d_skip``, which every use reads in fp32, stay fp32).
 
 Entry points:
-  forward(cfg, params, tokens)               -> (logits, aux)
+  forward(cfg, params, tokens, patch_emb=)   -> (logits, aux)
   decode_step(cfg, params, cache, tok, pos)  -> (logits, cache)
   init_cache(cfg, batch, max_seq)            -> cache dict
 """
@@ -35,15 +44,16 @@ from repro_torch.kernels.dispatch import check_device
 from repro_torch.models.attention import decode_attention, flash_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamSpec, apply_rope, rms_norm, swiglu
+from repro_torch.models.moe import moe_ffn
+from repro_torch.models.ssm import mamba2_block
+from repro_torch.models.xlstm import mlstm_block, slstm_block
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: the port "
-            f"serves the dense family (ROADMAP Queue 1 item 12)")
+# the families of pre-norm attention blocks with a KV cache a layer
+_ATTN_FAMILIES = ("dense", "vlm", "audio", "moe")
+# leaves that every use reads in fp32 though they are stacked 2-D:
+# cast_params leaves them as they are
+_FP32_LEAVES = ("a_log", "d_skip")
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -93,24 +103,131 @@ def _mlp_specs(cfg: ModelConfig, L: int | None, prefix: str
     }
 
 
-def param_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
-    _dense_only(cfg)
-    d, V, L = cfg.d_model, cfg.padded_vocab, cfg.n_layers
-    specs = {
-        "embed/tok": ParamSpec((V, d), ("p_vocab", "p_embed")),
-        "lm_head/w": ParamSpec((d, V), ("p_embed", "p_vocab")),
-        "final_norm/scale": ParamSpec((d,), (None,), init="ones"),
+def _moe_specs(cfg: ModelConfig, L: int, prefix: str
+               ) -> dict[str, ParamSpec]:
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {
+        f"{prefix}/norm": ParamSpec((L, d), (None, None), init="ones"),
+        f"{prefix}/wg": ParamSpec((L, d, E), (None, "p_embed", None)),
+        f"{prefix}/w1": ParamSpec((L, E, d, f),
+                                  (None, "p_expert", "p_embed", None)),
+        f"{prefix}/w3": ParamSpec((L, E, d, f),
+                                  (None, "p_expert", "p_embed", None)),
+        f"{prefix}/w2": ParamSpec((L, E, f, d),
+                                  (None, "p_expert", None, "p_embed")),
     }
-    specs.update(_attn_specs(cfg, L, "layers/attn"))
-    specs.update(_mlp_specs(cfg, L, "layers/mlp"))
+
+
+def _mamba_specs(cfg: ModelConfig, L: int, prefix: str
+                 ) -> dict[str, ParamSpec]:
+    d, di, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    H, K = cfg.ssm_heads, cfg.ssm_conv
+    return {
+        f"{prefix}/norm": ParamSpec((L, d), (None, None), init="ones"),
+        f"{prefix}/in_proj": ParamSpec(
+            (L, d, 2 * di + 2 * N + H), (None, "p_embed", "p_inner")),
+        f"{prefix}/conv_w": ParamSpec(
+            (L, K, di + 2 * N), (None, None, "p_inner"), scale=0.5),
+        f"{prefix}/a_log": ParamSpec((L, H), (None, None), init="zeros"),
+        f"{prefix}/dt_bias": ParamSpec((L, H), (None, None), init="zeros"),
+        f"{prefix}/d_skip": ParamSpec((L, H), (None, None), init="ones"),
+        f"{prefix}/norm_inner": ParamSpec((L, di), (None, "p_inner"),
+                                          init="ones"),
+        f"{prefix}/out_proj": ParamSpec((L, di, d),
+                                        (None, "p_inner", "p_embed")),
+    }
+
+
+def _mlstm_specs(cfg: ModelConfig, L: int, prefix: str
+                 ) -> dict[str, ParamSpec]:
+    d = cfg.d_model
+    di = cfg.mlstm_proj * d
+    H, K = cfg.n_heads, cfg.ssm_conv
+    return {
+        f"{prefix}/norm": ParamSpec((L, d), (None, None), init="ones"),
+        f"{prefix}/up_proj": ParamSpec((L, d, 2 * di),
+                                       (None, "p_embed", "p_inner")),
+        f"{prefix}/conv_w": ParamSpec((L, K, di), (None, None, "p_inner"),
+                                      scale=0.5),
+        # block-diagonal per-head projections: H blocks of (P, P)
+        f"{prefix}/wq": ParamSpec((L, H, di // H, di // H),
+                                  (None, None, "p_inner", None)),
+        f"{prefix}/wk": ParamSpec((L, H, di // H, di // H),
+                                  (None, None, "p_inner", None)),
+        f"{prefix}/wv": ParamSpec((L, H, di // H, di // H),
+                                  (None, None, "p_inner", None)),
+        f"{prefix}/wi": ParamSpec((L, di, H), (None, "p_inner", None)),
+        f"{prefix}/wf": ParamSpec((L, di, H), (None, "p_inner", None)),
+        f"{prefix}/norm_inner": ParamSpec((L, di), (None, "p_inner"),
+                                          init="ones"),
+        f"{prefix}/down_proj": ParamSpec((L, di, d),
+                                         (None, "p_inner", "p_embed")),
+    }
+
+
+def _slstm_specs(cfg: ModelConfig, L: int, prefix: str
+                 ) -> dict[str, ParamSpec]:
+    d, H = cfg.d_model, cfg.n_heads
+    dh = d // H
+    ff = ((4 * d // 3) + 127) // 128 * 128
+    return {
+        f"{prefix}/norm": ParamSpec((L, d), (None, None), init="ones"),
+        f"{prefix}/w_gates": ParamSpec((L, d, H * dh * 4),
+                                       (None, "p_embed", "p_inner")),
+        f"{prefix}/r_gates": ParamSpec((L, H, dh, dh * 4),
+                                       (None, None, None, None),
+                                       scale=0.5),
+        f"{prefix}/ln": ParamSpec((L, d), (None, None), init="ones"),
+        f"{prefix}/up": ParamSpec((L, d, ff), (None, "p_embed", "p_ff")),
+        f"{prefix}/down": ParamSpec((L, ff, d), (None, "p_ff", "p_embed")),
+    }
+
+
+def _n_slstm(cfg: ModelConfig) -> int:
+    return cfg.n_layers // cfg.slstm_every if cfg.slstm_every else 0
+
+
+def param_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
+    d, V, L = cfg.d_model, cfg.padded_vocab, cfg.n_layers
+    specs: dict[str, ParamSpec] = {}
+    if cfg.family == "audio":
+        specs["embed/tok"] = ParamSpec(
+            (cfg.n_codebooks, V, d), (None, "p_vocab", "p_embed"))
+        specs["lm_head/w"] = ParamSpec(
+            (cfg.n_codebooks, d, V), (None, "p_embed", "p_vocab"))
+    else:
+        specs["embed/tok"] = ParamSpec((V, d), ("p_vocab", "p_embed"))
+        specs["lm_head/w"] = ParamSpec((d, V), ("p_embed", "p_vocab"))
+    specs["final_norm/scale"] = ParamSpec((d,), (None,), init="ones")
+
+    if cfg.family in ("dense", "vlm", "audio"):
+        specs.update(_attn_specs(cfg, L, "layers/attn"))
+        specs.update(_mlp_specs(cfg, L, "layers/mlp"))
+    elif cfg.family == "moe":
+        specs.update(_attn_specs(cfg, L, "layers/attn"))
+        specs.update(_moe_specs(cfg, L, "layers/moe"))
+    elif cfg.family == "hybrid":
+        specs.update(_mamba_specs(cfg, L, "layers/mamba"))
+        specs.update(_attn_specs(cfg, None, "shared/attn"))
+        specs.update(_mlp_specs(cfg, None, "shared/mlp"))
+    elif cfg.family == "ssm":
+        n_s = _n_slstm(cfg)
+        specs.update(_mlstm_specs(cfg, L - n_s, "mblocks"))
+        if n_s:
+            specs.update(_slstm_specs(cfg, n_s, "sblocks"))
+    else:
+        raise ValueError(cfg.family)
     return specs
 
 
 def cast_params(cfg: ModelConfig, params: dict) -> dict:
     """The fp32 masters cast once to ``cfg.dtype`` (matrices only; the
-    1-D scales stay fp32).  Same numbers as the cast at every use."""
+    1-D scales, ``a_log`` and ``d_skip`` stay fp32).  Same numbers as the
+    cast at every use."""
     dt = dtype_of(cfg)
-    return {k: (v.to(dt) if v.dim() >= 2 else v) for k, v in params.items()}
+    return {k: (v.to(dt) if v.dim() >= 2
+                and k.rsplit("/", 1)[-1] not in _FP32_LEAVES else v)
+            for k, v in params.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -189,60 +306,183 @@ def _mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     return swiglu(h, p["w1"], p["w3"], p["w2"])
 
 
+def _moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    return moe_ffn(h, p["wg"], p["w1"], p["w3"], p["w2"], top_k=cfg.top_k,
+                   capacity_factor=cfg.capacity_factor, group=cfg.moe_group)
+
+
+def _residual(x: torch.Tensor, p: dict, block, cfg: ModelConfig, **kw):
+    """x + block(rms_norm(x), p, cfg, **kw) and the block's state (a
+    Mamba2, mLSTM or sLSTM layer's pre-norm residual)."""
+    out, state = block(rms_norm(x, p["norm"], cfg.norm_eps), p, cfg, **kw)
+    return x + out, state
+
+
 # ---------------------------------------------------------------------------
 # forward (prefill)
 # ---------------------------------------------------------------------------
 
 def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
            dtype: torch.dtype) -> torch.Tensor:
-    return params["embed/tok"][tokens.long()].to(dtype)
+    emb = params["embed/tok"]
+    tokens = tokens.long()
+    if cfg.family == "audio":
+        # tokens (..., n_cb): the sum of the codebooks' embeddings
+        x = sum(emb[i][tokens[..., i]] for i in range(cfg.n_codebooks))
+    else:
+        x = emb[tokens]
+    return x.to(dtype)
 
 
 def _lm_head(cfg: ModelConfig, params: dict, x: torch.Tensor
              ) -> torch.Tensor:
-    return x @ params["lm_head/w"].to(x.dtype)
+    w = params["lm_head/w"].to(x.dtype)
+    if cfg.family == "audio":
+        return torch.einsum("...d,cdv->...cv", x, w)
+    return x @ w
+
+
+def _run(cfg: ModelConfig, block, *args):
+    """``block(*args)``, under ``torch.utils.checkpoint`` when ``cfg.remat``
+    and grad are on (the reference's ``_maybe_remat``)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(block, *args,
+                                                 use_reentrant=False)
+    return block(*args)
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
-            last_only: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. tokens: (B, S) int.  ``last_only`` computes
-    the LM head on the final position only (prefill).  Returns (logits,
-    aux); aux is 0 for the dense family."""
-    _dense_only(cfg)
+            patch_emb: torch.Tensor | None = None, last_only: bool = False
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. tokens: (B, S) int ((B, S, n_cb) for audio).
+    For the vlm family ``patch_emb`` (B, n_patch, d_model) is prepended.
+    ``last_only`` computes the LM head on the final position only
+    (prefill).  Returns (logits, aux): aux is the moe family's load-balance
+    loss summed over the layers, else 0."""
     dtype = dtype_of(cfg)
     x = _embed(cfg, params, tokens, dtype)
+    if cfg.family == "vlm":
+        assert patch_emb is not None
+        x = torch.cat([patch_emb.to(dtype), x], dim=1)
     S = x.shape[1]
     pos = torch.arange(S, device=x.device)[None, :]
-    attn_p = _layers(_subtree(params, "layers/attn"), cfg.n_layers)
-    ff_p = _layers(_subtree(params, "layers/mlp"), cfg.n_layers)
+    aux = torch.zeros((), device=x.device)
 
-    def block(x, ap, fp):
-        x = x + _attn_apply(cfg, ap, x, pos)
-        return x + _mlp_apply(cfg, fp, x)
+    if cfg.family in _ATTN_FAMILIES:
+        attn_p = _layers(_subtree(params, "layers/attn"), cfg.n_layers)
+        ff_p = _layers(_subtree(params, "layers/moe" if cfg.is_moe
+                                else "layers/mlp"), cfg.n_layers)
 
-    remat = cfg.remat and torch.is_grad_enabled()
-    for ap, fp in zip(attn_p, ff_p):
-        if remat:
-            x = torch.utils.checkpoint.checkpoint(block, x, ap, fp,
-                                                  use_reentrant=False)
-        else:
-            x = block(x, ap, fp)
+        def block(x, ap, fp):
+            x = x + _attn_apply(cfg, ap, x, pos)
+            if cfg.is_moe:
+                f_out, a = _moe_apply(cfg, fp, x)
+                return x + f_out, a
+            return x + _mlp_apply(cfg, fp, x), aux
+
+        auxs = []
+        for ap, fp in zip(attn_p, ff_p):
+            x, a = _run(cfg, block, x, ap, fp)
+            auxs.append(a)
+        aux = torch.stack(auxs).sum()
+    elif cfg.family == "hybrid":
+        x = _zamba_forward(cfg, params, x, pos)
+    elif cfg.family == "ssm":
+        x = _xlstm_forward(cfg, params, x)
+
     if last_only:
         x = x[:, -1:]
     x = rms_norm(x, params["final_norm/scale"], cfg.norm_eps)
-    return _lm_head(cfg, params, x), torch.zeros((), device=x.device)
+    return _lm_head(cfg, params, x), aux
+
+
+def _shared_block(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                  pos: torch.Tensor) -> torch.Tensor:
+    x = x + _attn_apply(cfg, _subtree(params, "shared/attn"), x, pos)
+    return x + _mlp_apply(cfg, _subtree(params, "shared/mlp"), x)
+
+
+def _zamba_forward(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                   pos: torch.Tensor) -> torch.Tensor:
+    """The Mamba2 layers in groups of ``attn_every``, the shared block
+    after each whole group, then the rest (81 = 13 x 6 + 3)."""
+    k = cfg.attn_every
+    mp = _layers(_subtree(params, "layers/mamba"), cfg.n_layers)
+
+    def mamba(x, p):
+        return _residual(x, p, mamba2_block, cfg)[0]
+
+    for i, p in enumerate(mp):
+        x = _run(cfg, mamba, x, p)
+        if (i + 1) % k == 0:
+            x = _run(cfg, lambda y: _shared_block(cfg, params, y, pos), x)
+    return x
+
+
+def _xlstm_forward(cfg: ModelConfig, params: dict, x: torch.Tensor
+                   ) -> torch.Tensor:
+    """Groups of ``slstm_every - 1`` mLSTM blocks, each followed by one
+    sLSTM block, then the mLSTM blocks left over."""
+    n_s = _n_slstm(cfg)
+    mp = _layers(_subtree(params, "mblocks"), cfg.n_layers - n_s)
+    sp = _layers(_subtree(params, "sblocks"), n_s) if n_s else []
+    per = cfg.slstm_every - 1 if n_s else 0
+
+    def m_body(x, p):
+        return _residual(x, p, mlstm_block, cfg)[0]
+
+    def s_body(x, p):
+        return _residual(x, p, slstm_block, cfg)[0]
+
+    for g in range(n_s):
+        for p in mp[g * per:(g + 1) * per]:
+            x = _run(cfg, m_body, x, p)
+        x = _run(cfg, s_body, x, sp[g])
+    for p in mp[n_s * per:]:
+        x = _run(cfg, m_body, x, p)
+    return x
 
 
 # ---------------------------------------------------------------------------
-# KV cache + decode
+# KV / state caches + decode
 # ---------------------------------------------------------------------------
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int
                 ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
-    """(shape, dtype) of every leaf of the decode cache."""
-    _dense_only(cfg)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv, cfg.hd)
-    return {"k": (shape, dtype_of(cfg)), "v": (shape, dtype_of(cfg))}
+    """(shape, dtype) of every leaf of the decode cache: the reference's
+    names and shapes, the recurrent state in fp32."""
+    dt, f32 = dtype_of(cfg), torch.float32
+    B, S = batch, max_seq
+    KV, hd, L = cfg.n_kv, cfg.hd, cfg.n_layers
+    if cfg.family in _ATTN_FAMILIES:
+        return {"k": ((L, B, S, KV, hd), dt), "v": ((L, B, S, KV, hd), dt)}
+    if cfg.family == "hybrid":
+        H, N, P = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+        n_apps = L // cfg.attn_every
+        return {
+            "ssm_h": ((L, B, H, N, P), f32),
+            "conv": ((L, B, cfg.ssm_conv - 1, cfg.d_inner + 2 * N), dt),
+            "k": ((n_apps, B, S, KV, hd), dt),
+            "v": ((n_apps, B, S, KV, hd), dt),
+        }
+    if cfg.family == "ssm":
+        n_s = _n_slstm(cfg)
+        n_m = L - n_s
+        di = cfg.mlstm_proj * cfg.d_model
+        H = cfg.n_heads
+        P, dh = di // H, cfg.d_model // H
+        out = {
+            "mC": ((n_m, B, H, P, P), f32),
+            "mn": ((n_m, B, H, P), f32),
+            "mm": ((n_m, B, H), f32),
+            "mconv": ((n_m, B, cfg.ssm_conv - 1, di), dt),
+        }
+        for nm in ("sc", "sn", "sm", "sh") if n_s else ():
+            out[nm] = ((n_s, B, H, dh), f32)
+        return out
+    raise ValueError(cfg.family)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
@@ -255,18 +495,89 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 tokens: torch.Tensor, pos) -> tuple[torch.Tensor, dict]:
-    """One decode step. tokens: (B,) int; pos: the cache slot the new
-    token occupies, one int for the batch or (B,) per slot.  The cache is
-    updated in place and returned."""
-    _dense_only(cfg)
+    """One decode step. tokens: (B,) int ((B, n_cb) for audio); pos: the
+    cache slot the new token occupies, one int for the batch or (B,) per
+    slot.  The recurrent state advances whatever ``pos`` is.  The moe
+    family routes the B tokens in groups of ``cfg.moe_group``, as the
+    reference's decode does.  The cache is updated in place and
+    returned."""
     dtype = dtype_of(cfg)
-    x = params["embed/tok"][tokens.long()].to(dtype)
+    x = _embed(cfg, params, tokens, dtype)
     B = x.shape[0]
     pos = torch.as_tensor(pos, device=x.device).long().expand(B)
-    attn_p = _layers(_subtree(params, "layers/attn"), cfg.n_layers)
-    ff_p = _layers(_subtree(params, "layers/mlp"), cfg.n_layers)
-    for i, (ap, fp) in enumerate(zip(attn_p, ff_p)):
-        x = x + _attn_decode(cfg, ap, x, cache["k"][i], cache["v"][i], pos)
-        x = x + _mlp_apply(cfg, fp, x)
+
+    if cfg.family in _ATTN_FAMILIES:
+        attn_p = _layers(_subtree(params, "layers/attn"), cfg.n_layers)
+        ff_p = _layers(_subtree(params, "layers/moe" if cfg.is_moe
+                                else "layers/mlp"), cfg.n_layers)
+        for i, (ap, fp) in enumerate(zip(attn_p, ff_p)):
+            x = x + _attn_decode(cfg, ap, x, cache["k"][i], cache["v"][i],
+                                 pos)
+            if cfg.is_moe:
+                f_out, _ = _moe_apply(cfg, fp, x[:, None])
+                x = x + f_out[:, 0]
+            else:
+                x = x + _mlp_apply(cfg, fp, x)
+    elif cfg.family == "hybrid":
+        x = _zamba_decode(cfg, params, cache, x, pos)
+    elif cfg.family == "ssm":
+        x = _xlstm_decode(cfg, params, cache, x)
+
     x = rms_norm(x, params["final_norm/scale"], cfg.norm_eps)
     return _lm_head(cfg, params, x), cache
+
+
+def _zamba_decode(cfg, params, cache, x, pos):
+    """One token through the Mamba2 layers (state written into
+    ``ssm_h`` / ``conv``) and the shared block's applications (each into
+    its own KV cache)."""
+    k = cfg.attn_every
+    ap = _subtree(params, "shared/attn")
+    mlp = _subtree(params, "shared/mlp")
+    for i, p in enumerate(_layers(_subtree(params, "layers/mamba"),
+                                  cfg.n_layers)):
+        x, (sh, cv) = _residual(
+            x, p, mamba2_block, cfg, decode=True,
+            state=(cache["ssm_h"][i], cache["conv"][i]))
+        cache["ssm_h"][i].copy_(sh)
+        cache["conv"][i].copy_(cv)
+        if (i + 1) % k == 0:
+            a = (i + 1) // k - 1               # the shared block's a-th use
+            x = x + _attn_decode(cfg, ap, x, cache["k"][a], cache["v"][a],
+                                 pos)
+            x = x + _mlp_apply(cfg, mlp, x)
+    return x
+
+
+def _xlstm_decode(cfg, params, cache, x):
+    """One token through the mLSTM and sLSTM blocks in the forward's
+    order, each block's state written into its cache rows."""
+    n_s = _n_slstm(cfg)
+    mp = _layers(_subtree(params, "mblocks"), cfg.n_layers - n_s)
+    sp = _layers(_subtree(params, "sblocks"), n_s) if n_s else []
+    per = cfg.slstm_every - 1 if n_s else 0
+
+    def m_step(x, j):
+        st = ((cache["mC"][j], cache["mn"][j], cache["mm"][j]),
+              cache["mconv"][j])
+        x, ((C, n, m), cv) = _residual(x, mp[j], mlstm_block, cfg,
+                                       state=st, decode=True)
+        for name, t in (("mC", C), ("mn", n), ("mm", m), ("mconv", cv)):
+            cache[name][j].copy_(t)
+        return x
+
+    def s_step(x, j):
+        st = tuple(cache[nm][j] for nm in ("sc", "sn", "sm", "sh"))
+        x, new = _residual(x, sp[j], slstm_block, cfg, state=st,
+                           decode=True)
+        for nm, t in zip(("sc", "sn", "sm", "sh"), new):
+            cache[nm][j].copy_(t)
+        return x
+
+    for g in range(n_s):
+        for j in range(g * per, (g + 1) * per):
+            x = m_step(x, j)
+        x = s_step(x, g)
+    for j in range(n_s * per, len(mp)):
+        x = m_step(x, j)
+    return x

@@ -1,0 +1,218 @@
+"""xLSTM blocks: mLSTM (matrix memory, chunkwise-parallel) and sLSTM
+(scalar memory, sequential), after Beck et al. 2024.
+
+Twin of ``src/repro/models/xlstm.py``, with its documented
+simplifications (one projection per q / k / v, one depthwise conv on the
+shared path, RMSNorm per block).  mLSTM is linear attention with
+exponential gating, ``C_t = f_t C_{t-1} + i_t v_t k_t^T``, read out as
+``h = (C q) / max(|n . q|, 1)``; it runs chunkwise, stabilised in log
+space with a running max (the m-state), its inter-chunk state carried by
+a Python loop (the reference's ``lax.scan``).  sLSTM keeps the classic
+recurrence with exponential gating and a stabiliser, a loop over time.
+No kernel: the products are the reference's einsums.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import rms_norm
+from repro_torch.models.ssm import _causal_conv
+
+_NEG = -1e30
+
+
+def mlstm_chunked(q, k, v, i_pre, f_pre, chunk: int, state=None):
+    """q, k, v: (B, S, H, P); i_pre, f_pre: (B, S, H) pre-activation
+    gates.  Returns (h (B, S, H, P), (C (B, H, P, P), n (B, H, P), m (B,
+    H))), the state in fp32."""
+    B, S, H, P = q.shape
+    Lc = min(chunk, S)
+    assert S % Lc == 0
+    nc = S // Lc
+    scale = 1.0 / (P ** 0.5)
+
+    logf = F.logsigmoid(f_pre.float())                    # (B, S, H) <= 0
+    logi = i_pre.float()
+
+    lf = logf.reshape(B, nc, Lc, H)
+    li = logi.reshape(B, nc, Lc, H)
+    Fc = torch.cumsum(lf, dim=2)                          # within-chunk
+    F_last = Fc[:, :, -1, :]                              # (B, nc, H)
+    qc = (q.float() * scale).reshape(B, nc, Lc, H, P)
+    kc = k.float().reshape(B, nc, Lc, H, P)
+    vc = v.float().reshape(B, nc, Lc, H, P)
+
+    # per-position source weight (log): i * f-decay to the chunk's end
+    src = F_last[:, :, None, :] - Fc + li                 # (B, nc, Lc, H)
+    m_loc = torch.amax(src, dim=2)                        # (B, nc, H)
+
+    # ---- inter-chunk loop over (C, n, m) ----
+    if state is None:
+        C = torch.zeros((B, H, P, P), dtype=torch.float32, device=q.device)
+        n = torch.zeros((B, H, P), dtype=torch.float32, device=q.device)
+        m = torch.full((B, H), _NEG, dtype=torch.float32, device=q.device)
+    else:
+        C, n, m = state
+    C_pre, n_pre, m_pre = [], [], []
+    for c in range(nc):
+        C_pre.append(C)
+        n_pre.append(n)
+        m_pre.append(m)
+        m_new = torch.maximum(F_last[:, c] + m, m_loc[:, c])   # (B, H)
+        w_old = torch.exp(F_last[:, c] + m - m_new)
+        w_src = torch.exp(src[:, c] - m_new[:, None, :])      # (B, Lc, H)
+        C = C * w_old[..., None, None] + torch.einsum(
+            "blhp,blhq->bhpq", kc[:, c] * w_src[..., None], vc[:, c])
+        n = n * w_old[..., None] + torch.einsum(
+            "blhp,blh->bhp", kc[:, c], w_src)
+        m = m_new
+    C_pre = torch.stack(C_pre, dim=1)                     # (B, nc, H, P, P)
+    n_pre = torch.stack(n_pre, dim=1)                     # (B, nc, H, P)
+    m_pre = torch.stack(m_pre, dim=1)                     # (B, nc, H)
+
+    # ---- intra-chunk attention-like term ----
+    # pairwise log weight: F_t - F_s + li_s  (s <= t)
+    lw = Fc[:, :, :, None, :] - Fc[:, :, None, :, :] + li[:, :, None, :, :]
+    ar = torch.arange(Lc, device=q.device)
+    mask = ar[:, None] >= ar[None, :]
+    lw = torch.where(mask[None, None, :, :, None], lw, _NEG)  # (B,nc,t,s,H)
+    # read-time stabiliser: max over the intra sources and the carried state
+    m_read_intra = torch.amax(lw, dim=3)                  # (B, nc, Lc, H)
+    m_carry = Fc + m_pre[:, :, None, :]                   # (B, nc, Lc, H)
+    m_read = torch.maximum(m_read_intra, m_carry)
+
+    w_intra = torch.exp(lw - m_read[:, :, :, None, :])
+    qk = torch.einsum("bclhp,bcshp->bclsh", qc, kc)
+    h_intra = torch.einsum("bclsh,bclsh,bcshp->bclhp", qk, w_intra, vc)
+    d_intra = torch.einsum("bclsh,bclsh->bclh", qk, w_intra)
+
+    w_carry = torch.exp(m_carry - m_read)                 # (B, nc, Lc, H)
+    h_inter = torch.einsum("bclhp,bchpq,bclh->bclhq", qc, C_pre, w_carry)
+    d_inter = torch.einsum("bclhp,bchp,bclh->bclh", qc, n_pre, w_carry)
+
+    denom = torch.maximum(torch.abs(d_intra + d_inter),
+                          torch.exp(-m_read)) + 1e-9
+    h = (h_intra + h_inter) / denom[..., None]
+    return h.reshape(B, S, H, P).to(q.dtype), (C, n, m)
+
+
+def mlstm_decode_step(q, k, v, i_pre, f_pre, state):
+    """One token.  q, k, v: (B, H, P); gates (B, H)."""
+    C, n, m = state
+    P = q.shape[-1]
+    scale = 1.0 / (P ** 0.5)
+    logf = F.logsigmoid(f_pre.float())
+    logi = i_pre.float()
+    m_new = torch.maximum(logf + m, logi)
+    w_old = torch.exp(logf + m - m_new)
+    w_in = torch.exp(logi - m_new)
+    kf = k.float() * w_in[..., None]
+    C_new = C * w_old[..., None, None] + torch.einsum(
+        "bhp,bhq->bhpq", kf, v.float())
+    n_new = n * w_old[..., None] + kf
+    qs = q.float() * scale
+    h = torch.einsum("bhp,bhpq->bhq", qs, C_new)
+    d = torch.maximum(torch.abs(torch.einsum("bhp,bhp->bh", qs, n_new)),
+                      torch.exp(-m_new)) + 1e-9
+    return (h / d[..., None]).to(q.dtype), (C_new, n_new, m_new)
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _mlstm_qkv(c, xm, p, dt):
+    """q, k (from the conv path), v (from the raw path) through the
+    per-head block-diagonal projections, and the gate pre-activations."""
+    q = torch.einsum("...hp,hpj->...hj", c, p["wq"].to(dt))
+    k = torch.einsum("...hp,hpj->...hj", c, p["wk"].to(dt))
+    v = torch.einsum("...hp,hpj->...hj", xm, p["wv"].to(dt))
+    return q, k, v
+
+
+def mlstm_block(x, p, cfg, *, state=None, decode=False):
+    """p keys: up_proj (d, 2 di), conv_w (K, di), wq / wk / wv (H, P, P)
+    block-diagonal per head, wi / wf (di, H), norm_inner (di,), down_proj
+    (di, d).  Returns (out, (mstate, conv_cache))."""
+    di = cfg.mlstm_proj * cfg.d_model
+    H = cfg.n_heads
+    P = di // H
+    up = x @ p["up_proj"].to(x.dtype)
+    xm, z = torch.chunk(up, 2, dim=-1)
+    if decode:
+        mstate, conv_cache = state
+        c, conv_cache = _causal_conv(xm[:, None], p["conv_w"].to(x.dtype),
+                                     conv_cache)
+        c = c[:, 0]
+        B = x.shape[0]
+        q, k, v = _mlstm_qkv(c.reshape(B, H, P), xm.reshape(B, H, P), p,
+                             x.dtype)
+        i_pre = c @ p["wi"].to(x.dtype)
+        f_pre = c @ p["wf"].to(x.dtype)
+        h, mstate = mlstm_decode_step(q, k, v, i_pre, f_pre, mstate)
+        h = h.reshape(B, di)
+    else:
+        B, S = x.shape[0], x.shape[1]
+        c, conv_cache = _causal_conv(xm, p["conv_w"].to(x.dtype),
+                                     None if state is None else state[1])
+        q, k, v = _mlstm_qkv(c.reshape(B, S, H, P), xm.reshape(B, S, H, P),
+                             p, x.dtype)
+        i_pre = c @ p["wi"].to(x.dtype)
+        f_pre = c @ p["wf"].to(x.dtype)
+        h, mstate = mlstm_chunked(q, k, v, i_pre, f_pre, cfg.ssd_chunk,
+                                  None if state is None else state[0])
+        h = h.reshape(B, S, di)
+    h = rms_norm(h, p["norm_inner"], cfg.norm_eps)
+    h = h * F.silu(z)
+    return h @ p["down_proj"].to(x.dtype), (mstate, conv_cache)
+
+
+def slstm_block(x, p, cfg, *, state=None, decode=False):
+    """p keys: w_gates (d, H dh 4), r_gates (H, dh, 4 dh), ln (d,), up
+    (d, ff), down (ff, d).  x is (B, d) with ``decode``, else (B, S, d).
+
+    Heads H = cfg.n_heads, dh = d / H; the recurrent matrix R is per-head
+    block-diagonal.  The prefill path is a loop over time (sLSTM does not
+    parallelise in time), the input projection taken for every step in
+    one product before it; decode is one step of the same cell.  Returns
+    (out, (c, n, m, h)), the state in fp32."""
+    d = p["w_gates"].shape[0]
+    H = cfg.n_heads
+    dh = d // H
+    B = x.shape[0]
+    if state is None:
+        z = torch.zeros((B, H, dh), dtype=torch.float32, device=x.device)
+        state = (z, z + 1e-6, z - 1e30, z)
+    rg = p["r_gates"].to(x.dtype)
+
+    def step(carry, gx):                     # gx: (B, H dh 4), x's dtype
+        c, n, m, h = carry
+        gr = torch.einsum("bhe,hek->bhk", h.to(x.dtype), rg)
+        g = gx.reshape(B, H, dh, 4) + gr.reshape(B, H, dh, 4)
+        gi, gf, gz, go = g.unbind(-1)
+        log_f = F.logsigmoid(gf.float())
+        log_i = gi.float()
+        m_new = torch.maximum(log_f + m, log_i)
+        wi = torch.exp(log_i - m_new)
+        wf = torch.exp(log_f + m - m_new)
+        c_new = wf * c + wi * torch.tanh(gz.float())
+        n_new = wf * n + wi
+        h_new = torch.sigmoid(go.float()) * c_new / torch.clamp(n_new,
+                                                                min=1e-6)
+        return c_new, n_new, m_new, h_new
+
+    gx = x @ p["w_gates"].to(x.dtype)
+    if decode:
+        state = step(state, gx)
+        y = state[3].reshape(B, d).to(x.dtype)
+    else:
+        hs = []
+        for t in range(x.shape[1]):
+            state = step(state, gx[:, t])
+            hs.append(state[3])
+        y = torch.stack(hs, dim=1).reshape(B, x.shape[1], d).to(x.dtype)
+
+    y = rms_norm(y, p["ln"], cfg.norm_eps)
+    ff = F.gelu(y @ p["up"].to(x.dtype), approximate="tanh")
+    return ff @ p["down"].to(x.dtype), state

@@ -17,8 +17,11 @@ Twin of ``src/repro/training/step.py``.  ``make_train_step(cfg, opt,
   devices; it raises until the multi-GPU item (ROADMAP Queue 1 item 8).
 
 The metrics are ``loss``, ``aux_loss``, ``tokens``, ``lr`` and
-``grad_norm``, as 0-d tensors.  The serving steps run under
-``torch.no_grad()``: serving keeps no graph.
+``grad_norm``, as 0-d tensors.  The train and eval steps take the dense
+family; the others wait for their loss branches (vlm's text-only slice,
+audio's codebook labels, moe's aux) and the K7 backward at hd 112
+(ROADMAP Queue 1 item 12b).  The serving steps take every family and run
+under ``torch.no_grad()``: serving keeps no graph.
 """
 from __future__ import annotations
 
@@ -30,6 +33,14 @@ from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import softmax_cross_entropy
 from repro_torch.training.optimizer import Optimizer, apply_updates
+
+
+def _trainable(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"training the {cfg.family} family ({cfg.name}) is not ported "
+            f"yet: the port serves it, and trains the dense family (ROADMAP "
+            f"Queue 1 item 12b)")
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict
@@ -45,6 +56,7 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict
 def make_train_step(cfg: ModelConfig, opt: Optimizer, *, accum: int = 1,
                     compress_axis: str | None = None) -> Callable:
     """Build the train step (see module docstring)."""
+    _trainable(cfg)
     if compress_axis is not None:
         raise NotImplementedError(
             "compress_axis: the int8 gradient all-reduce needs a collective "
@@ -86,6 +98,8 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, accum: int = 1,
 
 
 def make_eval_step(cfg: ModelConfig) -> Callable:
+    _trainable(cfg)
+
     @torch.no_grad()
     def eval_step(params, batch):
         _, metrics = loss_fn(cfg, params, batch)
@@ -98,17 +112,20 @@ def make_eval_step(cfg: ModelConfig) -> Callable:
 # ---------------------------------------------------------------------------
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:
-    """(params, batch) -> the next token of each row (B,) int32."""
+    """(params, batch) -> the next token of each row, (B,) int32 ((B,
+    n_cb) for audio); the vlm family takes ``batch["patch_emb"]``."""
     @torch.no_grad()
     def prefill_step(params, batch):
-        logits, _ = M.forward(cfg, params, batch["tokens"], last_only=True)
+        logits, _ = M.forward(cfg, params, batch["tokens"],
+                              patch_emb=batch.get("patch_emb"),
+                              last_only=True)
         return logits[:, -1].argmax(-1).to(torch.int32)
     return prefill_step
 
 
 def make_serve_step(cfg: ModelConfig) -> Callable:
     """One decode step: (params, cache, tokens, pos) -> (next tokens (B,)
-    int32, cache); the cache is updated in place."""
+    int32 ((B, n_cb) for audio), cache); the cache is updated in place."""
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos):
         logits, cache = M.decode_step(cfg, params, cache, tokens, pos)

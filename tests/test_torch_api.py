@@ -118,7 +118,9 @@ def _unported(case):
     from repro_torch.core import distributed as tdd
     from repro_torch.core import engine_dense as ted
     from repro_torch.launch.serve import serve
-    from repro_torch.models import model as TM
+    from repro_torch.launch.train import train
+    from repro_torch.training.optimizer import adamw
+    from repro_torch.training.step import make_train_step
     if case == "mesh":
         repro_torch.MBEOptions(device="cpu", mesh=2)
     elif case == "serve-mbe-mesh":
@@ -128,17 +130,21 @@ def _unported(case):
     elif case == "serve-model-parallel":
         serve(["--arch", "qwen3-1.7b", "--model-parallel", "2"],
               device="cpu")
-    elif case == "param_specs":
-        TM.param_specs(configs.get_smoke("dbrx-132b"))
+    elif case == "train-moe":
+        make_train_step(configs.get_smoke("granite-moe-1b-a400m"), adamw())
+    elif case == "train-launcher-ssm":
+        train(["--arch", "xlstm-1.3b", "--smoke", "--steps", "1"],
+              device="cpu")
 
 
 @pytest.mark.parametrize("case,item", [
     ("mesh", "item 8"), ("serve-mbe-mesh", "item 8"),
-    ("make_round_fn", "item 8"), ("serve-model-parallel", "item 12"),
-    ("param_specs", "item 12")])
+    ("make_round_fn", "item 8"), ("serve-model-parallel", "item 12c"),
+    ("train-moe", "item 12b"), ("train-launcher-ssm", "item 12b")])
 def test_unported_options_raise(case, item):
     """What the port still does not serve raises, naming its ROADMAP
-    Queue 1 item: several devices (8), the rest of the LM stack (12)."""
+    Queue 1 item: several devices (8), the training of the families other
+    than dense (12b), sharding (12c)."""
     with pytest.raises(NotImplementedError, match=item):
         _unported(case)
 

@@ -173,3 +173,72 @@ def test_flash_fwd_fp32_micro_tiles_match_plain(card, B, S, H, KV, hd,
     torch.testing.assert_close(lse[..., :S], rl[..., :S], rtol=1e-4,
                                atol=1e-4)
     assert _row_rel(o[..., :S, :], ro[..., :S, :]) <= 1e-5
+
+
+@pytest.mark.parametrize("B,S,H,KV,pad", [
+    (1, 4096, 32, 32, 4096), (2, 1000, 32, 32, 1024), (1, 97, 4, 2, 100),
+    (2, 333, 6, 2, 336)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fwd_head_dim_112(card, B, S, H, KV, pad, dtype, causal):
+    """zamba2-7b's head dim: seven 16-column blocks under the 32-byte
+    swizzle (bf16), seven columns a thread (fp32); against the plain
+    version, one launch a call, bit-identical run to run."""
+    qp, kp, vp = _packed(card, B, S, H, KV, 112, dtype, pad, S + 112)
+    kw = dict(causal=causal, scale=112 ** -0.5, sq=S, sk=S)
+    n = flash_fwd.launches
+    o, lse = flash_fwd(qp, kp, vp, **kw)
+    o2, lse2 = flash_fwd(qp, kp, vp, **kw)
+    torch.cuda.synchronize()
+    assert flash_fwd.launches == n + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    ro, rl = flash_fwd_ref(qp, kp, vp, **kw)
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(o[..., :S, :].float(), ro[..., :S, :].float(),
+                               rtol=tol, atol=tol)
+    torch.testing.assert_close(lse[..., :S], rl[..., :S], rtol=1e-4,
+                               atol=1e-4)
+    row_tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    assert _row_rel(o[..., :S, :], ro[..., :S, :]) <= row_tol
+
+
+def test_flash_bwd_refuses_head_dim_112(card):
+    qp, kp, vp = _packed(card, 1, 64, 4, 2, 112, torch.bfloat16, 64, 1)
+    rows = torch.zeros(qp.shape[:4], device=card)
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        flash_bwd(qp, kp, vp, qp, rows, rows, causal=True, scale=0.1,
+                  sq=64, sk=64)
+
+
+FAMILY_K7 = {"granite-moe-1b-a400m": lambda c: c.n_layers,
+             "internvl2-2b": lambda c: c.n_layers,
+             "musicgen-medium": lambda c: c.n_layers,
+             "zamba2-7b": lambda c: c.n_layers // c.attn_every,
+             "xlstm-1.3b": lambda c: 0}
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY_K7))
+def test_family_prefill_kernel_path(card, arch):
+    """Each family's smoke model, fp32, prefill on the card: K7 launched
+    once a prefill for every attention layer (the hybrid's shared block
+    once an application; none for ssm), its tokens equal to the torch-op
+    path's (attn_impl='xla')."""
+    base = dataclasses.replace(configs.get_smoke(arch), dtype="float32")
+    params = init_params(M.param_specs(base), 0, device=card)
+    g = torch.Generator(device=card).manual_seed(2)
+    cb = (base.n_codebooks,) if base.n_codebooks else ()
+    batch = dict(tokens=torch.randint(0, base.vocab, (2, 64) + cb,
+                                      device=card, generator=g))
+    if base.family == "vlm":
+        batch["patch_emb"] = torch.randn(2, base.patch_tokens, base.d_model,
+                                         device=card, generator=g) * 0.02
+    nxt = {}
+    for impl in ("xla", "pallas"):
+        n = flash_fwd.launches
+        nxt[impl] = make_prefill_step(dataclasses.replace(
+            base, attn_impl=impl))(params, batch)
+        torch.cuda.synchronize()
+        assert flash_fwd.launches - n == (FAMILY_K7[arch](base)
+                                          if impl == "pallas" else 0)
+    assert nxt["pallas"].shape == (2,) + cb
+    assert torch.equal(nxt["pallas"], nxt["xla"])

@@ -68,13 +68,11 @@ def test_configs_match_the_reference():
         assert t_configs.get_smoke(arch).__dict__ == \
             j_configs.get_smoke(arch).__dict__
     assert t_configs.ARCH_IDS == j_configs.ARCH_IDS
-    for name in ("qwen3-1.7b", "llama3-8b", "granite-3-8b"):
+    for name in j_configs.ARCH_IDS:       # every family's param table
         assert t_configs.get_config(name).n_params() == \
             j_configs.get_config(name).n_params()
     assert t_configs.SHAPES == {k: t_configs.ShapeSpec(*dataclasses.astuple(v))
                                 for k, v in j_configs.SHAPES.items()}
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TM.param_specs(t_configs.get_smoke("dbrx-132b"))
     assert dataclasses.asdict(t_configs.get_config("cumbe")) == \
         dataclasses.asdict(j_configs.get_config("cumbe"))
 
@@ -269,7 +267,7 @@ def test_served_streams_equal_jax_serve(weights, monkeypatch):
 def test_serve_flags():
     with pytest.raises(NotImplementedError, match="item 8"):
         serve(["--mbe", "--mesh", "2"], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 12c"):
         serve(["--arch", ARCH, "--smoke", "--model-parallel", "2"],
               device="cpu")
     out = serve(["--arch", ARCH, "--smoke", "--requests", "2", "--slots",
