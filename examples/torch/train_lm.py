@@ -1,14 +1,15 @@
 """End-to-end training on the PyTorch / CUDA port: the reference example's
 qwen3-family model (80M params) for a few hundred steps, with
-checkpointing and an
-injected failure + automatic restart.
+checkpointing and an injected failure + automatic restart; or, with
+``--arch``, any other family's smoke config (moe, vlm, audio, hybrid,
+ssm) on the same loop.
 
     PYTHONPATH=src python examples/torch/train_lm.py [--steps 300] \
-        [--device cpu]
+        [--arch zamba2-7b] [--device cpu]
 
 Twin of ``examples/train_lm.py``: drives the port's launcher
 (``repro_torch.launch.train``), the same code path its command line
-runs.
+runs, and takes ``--arch`` as that launcher does.
 """
 import argparse
 import dataclasses
@@ -31,14 +32,22 @@ def make_100m() -> ModelConfig:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-1.7b",
+                    help="qwen3-1.7b: the 80M example model; another arch: "
+                         "its smoke config")
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    cfg = make_100m()
-    print(f"[example] {cfg.name}: {cfg.n_params() / 1e6:.0f}M params, "
+    example = args.arch == "qwen3-1.7b"
+    cfg = make_100m() if example else C.get_smoke(args.arch)
+    # the 80M model trains at the reference example's rate; a smoke
+    # config is a few thousand params and needs a larger one to move its
+    # loss within a short run
+    lr = 3e-4 if example else 1e-2
+    print(f"[example] {cfg.name}: {cfg.n_params() / 1e6:.1f}M params, "
           f"{args.steps} steps of {args.batch}x{args.seq} tokens")
 
     # the launcher takes any arch id: point the smoke lookup of qwen3 at
@@ -48,10 +57,10 @@ def main(argv=None):
     ckpt = tempfile.mkdtemp(prefix="repro_torch_example_")
     try:
         result = train([
-            "--arch", "qwen3-1.7b", "--smoke",
+            "--arch", args.arch, "--smoke",
             "--steps", str(args.steps),
             "--batch", str(args.batch), "--seq", str(args.seq),
-            "--lr", "3e-4", "--ckpt-dir", ckpt,
+            "--lr", str(lr), "--ckpt-dir", ckpt,
             "--ckpt-every", str(max(args.steps // 3, 1)),
             "--fail-at", str(args.steps // 2),   # mid-run failure
         ], device=args.device)

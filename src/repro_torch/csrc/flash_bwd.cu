@@ -47,12 +47,18 @@
 //                                   warpgroup waits for the other's dS^T.
 //    dK and dV stay in registers for the whole loop and are written once
 //    in bf16: deterministic.  dQ is split over the warpgroups (by head
-//    dim at hd 128, by key at hd <= 64) and each partial tile is added
-//    into an fp32 accumulator in device memory (red.global.add.v2.f32),
+//    dim at hd 112 and 128, by key at hd <= 64) and each partial tile is
+//    added into an fp32 accumulator in device memory (red.global.add.v2.f32),
 //    so dq's summation order varies from run to run (the wrapper casts
 //    the accumulator to bf16).  The mask is evaluated only on tiles that
 //    cross the diagonal or the ragged sq / sk edge; the TMA tensor maps
-//    end at sq and sk, so rows past them arrive as zeros.
+//    end at sq and sk, so rows past them arrive as zeros.  A head dim
+//    that is not a whole number of 128-byte column blocks (112) is padded
+//    in shared memory only, as the forward does (Fused::HP): the TMA
+//    boxes read columns 112 .. 127 as zeros, S and dP skip the all-zero
+//    k step, dV, dK and dQ run at n = 128 (hd 128's swizzle, wgmma
+//    shapes, registers and dQ split), and only columns below 112 are
+//    added to dq or written to dk and dv.
 //    Registers bound the layout: dK and dV alone take 128 fp32 a thread
 //    at hd 128.  A third, producer warpgroup (setmaxnreg 24 / 240) makes
 //    ptxas budget the whole kernel at 168 registers a thread: it then
@@ -128,15 +134,19 @@ template <int HD>
 struct Fused {
   static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;  // swizzle, bytes
   static constexpr int AE = SW / 2;        // bf16 per swizzled row
-  static constexpr int NB = HD / AE;       // column blocks of a tile
+  // the head dim in shared memory: whole column blocks, the TMA boxes
+  // reading the columns past HD as zeros (hd 112: 128).  Every tile shape
+  // and register array below reads HP; only device memory reads HD.
+  static constexpr int HP = (HD + AE - 1) / AE * AE;
+  static constexpr int NB = HP / AE;       // column blocks of a tile
   static constexpr int KPA = SW / 32;      // k16 steps per column block
   // dQ split over the warpgroups: by key at hd <= 64 (each adds all HD
-  // columns over its own 64 keys), by head dim at 128 (each adds 64
-  // columns over all 128 keys)
-  static constexpr bool KEY_SPLIT = HD < 128;
-  static constexpr int NQ = KEY_SPLIT ? HD : HD / 2;   // dQ width
-  static constexpr int KT = BK * HD * 2;   // K or V tile bytes
-  static constexpr int QT = BQ * HD * 2;   // Q or dO tile bytes
+  // columns over its own 64 keys), by head dim at 112 and 128 (each adds
+  // 64 of the HP columns over all 128 keys)
+  static constexpr bool KEY_SPLIT = HP < 128;
+  static constexpr int NQ = KEY_SPLIT ? HP : HP / 2;   // dQ width
+  static constexpr int KT = BK * HP * 2;   // K or V tile bytes
+  static constexpr int QT = BQ * HP * 2;   // Q or dO tile bytes
   static constexpr int DS = BK * BQ * 2;   // P^T or dS^T tile bytes
   //                                          (128 B rows: 64 q columns)
   static constexpr int VEC = BQ * 4;       // lse or dD tile bytes
@@ -152,6 +162,7 @@ struct Fused {
   static constexpr int BYTES = OFF_B + (1 + 2 * STAGES + NDS) * 8;
   static constexpr int SMEM = BYTES + 1024;   // + alignment of the base
   static_assert(KT % 1024 == 0 && QT % 1024 == 0, "1024-byte tiles");
+  static_assert(HD % 16 == 0, "whole k16 steps");
 };
 
 template <int HD>
@@ -236,12 +247,13 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
     const uint32_t sV = smem_u32(sm + F::OFF_V);
     const float sl2 = scale * LOG2E;
 
-    float dka[HD / 2], dva[HD / 2];
+    // dK, dV: HP columns, the last HP - HD zero and never written
+    float dka[F::HP / 2], dva[F::HP / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.f;
+    for (int i = 0; i < F::HP / 2; ++i) dka[i] = dva[i] = 0.f;
 
     // dQ partial of an iteration into the fp32 accumulator (rows past sq
-    // hold 0)
+    // hold 0; columns at or past HD, the padding, are not added)
     float dqa[F::NQ / 2];
     auto flush_dq = [&](int i) {
       const int h = hk * G + i / per_g;
@@ -257,8 +269,9 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
                        cbase + 2 * tig;
 #pragma unroll
           for (int j = 0; j < F::NQ / 8; ++j)
-            red_add_v2(row + 8 * j, dqa[4 * j + 2 * r],
-                       dqa[4 * j + 2 * r + 1]);
+            if (F::HP == HD || cbase + 8 * j < HD)
+              red_add_v2(row + 8 * j, dqa[4 * j + 2 * r],
+                         dqa[4 * j + 2 * r + 1]);
         }
       }
     };
@@ -289,7 +302,8 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_wait(&full[s], (it / STAGES) & 1);
 
       // S^T = K Q^T and dP^T = V dO^T (64 keys x 64 q rows); the k index
-      // (head dim) runs along the rows of all four tiles
+      // (head dim) runs along the rows of all four tiles, up to HD (the
+      // padded columns are zero)
       float st[32], dpt[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
@@ -395,8 +409,8 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_arrive(&ds_bar[it % NDS]);   // read by dQ one iteration later
       named_bar_sync(1 + wg, 128);      // this warpgroup's rows
 
-      // dV += P^T dO, dK += dS^T Q (A: this warpgroup's 64 rows of P^T,
-      // dS^T, K-major; B: the dO, Q tile, MN-major), and the previous
+      // dV += P^T dO, dK += dS^T Q at n = HP (A: this warpgroup's 64 rows
+      // of P^T, dS^T, K-major; B: the dO, Q tile, MN-major), and the previous
       // iteration's dQ partial, in one batch.  At it = 0 that product
       // reads an unwritten buffer and its result is dropped: the batch
       // stays the same at every iteration.
@@ -449,8 +463,8 @@ flash_bwd_fused_kernel(const __grid_constant__ CUtensorMap tq,
       flush_dq(n_iter - 1);
     }
     // dK, dV rows of this thread's keys, once, in bf16 (keys past sk
-    // accumulated exact zeros); dka and dva are touched only by the
-    // products until here
+    // accumulated exact zeros), columns below HD; dka and dva are touched
+    // only by the products until here
     fence_regs(dva);
     fence_regs(dka);
     const long long kbase = static_cast<long long>(hk) * Skp * HD;
@@ -930,6 +944,7 @@ extern "C" int rt_flash_bwd_dq(const void* q, const void* k, const void* v,
     case 16: return static_cast<int>(launch_dq<16>(a, s));
     case 32: return static_cast<int>(launch_dq<32>(a, s));
     case 64: return static_cast<int>(launch_dq<64>(a, s));
+    case 112: return static_cast<int>(launch_dq<112>(a, s));
     case 128: return static_cast<int>(launch_dq<128>(a, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -951,6 +966,7 @@ extern "C" int rt_flash_bwd_dkv(const void* q, const void* k, const void* v,
     case 16: return static_cast<int>(launch_dkv<16>(a, s));
     case 32: return static_cast<int>(launch_dkv<32>(a, s));
     case 64: return static_cast<int>(launch_dkv<64>(a, s));
+    case 112: return static_cast<int>(launch_dkv<112>(a, s));
     case 128: return static_cast<int>(launch_dkv<128>(a, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -962,6 +978,7 @@ extern "C" int rt_flash_bwd_fused_smem(int hd) {
     case 16: return Fused<16>::SMEM;
     case 32: return Fused<32>::SMEM;
     case 64: return Fused<64>::SMEM;
+    case 112: return Fused<112>::SMEM;
     case 128: return Fused<128>::SMEM;
     default: return 0;
   }
@@ -985,6 +1002,7 @@ extern "C" int rt_flash_bwd_fused(const void* q, const void* k, const void* v,
     case 16: return static_cast<int>(launch_fused<16>(a, s));
     case 32: return static_cast<int>(launch_fused<32>(a, s));
     case 64: return static_cast<int>(launch_fused<64>(a, s));
+    case 112: return static_cast<int>(launch_fused<112>(a, s));
     case 128: return static_cast<int>(launch_fused<128>(a, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -36,12 +36,10 @@ from repro_torch.kernels.dispatch import expect
 from repro_torch.kernels.flash_attention.ref import (_acc, flash_bwd_ref,
                                                      flash_fwd_ref)
 
-# the head dims the kernels are instantiated for: the forward
-# (csrc/flash_fwd.cu) also at zamba2-7b's 112; the backward
-# (csrc/flash_bwd.cu) not yet there, which waits for the training of the
-# families that use it (ROADMAP Queue 1 item 12b)
+# the head dims the kernels of both directions are instantiated for
+# (csrc/flash_fwd.cu, csrc/flash_bwd.cu; 112 is zamba2-7b's, padded to 128
+# in shared memory by the bf16 kernels)
 HEAD_DIMS = (16, 32, 64, 112, 128)
-BWD_HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -66,15 +64,9 @@ def _check(what, qp, kp, vp, sq, sk, dop=None, lse=None, dD=None):
     if qp.dtype not in DTYPES:
         raise ValueError(f"{what}: dtype {qp.dtype} not taken; expected one "
                          f"of {sorted(map(str, DTYPES))}")
-    if dop is not None and hd in HEAD_DIMS and hd not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"{what}: head dim {hd} has a forward kernel but no backward "
-            f"yet: it comes with the training of the families that use it "
-            f"(ROADMAP Queue 1 item 12b)")
-    dims = BWD_HEAD_DIMS if dop is not None else HEAD_DIMS
-    if hd not in dims:
+    if hd not in HEAD_DIMS:
         raise ValueError(f"{what}: head dim {hd} not taken; expected one of "
-                         f"{dims}")
+                         f"{HEAD_DIMS}")
     dev = qp.device
     expect(qp, what, "q", qp.dtype, qp.shape, dev)
     expect(kp, what, "k", qp.dtype, (B, KV, Skp, hd), dev)

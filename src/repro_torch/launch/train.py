@@ -12,12 +12,15 @@ and the same loop:
   attempt; the supervisor loop (retry budget ``--max-restarts``) restarts
   from the last checkpoint.
 
-A model-parallel mesh (``--model-parallel`` > 1) needs the sharding port
-(ROADMAP Queue 1 item 12c, ``sharding/*``) and raises; so does a family
-other than dense (its training is item 12b).
+Every family trains: the data source's batches carry the audio family's
+codebook tokens and the vlm family's ``patch_emb`` rows to the device with
+the tokens and labels.  A model-parallel mesh (``--model-parallel`` > 1)
+needs the sharding port (ROADMAP Queue 1 item 12c, ``sharding/*``) and
+raises.
 
 Usage (on the card):
   python -m repro_torch.launch.train --arch qwen3-1.7b --smoke --steps 100
+  python -m repro_torch.launch.train --arch zamba2-7b --smoke --steps 100
 """
 from __future__ import annotations
 

@@ -58,7 +58,13 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
     dec = la[:, :, :, None, :] - la[:, :, None, :, :]     # (B,nc,Lt,Ls,H)
     ar = torch.arange(Lc, device=x.device)
     mask = ar[:, None] >= ar[None, :]
-    dec = torch.where(mask[None, None, :, :, None], torch.exp(dec), 0.0)
+    # masked before the exp, not after as the reference does: above the
+    # diagonal dec = -(decay from t to s) >= 0 overflows to inf once a
+    # chunk's decays sum past ~88 (zamba2-7b's 256-step chunks at its
+    # init), and the reference's where then passes 0 * inf = NaN to the
+    # grads; the values are the same bits (exp(-inf) = 0)
+    dec = torch.exp(torch.where(mask[None, None, :, :, None], dec,
+                                -torch.inf))
     y_intra = torch.einsum("bcls,bclsh,bcshp->bclhp", cb, dec, xc)
 
     # ---- chunk summaries: the state each chunk contributes ----

@@ -6,8 +6,11 @@ Twin of ``src/repro/training/step.py``.  ``make_train_step(cfg, opt,
     (params, opt_state, batch) -> (params, opt_state, metrics)
 
 * **mixed precision** — master params and optimizer moments are fp32; the
-  fp32 masters are cast once to ``cfg.dtype`` (matrices only) inside the
-  graph, so the grads reach the masters in fp32.  Loss/softmax in fp32.
+  fp32 masters are cast once to ``cfg.dtype`` inside the graph (every
+  leaf of two or more dims, as the reference's ``cast_params`` closure:
+  the hybrid family's stacked ``a_log`` and ``d_skip`` too, which the
+  serving cast ``models.model.cast_params`` keeps in fp32), so the grads
+  reach the masters in fp32.  Loss/softmax in fp32.
 * **gradient accumulation** — ``accum`` microbatches (the batch's leading
   dim split in ``accum`` slices) each run forward and backward, their
   grads summing into the masters' fp32 ``.grad``; the sum is then divided
@@ -17,11 +20,11 @@ Twin of ``src/repro/training/step.py``.  ``make_train_step(cfg, opt,
   devices; it raises until the multi-GPU item (ROADMAP Queue 1 item 8).
 
 The metrics are ``loss``, ``aux_loss``, ``tokens``, ``lr`` and
-``grad_norm``, as 0-d tensors.  The train and eval steps take the dense
-family; the others wait for their loss branches (vlm's text-only slice,
-audio's codebook labels, moe's aux) and the K7 backward at hd 112
-(ROADMAP Queue 1 item 12b).  The serving steps take every family and run
-under ``torch.no_grad()``: serving keeps no graph.
+``grad_norm``, as 0-d tensors.  Every step takes every family: the vlm
+loss is taken on the text positions only, audio's (B, S, n_cb) labels
+against its (B, S, n_cb, V) logits, and moe's load-balance aux enters the
+total at 0.01.  The serving steps run under ``torch.no_grad()``: serving
+keeps no graph.
 """
 from __future__ import annotations
 
@@ -35,28 +38,37 @@ from repro_torch.models.layers import softmax_cross_entropy
 from repro_torch.training.optimizer import Optimizer, apply_updates
 
 
-def _trainable(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"training the {cfg.family} family ({cfg.name}) is not ported "
-            f"yet: the port serves it, and trains the dense family (ROADMAP "
-            f"Queue 1 item 12b)")
-
-
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict
             ) -> tuple[torch.Tensor, dict]:
-    """Causal-LM loss. batch: tokens (B, S) int, labels like tokens.
-    Labels < 0 are masked out."""
-    logits, aux = M.forward(cfg, params, batch["tokens"])
-    loss, n_tok = softmax_cross_entropy(logits, batch["labels"])
+    """Causal-LM loss. batch: tokens (B, S[, n_cb]) int, labels like
+    tokens, ``patch_emb`` (B, n_patch, d) for vlm. Labels < 0 are masked
+    out."""
+    logits, aux = M.forward(cfg, params, batch["tokens"],
+                            patch_emb=batch.get("patch_emb"))
+    labels = batch["labels"]
+    if cfg.family == "vlm":
+        # the logits cover the patch prefix and the text: loss on the text
+        logits = logits[:, -labels.shape[1]:]
+    # audio: (B, S, n_cb) labels against (B, S, n_cb, V) logits, each
+    # codebook position counted like another sequence position
+    loss, n_tok = softmax_cross_entropy(logits, labels)
     total = loss + 0.01 * aux
     return total, dict(loss=loss, aux_loss=aux, tokens=n_tok)
+
+
+def train_cast(cfg: ModelConfig, params: dict) -> dict:
+    """The train step's one cast of the fp32 masters to ``cfg.dtype``:
+    every leaf of two or more dims (the reference's ``cast_params``
+    closure in ``make_train_step``); 1-D scales stay fp32."""
+    dt = M.dtype_of(cfg)
+    if dt == torch.float32:
+        return params
+    return {k: (v.to(dt) if v.dim() >= 2 else v) for k, v in params.items()}
 
 
 def make_train_step(cfg: ModelConfig, opt: Optimizer, *, accum: int = 1,
                     compress_axis: str | None = None) -> Callable:
     """Build the train step (see module docstring)."""
-    _trainable(cfg)
     if compress_axis is not None:
         raise NotImplementedError(
             "compress_axis: the int8 gradient all-reduce needs a collective "
@@ -75,7 +87,7 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, accum: int = 1,
         m = dict(loss=0.0, aux_loss=0.0, tokens=0.0)
         for i in range(accum):
             micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            tot, metrics = loss_fn(cfg, M.cast_params(cfg, leaves), micro)
+            tot, metrics = loss_fn(cfg, train_cast(cfg, leaves), micro)
             tot.backward()
             metrics = {k: v.detach() for k, v in metrics.items()}
             m = dict(loss=m["loss"] + metrics["loss"] / accum,
@@ -98,8 +110,6 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, accum: int = 1,
 
 
 def make_eval_step(cfg: ModelConfig) -> Callable:
-    _trainable(cfg)
-
     @torch.no_grad()
     def eval_step(params, batch):
         _, metrics = loss_fn(cfg, params, batch)

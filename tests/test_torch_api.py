@@ -130,21 +130,22 @@ def _unported(case):
     elif case == "serve-model-parallel":
         serve(["--arch", "qwen3-1.7b", "--model-parallel", "2"],
               device="cpu")
-    elif case == "train-moe":
-        make_train_step(configs.get_smoke("granite-moe-1b-a400m"), adamw())
-    elif case == "train-launcher-ssm":
-        train(["--arch", "xlstm-1.3b", "--smoke", "--steps", "1"],
-              device="cpu")
+    elif case == "train-compress":
+        make_train_step(configs.get_smoke("granite-moe-1b-a400m"), adamw(),
+                        compress_axis="x")
+    elif case == "train-model-parallel":
+        train(["--arch", "xlstm-1.3b", "--smoke", "--steps", "1",
+               "--model-parallel", "2"], device="cpu")
 
 
 @pytest.mark.parametrize("case,item", [
     ("mesh", "item 8"), ("serve-mbe-mesh", "item 8"),
     ("make_round_fn", "item 8"), ("serve-model-parallel", "item 12c"),
-    ("train-moe", "item 12b"), ("train-launcher-ssm", "item 12b")])
+    ("train-compress", "item 8"), ("train-model-parallel", "item 12c")])
 def test_unported_options_raise(case, item):
     """What the port still does not serve raises, naming its ROADMAP
-    Queue 1 item: several devices (8), the training of the families other
-    than dense (12b), sharding (12c)."""
+    Queue 1 item: several devices (8: the int8 gradient all-reduce too),
+    sharding (12c: a model-parallel train or serve mesh)."""
     with pytest.raises(NotImplementedError, match=item):
         _unported(case)
 

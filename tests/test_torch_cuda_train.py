@@ -35,6 +35,7 @@ from repro_torch.models import model as M
 from repro_torch.models.layers import init_params
 from repro_torch.training.optimizer import Optimizer, global_norm
 from repro_torch.training.step import make_train_step
+from test_torch_cuda_lm import FAMILY_K7
 
 pytestmark = pytest.mark.gpu
 
@@ -106,7 +107,8 @@ def _check_against_plain(ops, kw, got, dtype):
 
 @pytest.mark.parametrize("B,S,H,KV,hd,pad", [
     (1, 256, 16, 8, 128, 256), (2, 1000, 16, 8, 128, 1024),
-    (2, 100, 4, 2, 64, 128), (1, 40, 6, 2, 32, 40), (2, 33, 4, 4, 16, 64)])
+    (2, 100, 4, 2, 64, 128), (1, 40, 6, 2, 32, 40), (2, 33, 4, 4, 16, 64),
+    (2, 1000, 8, 8, 112, 1024), (1, 256, 8, 2, 112, 256)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_bwd_matches_plain(card, B, S, H, KV, hd, pad, dtype, causal):
@@ -126,7 +128,10 @@ def test_flash_bwd_matches_plain(card, B, S, H, KV, hd, pad, dtype, causal):
     (1, 300, 200, 6, 2, 128, False),    # sq != sk
     (1, 4097, 4097, 2, 2, 128, True),   # one row past a tile
     (2, 256, 256, 6, 2, 64, True),      # G = 3
-    (1, 130, 70, 6, 2, 32, False)])     # G = 3, sq != sk, ragged both
+    (1, 130, 70, 6, 2, 32, False),      # G = 3, sq != sk, ragged both
+    (1, 192, 192, 4, 2, 112, True),     # hd 112 (padded to 128)
+    (1, 300, 200, 6, 2, 112, False),    # hd 112, sq != sk
+    (1, 4097, 4097, 2, 2, 112, True)])  # hd 112, one row past a tile
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_bwd_fused_edges(card, B, Sq, Sk, H, KV, hd, causal, dtype):
     """The edges of the tiling: the fused kernel in bf16, K7 dq and dkv in
@@ -140,7 +145,7 @@ def test_flash_bwd_fused_edges(card, B, Sq, Sk, H, KV, hd, causal, dtype):
     _check_against_plain(ops, kw, got, dtype)
 
 
-@pytest.mark.parametrize("S,hd", [(1024, 128), (1000, 64)])
+@pytest.mark.parametrize("S,hd", [(1024, 128), (1000, 64), (1000, 112)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_bwd_fused_rerun(card, S, hd, dtype):
     """bf16 (the fused kernel): dk and dv bit-identical across two runs,
@@ -155,6 +160,44 @@ def test_flash_bwd_fused_rerun(card, S, hd, dtype):
     else:
         row, _ = _errors(b[0], a[0])
         assert row <= DQ_RERUN_RTOL, row
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_head_dim_112_writes_no_padding_column(card, dtype):
+    """hd 112: dq (the fused kernel's fp32 accumulator in bf16), dk and dv
+    handed to the kernels as the first elements of longer buffers whose
+    tail holds a sentinel (NaN for the stores, 1.5 for the accumulator's
+    atomic adds): the tail is untouched, so no row is written past column
+    111, and the outputs equal the plain version's."""
+    from repro_torch.kernels.flash_attention.ops import (launch_bwd,
+                                                        launch_dkv, launch_dq)
+    ops, kw = _operands(card, 2, 256, 256, 8, 4, 112, 1, dtype, True)
+    qp, kp, vp = ops[:3]
+    tail = 2 * 128
+
+    def longer(like, fill, dt=None):
+        buf = torch.full((like.numel() + tail,), fill, device=card,
+                         dtype=dt or like.dtype)
+        return buf, buf[:like.numel()].view(like.shape)
+    bk, dk = longer(kp, float("nan"))
+    bv, dv = longer(vp, float("nan"))
+    if dtype == torch.bfloat16:
+        bq, dq = longer(qp, 1.5, torch.float32)
+        dq.zero_()
+        launch_bwd(*ops, dq, dk, dv, **kw)
+        dq_out = dq.to(dtype)
+    else:
+        bq, dq = longer(qp, float("nan"))
+        launch_dq(*ops, dq, **kw)
+        launch_dkv(*ops, dk, dv, **kw)
+        dq_out = dq
+    torch.cuda.synchronize()
+    assert torch.isnan(bk[-tail:]).all() and torch.isnan(bv[-tail:]).all()
+    if dtype == torch.bfloat16:
+        assert (bq[-tail:] == 1.5).all()
+    else:
+        assert torch.isnan(bq[-tail:]).all()
+    _check_against_plain(ops, kw, (dq_out, dk, dv), dtype)
 
 
 def test_flash_bwd_refuses_what_the_kernels_do_not_take(card):
@@ -213,3 +256,41 @@ def test_smoke_train_step_kernel_path_matches_torch_op_path(card, dtype):
         assert gp.dtype == torch.float32
         rel = float((gp - gx).norm() / gx.norm().clamp(min=1e-30))
         assert rel <= tol, (k, rel)
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY_K7))
+def test_family_smoke_train_step_kernel_path_matches_torch_op_path(card,
+                                                                   arch):
+    """Each family's smoke model, fp32, remat on, one train step on the
+    card: attn_impl='pallas' (K7 fwd twice a forward call of K7, K7 dq
+    and dkv once each; the hybrid's shared block once an application,
+    none for ssm) against 'xla', per parameter at 1e-4."""
+    base = dataclasses.replace(configs.get_smoke(arch), dtype="float32",
+                               remat=True)
+    params = init_params(M.param_specs(base), 0, device=card)
+    g = torch.Generator(device=card).manual_seed(1)
+    cb = (base.n_codebooks,) if base.n_codebooks else ()
+    toks = torch.randint(0, base.vocab, (2, 64) + cb, device=card,
+                         generator=g)
+    batch = dict(tokens=toks, labels=toks.roll(-1, 1))
+    if base.family == "vlm":
+        batch["patch_emb"] = torch.randn(2, base.patch_tokens, base.d_model,
+                                         device=card, generator=g) * 0.02
+    n_k7 = FAMILY_K7[arch](base)
+    grads = {}
+    for impl in ("xla", "pallas"):
+        cfg = dataclasses.replace(base, attn_impl=impl)
+        opt = _grad_probe()
+        n = (flash_fwd.launches,) + _launches()
+        _, grads[impl], m = make_train_step(cfg, opt)(dict(params),
+                                                      opt.init(params), batch)
+        torch.cuda.synchronize()
+        L = n_k7 if impl == "pallas" else 0
+        assert tuple(a - b for a, b in zip((flash_fwd.launches,)
+                                           + _launches(), n)) == \
+            (2 * L, 0, L, L)
+        assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    for k, gx in grads["xla"].items():
+        rel = float((grads["pallas"][k] - gx).norm()
+                    / gx.norm().clamp(min=1e-30))
+        assert rel <= 1e-4, (k, rel)

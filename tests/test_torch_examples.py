@@ -65,3 +65,17 @@ def test_train_lm_refuses_without_a_card_by_default():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError):
         mod.main(["--steps", "2"])
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "internvl2-2b",
+                                  "musicgen-medium", "zamba2-7b",
+                                  "xlstm-1.3b"])
+def test_train_lm_takes_every_family(arch):
+    """``--arch`` of another family: its smoke config through the same
+    launcher loop on the CPU, a failure and a restart, the loss lower at
+    the end (the example asserts it)."""
+    out = _load("train_lm").main(["--arch", arch, "--steps", "30",
+                                  "--batch", "4", "--seq", "32",
+                                  "--device", "cpu"])
+    assert out["restarts"] == 1 and out["starts"] == [0, 10]
+    assert out["steps"] == 30

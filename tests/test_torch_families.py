@@ -297,15 +297,17 @@ def test_k7_plain_at_head_dim_112_matches_jax_kernel(S, block, causal):
 
 
 def test_k7_head_dims_forward_and_backward():
-    """The forward takes hd 112; the backward refuses it, naming the
-    families' training item (the check the CUDA entries make first)."""
-    assert 112 in k7_ops.HEAD_DIMS and 112 not in k7_ops.BWD_HEAD_DIMS
+    """Both directions take hd 112 (zamba2-7b's) and refuse hd 96 (the
+    check the CUDA entries make first)."""
+    assert 112 in k7_ops.HEAD_DIMS
     qp = torch.zeros(1, 1, 1, 16, 112)
     kp = torch.zeros(1, 1, 16, 112)
     rows = torch.zeros(1, 1, 1, 16)
     assert k7_ops._check("flash_fwd", qp, kp, kp, 16, 16)[-1] == 112
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        k7_ops._check("flash_bwd", qp, kp, kp, 16, 16, qp, rows, rows)
+    assert k7_ops._check("flash_bwd", qp, kp, kp, 16, 16, qp, rows,
+                         rows)[-1] == 112
+    q96, k96 = torch.zeros(1, 1, 1, 16, 96), torch.zeros(1, 1, 16, 96)
     with pytest.raises(ValueError, match="head dim 96"):
-        k7_ops._check("flash_fwd", *(torch.zeros(*s[:-1], 96) for s in
-                                     (qp.shape, kp.shape, kp.shape)), 16, 16)
+        k7_ops._check("flash_fwd", q96, k96, k96, 16, 16)
+    with pytest.raises(ValueError, match="head dim 96"):
+        k7_ops._check("flash_bwd", q96, k96, k96, 16, 16, q96, rows, rows)

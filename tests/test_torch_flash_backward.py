@@ -29,13 +29,17 @@ from repro_torch.kernels.flash_attention.ref import (flash_bwd_3xtf32_ref,
                                                      tf32_split)
 from repro_torch.models.weights import _tensor
 
-# the case grid of tests/test_flash_kernel.py:27-34
+# the case grid of tests/test_flash_kernel.py:27-34, and hd 112
 CASES = [
     (1, 16, 16, 2, 1, 8, True),
     (2, 32, 32, 4, 2, 16, True),
     (1, 24, 24, 4, 4, 8, True),       # MHA, seq not a block multiple
     (2, 64, 64, 8, 2, 32, False),     # non-causal GQA-4
     (1, 40, 40, 6, 2, 16, True),      # odd sizes
+    # zamba2-7b's head dim 112 (the CUDA kernels pad it to 128)
+    (1, 21, 21, 4, 2, 112, True),     # GQA-2, seq not a block multiple
+    (2, 16, 16, 2, 2, 112, True),     # MHA
+    (1, 24, 24, 4, 1, 112, False),    # non-causal GQA-4
 ]
 
 

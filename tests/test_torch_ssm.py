@@ -60,6 +60,38 @@ def test_ssd_chunked(S, chunk, with_h0):
     _close(th, jh)
 
 
+@pytest.mark.parametrize("dt_shift", [0.0, 6.0])
+def test_ssd_chunked_grads(dt_shift):
+    """Grads of the chunked scan against ``jax.grad`` of the reference's
+    (rtol 1e-4: the backward sums in another order), and where a chunk's
+    decays sum past exp's range (``dt_shift`` 6: softplus ~6 a step, 64
+    steps a chunk) the same outputs, with finite grads in the port; the
+    reference's grads are NaN there (its mask comes after the exp: 0 *
+    inf, ``ROADMAP.md`` Queue 3)."""
+    import jax
+    B, S, H, P, N = 1, 64, 2, 4, 3
+    x, dt, Bm, Cm, A, D = _ssd_inputs(B, S, H, P, N, seed=5)
+    dt = dt + np.float32(dt_shift)
+    w = _rand((B, S, H, P), 6)
+    ins = (x, dt, Bm, Cm, A, D)
+
+    def jloss(*a):
+        return jnp.sum(J.ssd_chunked(*a, S)[0] * w)
+    jy = J.ssd_chunked(*map(jnp.asarray, ins), S)[0]
+    jg = jax.grad(jloss, argnums=tuple(range(6)))(*map(jnp.asarray, ins))
+    t = [torch.from_numpy(a).requires_grad_() for a in ins]
+    ty = T.ssd_chunked(*t, S)[0]
+    tg = torch.autograd.grad((ty * torch.from_numpy(w)).sum(), t)
+    _close(ty.detach(), jy)
+    assert all(bool(torch.isfinite(g).all()) for g in tg)
+    if dt_shift:
+        assert not all(bool(np.isfinite(np.asarray(g)).all()) for g in jg)
+    else:
+        for g, r in zip(tg, jg):
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-4,
+                                       atol=1e-5)
+
+
 def test_ssd_decode_step_and_the_chunked_scan_agree():
     """One decode step against the reference's, and a run of decode steps
     against the chunked scan's output and final state (the port alone)."""
