@@ -97,7 +97,18 @@ makes the script exit non-zero):
               the count engine at (2, 2) and (2, 3), served and through
               the big lane, against the brute-force count;
               ``launch/mbe_run.py`` at the bench default (marvel-like,
-              4 workers); the serving layer under SLO and faults:
+              4 workers); the mesh (``mesh_path``: every visible card,
+              or on one card a rehearsal mesh naming it 4 times): the
+              32-graph stream through ``ShardedExecutor`` (dense K3 a
+              shard, ``resident_lanes=0`` K2, compact on its 13 graphs
+              of buckets up to 16 x 32), the big lane on dblp-like and dblp-large at 1 and
+              4 workers a device with and without stealing (totals and
+              busy steps per worker equal to the local big lane's at
+              the same count), ``mbe_run`` marvel-like on the mesh, busy
+              steps per device (every device's workers advanced) and,
+              on two or more cards, K3 on every card in one profiler
+              window, two cards at once at steps_per_call=16; the
+              serving layer under SLO and faults:
               ``serve --mbe`` (defaults with --continuous, K3; --engine
               mce, K4 packed) against the oracles, a chaos stream (24
               graphs in lane pools, dblp-like on the big lane) under
@@ -1837,6 +1848,7 @@ def main_path(dev, smi_line):
     for row in per_graph:
         log("  per-graph " + json.dumps(row))
     big_lane_path(dev, by_path, truth)
+    mesh_path(dev, by_path, truth)
     serving_path(dev, by_path, truth, smi_line)
     return by_path
 
@@ -1992,6 +2004,242 @@ def big_lane_path(dev, by_path, truth):
         path="mbe_run marvel-like", wall_s=time.perf_counter() - t,
         rounds=out["rounds"], imbalance=out["imbalance"],
         launches=nonzero(c))))
+
+
+# ---------------------------------------------------------------------------
+# phase 4 (slice 15): lane pools and the big lane over a mesh of devices
+# ---------------------------------------------------------------------------
+
+# shards of the rehearsal mesh on a one-card machine (cuda:0 named four
+# times); a machine with several cards serves on every one of them
+REHEARSAL_SHARDS = 4
+# the compact engine on the mesh serves the 32-graph stream's graphs of
+# the buckets up to 16 x 32 (13 graphs, each bucket with at least one
+# lane a shard): depth cut, since the per-step compact engine runs the
+# shards one after another (the whole stream alone takes 36-55 s on one
+# card, PERF.md)
+MESH_COMPACT_BUCKET = (16, 32)
+MESH_BIG_WPD = (1, 4)
+
+
+def serving_mesh(dev):
+    """``mbe_serve_mesh()`` over every visible card; on one card the
+    rehearsal mesh that names it REHEARSAL_SHARDS times."""
+    import torch
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.sharding.axes import MBE_LANE_AXIS, mbe_serve_mesh
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        mesh = mbe_serve_mesh()
+        log(f"  serving mesh: {n_cards} cards {[str(d) for d in mesh.devices]}")
+        return mesh, n_cards
+    log(f"  rehearsal mesh: {REHEARSAL_SHARDS} shards on 1 card ({dev})")
+    return Mesh([dev] * REHEARSAL_SHARDS, (MBE_LANE_AXIS,)), 1
+
+
+def track_device_busy(executor, n_shards):
+    """Wrap ``executor.run_round`` to sum every round's per-lane steps by
+    shard (lane ``i`` on shard ``i // wpd``); returns the running sums."""
+    import numpy as np
+    busy = np.zeros(n_shards, np.int64)
+    inner = executor.run_round
+
+    def run_round(pool, cache, budget, unroll=1):
+        tel = inner(pool, cache, budget, unroll)
+        busy[:] += tel.adv.reshape(n_shards, -1).sum(axis=1)
+        return tel
+    executor.run_round = run_round
+    return busy
+
+
+def kernel_overlap(prof, name_part):
+    """Of the kernels whose name holds ``name_part`` in a profiler
+    window: {device index: launches}, the time (us) a launch on one card
+    ran while a launch on another card was still running (summed over
+    launches), and their device time (us)."""
+    import torch
+    spans = sorted((e.time_range.start, e.time_range.end, e.device_index)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and name_part in e.name)
+    per_dev, last_end, overlap = {}, {}, 0.0
+    for t0, t1, d in spans:
+        per_dev[d] = per_dev.get(d, 0) + 1
+        others = [e for k, e in last_end.items() if k != d]
+        if others:
+            overlap += max(0.0, min(max(others), t1) - t0)
+        last_end[d] = max(last_end.get(d, t0), t1)
+    return per_dev, overlap, sum(t1 - t0 for t0, t1, _ in spans)
+
+
+def mesh_path(dev, by_path, truth):
+    """The slice-15 drives over a mesh (every visible card, or the
+    rehearsal mesh on one card), each with the launch counters set to 0
+    just before it and read just after, every result against the oracle:
+    the 32-graph stream through ``ShardedExecutor`` (dense default, K3 a
+    shard; dense ``resident_lanes=0``, K2; compact on its graphs of the
+    buckets up to MESH_COMPACT_BUCKET, K4 prefix + K1 prefix2); the big
+    lane on
+    dblp-like and dblp-large at MESH_BIG_WPD workers a device, stealing
+    on and off, totals and busy steps per worker equal to the local big
+    lane's at the same worker count; ``mbe_run`` on marvel-like with 4
+    workers a device.  Every drive logs its wall time, rounds, launches,
+    imbalance and busy steps per device and needs every device's workers
+    to have advanced; on two or more cards a profiler window over a big
+    lane drive needs K3 launches on every card, and at steps_per_call=16
+    two cards running K3 at once."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import MBEClient, MBEOptions
+    from repro_torch.data.generators import (dataset_suite,
+                                             random_graph_stream)
+    from repro_torch.launch import mbe_run
+    from repro_torch.serving.buckets import BucketPolicy, plan_bucket
+    t_phase = time.perf_counter()
+    mesh, n_cards = serving_mesh(dev)
+    n = mesh.size
+    bench = dataset_suite("bench")
+    large = dataset_suite("large")
+    stream = random_graph_stream(32, seed=0)
+    walls = {}
+
+    def sync():
+        for d in dict.fromkeys(mesh.devices):
+            torch.cuda.synchronize(d)
+
+    def drive(label, opts, graphs, need, big=False, shards=n):
+        reset_counters()
+        client = MBEClient(opts)
+        busy_dev = track_device_busy(client.server.executor, shards)
+        t = time.perf_counter()
+        res = client.enumerate_many(graphs)
+        sync()
+        wall = time.perf_counter() - t
+        by_path[label] = c = counters()
+        check_results(res, graphs, truth, label)
+        for k in need:
+            require(c[k] > 0, f"{k} not launched: {label}")
+        st = client.stats()
+        row = dict(path=label, graphs=len(graphs), wall_s=wall,
+                   rounds=st["batches"], launches=nonzero(c),
+                   scheduler_launches=st["launches"])
+        if big:
+            per_w = np.asarray(st["big_busy_per_worker"], np.int64)
+            busy_dev = per_w.reshape(shards, -1).sum(axis=1)
+            row.update(big_imbalance=st["big_imbalance"],
+                       **busy_brief(st["big_busy_per_worker"]))
+        row["busy_per_device"] = busy_dev.tolist()
+        require((busy_dev > 0).all(),
+                f"{label}: a device's workers never advanced: "
+                f"{busy_dev.tolist()}")
+        log("  slice15 " + json.dumps(row))
+        walls[label] = wall
+        return res, st
+
+    mopts = dict(mesh=mesh)
+    drive("mesh stream", MBEOptions(**mopts), stream, ["resident_pool"])
+    drive("mesh resident_lanes=0 stream",
+          MBEOptions(resident_lanes=0, **mopts), stream, ["resident_step"])
+    small = [g for g in stream
+             if plan_bucket(g.canonical(), BucketPolicy()).n_u
+             <= MESH_COMPACT_BUCKET[0]
+             and plan_bucket(g.canonical(), BucketPolicy()).n_v
+             <= MESH_COMPACT_BUCKET[1]]
+    drive("mesh compact stream", MBEOptions(engine="compact", **mopts),
+          small,
+          ["fused_select_gathered_prefix", "fused_check_gathered_prefix2"])
+
+    # the big lane over the mesh against the local one at the same count
+    for g in (bench["dblp-like"], large["dblp-large"]):
+        for wpd in MESH_BIG_WPD:
+            workers = n * wpd
+            (lr,), lst = drive(f"local big lane {g.name} x{workers}",
+                               MBEOptions(big_graph_threshold=1,
+                                          big_workers=workers,
+                                          device=str(dev)),
+                               [g], ["resident_pool"], big=True, shards=1)
+            for ws in (True, False):
+                (r,), st = drive(
+                    f"mesh big lane {g.name} {n}x{wpd} ws={ws}",
+                    MBEOptions(big_graph_threshold=1, workers_per_device=wpd,
+                               work_stealing=ws, **mopts),
+                    [g], ["resident_pool"], big=True)
+                require((r.n_max, r.cs, r.nodes) ==
+                        (lr.n_max, lr.cs, lr.nodes),
+                        f"mesh big lane {g.name} {n}x{wpd} ws={ws}: totals "
+                        f"{(r.n_max, r.cs, r.nodes)} != local "
+                        f"{(lr.n_max, lr.cs, lr.nodes)}")
+                # the same deal and the same steals: the same workers' work
+                require(not ws or st["big_busy_per_worker"] ==
+                        lst["big_busy_per_worker"],
+                        f"mesh big lane {g.name} {n}x{wpd}: busy steps per "
+                        f"worker differ from the local lane's")
+
+    # the paper's entry point on the mesh
+    reset_counters()
+    made = []
+
+    class Recorded(MBEClient):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+    mbe_run.MBEClient = Recorded
+    try:
+        t = time.perf_counter()
+        out = mbe_run.main(["--dataset", "marvel-like", "--workers", "4"],
+                           mesh=mesh)
+        sync()
+        wall = time.perf_counter() - t
+    finally:
+        mbe_run.MBEClient = MBEClient
+    by_path["mesh mbe_run marvel-like"] = c = counters()
+    exp = truth[key(bench["marvel-like"])][0]
+    require(out["n_max"] == exp,
+            f"mesh mbe_run marvel-like: n_max {out['n_max']} != oracle {exp}")
+    require(c["resident_pool"] > 0, "resident_pool not launched: mesh mbe_run")
+    st = made[0].stats()
+    busy_dev = np.asarray(st["big_busy_per_worker"]).reshape(n, -1).sum(1)
+    require((busy_dev > 0).all(), f"mesh mbe_run: a device's workers never "
+                                  f"advanced: {busy_dev.tolist()}")
+    require(st["executor"] == "sharded", f"mesh mbe_run: {st['executor']}")
+    walls["mesh mbe_run marvel-like"] = wall
+    log("  slice15 " + json.dumps(dict(
+        path="mesh mbe_run marvel-like", wall_s=wall, rounds=out["rounds"],
+        imbalance=out["imbalance"], launches=nonzero(c),
+        busy_per_device=busy_dev.tolist())))
+
+    if n_cards > 1:
+        # lockstep across cards, one profiler window a drive over the big
+        # lane: K3 on every card; at spc=1 a K3 segment (~5 us) is shorter
+        # than the host's gap between two launches, so the cards can only
+        # run at once with longer segments (logged at 1, required at 16)
+        g = large["dblp-large"]
+        overlap = {}
+        for spc in (1, 16):
+            client = MBEClient(MBEOptions(big_graph_threshold=1,
+                                          workers_per_device=4,
+                                          steps_per_call=spc, **mopts))
+            sync()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                time.sleep(PROFILE_SETTLE_S)
+                t = time.perf_counter()
+                r = client.enumerate(g)
+                sync()
+                wall = time.perf_counter() - t
+            check_results([r], [g], truth, f"mesh profiled big lane spc={spc}")
+            per_dev, overlap[spc], busy = kernel_overlap(prof, "resident_pool")
+            log("  slice15 " + json.dumps(dict(
+                path=f"mesh profiled big lane dblp-large spc={spc}",
+                wall_s=wall, k3_by_device=per_dev, k3_busy_us=busy,
+                overlap_us=overlap[spc])))
+            require(sorted(per_dev) == list(range(n_cards)),
+                    f"K3 launches by card {per_dev}: not on every card")
+        require(overlap[16] > 0, "no two cards ran K3 at once (spc=16)")
+    log(f"  slice15 mesh phase {time.perf_counter() - t_phase:.1f} s on "
+        f"{n} shard(s) of {n_cards} card(s); walls "
+        + json.dumps({k: round(v, 3) for k, v in walls.items()}))
 
 
 # ---------------------------------------------------------------------------

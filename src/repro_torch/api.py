@@ -11,20 +11,25 @@ Twin of ``src/repro/api.py``: ``MBEClient``, ``MBEOptions`` and
 ``MBEOptions`` keeps every reference field and default and adds one
 port-only field, ``device`` (default ``"cuda"``), threaded through the
 server, the executor and the engine.  ``device="cuda"`` without a card
-raises; nothing continues on the CPU in its place.
+raises; nothing continues on the CPU in its place.  ``mesh`` (None, N or
+``"auto"``) serves through ``ShardedExecutor`` on
+``sharding.axes.mbe_serve_mesh``: N distinct cards (``"auto"``: every
+visible one), or, with ``device="cpu"``, N shards of the CPU; a
+``launch.mesh.Mesh`` names its devices itself.
 
 The port serves every registered engine (``dense``, ``compact``,
 ``count``, ``mce``) on the local route and on the work-stealing
 big-graph route (``big_graph_threshold``, ``big_workers``,
 ``work_stealing``: the routed graph's root tasks on ``big_workers``
-workers of the one device), with the SLO layer (``admission``:
+workers of the device, or ``workers_per_device`` on every device of a
+mesh), with the SLO layer (``admission``:
 backpressure, weighted per-tenant fairness through
 ``submit(..., tenant=)``, shed-on-deadline; ``trace_path``: the JSONL
 request trace) and the fault-tolerance layer (``retry``: retries,
 checkpoints, quarantine and the one failover, which stays on the same
-device; ``fault_injector``: a deterministic ``FaultPlan``).  Only
-``mesh`` raises ``NotImplementedError`` when set: lane pools over
-several devices are the rest of ROADMAP Queue 1 item 8.
+device; ``fault_injector``: a deterministic ``FaultPlan``), on one
+device or over a mesh (``mesh``, ``workers_per_device``: lane pools and
+the big lane's workers split over the devices).
 """
 from __future__ import annotations
 
@@ -36,9 +41,10 @@ from repro_torch.core.graph import BipartiteGraph, unipartite_graph
 from repro_torch.core.results import (CliqueResult, CountResult,
                                       EngineResult, MBEResult)
 from repro_torch.kernels.dispatch import check_device
+from repro_torch.launch.mesh import Mesh
 from repro_torch.serving.buckets import BucketPolicy
 from repro_torch.serving.cache import ExecutableCache
-from repro_torch.serving.executor import LocalExecutor
+from repro_torch.serving.executor import LocalExecutor, ShardedExecutor
 from repro_torch.serving.faults import FaultPlan
 from repro_torch.serving.recovery import RetryPolicy
 from repro_torch.serving.scheduler import MBEServer, imbalance
@@ -92,7 +98,11 @@ class MBEOptions:
     strict_step_cap: bool = False
 
     # -- placement --------------------------------------------------------
-    mesh: int | str | None = None
+    mesh: int | str | Mesh | None = None   # None = one local device; N
+    #                               = N devices; "auto" = every visible
+    #                               one; a Mesh = those devices (an
+    #                               explicit list, e.g. a rehearsal that
+    #                               repeats one card)
     workers_per_device: int = 1
     big_workers: int = 4
     work_stealing: bool = True
@@ -104,11 +114,6 @@ class MBEOptions:
 
     def __post_init__(self):
         get_engine(self.engine)
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "MBEOptions(mesh=...) is not ported yet (ROADMAP Queue 1 "
-                "the rest of item 8: lane pools and the big lane over "
-                "several devices)")
 
     def engine_params(self) -> dict:
         return dict(count_pq=(self.count_p, self.count_q))
@@ -122,9 +127,22 @@ class MBEOptions:
             big_graph_threshold=self.big_graph_threshold)
 
     def make_executor(self):
-        return LocalExecutor(big_workers=self.big_workers,
-                             work_stealing=self.work_stealing,
-                             device=str(check_device(self.device)))
+        if isinstance(self.mesh, Mesh):     # names its devices itself
+            mesh = self.mesh
+        else:
+            device = str(check_device(self.device))
+            if self.mesh is None:
+                return LocalExecutor(big_workers=self.big_workers,
+                                     work_stealing=self.work_stealing,
+                                     device=device)
+            from repro_torch.sharding.axes import mbe_serve_mesh
+            mesh = mbe_serve_mesh(
+                None if self.mesh == "auto" else int(self.mesh),
+                device=device)
+        return ShardedExecutor(
+            mesh,
+            big_workers_per_device=self.workers_per_device,
+            work_stealing=self.work_stealing)
 
     def make_server(self) -> MBEServer:
         return MBEServer(

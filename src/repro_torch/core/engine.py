@@ -113,6 +113,16 @@ class Engine(abc.ABC):
                               batched=ctx_batched,
                               step_lanes=self.step_lanes)
 
+    def run_shards(self, ctxs, cfg: EngineConfig, states,
+                   max_steps: int | None = None, ctx_batched: bool = False,
+                   unroll: int = 1) -> list:
+        """``run_batch`` on every shard of a mesh (``ctxs[d]`` and
+        ``states[d]`` on shard d's device), one shard after another;
+        engines with a pool kernel advance the shards together."""
+        return [self.run_batch(c, cfg, s, max_steps=max_steps,
+                               ctx_batched=ctx_batched, unroll=unroll)
+                for c, s in zip(ctxs, states)]
+
     def pool_lanes(self, cfg: EngineConfig, batch: int, device) -> int:
         """Pool width of a multi-lane kernel for ``batch`` lanes on
         ``device``, or 0 (the cache extends its keys with
@@ -250,6 +260,11 @@ class DenseEngine(Engine):
                   unroll=1):
         return ed.run_batch(ctx, cfg, s, max_steps=max_steps,
                             ctx_batched=ctx_batched, unroll=unroll)
+
+    def run_shards(self, ctxs, cfg, states, max_steps=None,
+                   ctx_batched=False, unroll=1):
+        return ed.run_batch_shards(ctxs, cfg, states, max_steps=max_steps,
+                                   ctx_batched=ctx_batched, unroll=unroll)
 
     def pool_lanes(self, cfg, batch, device):
         return ed.pool_lanes(cfg, batch, device)

@@ -509,30 +509,38 @@ def _rebalance_budgets(start: torch.Tensor, bud: torch.Tensor,
     return new_bud.clamp(max=1 << 30).to(_I32)
 
 
-def _run_batch_pool(g: GraphContext, cfg: EngineConfig, s: DenseState,
-                    budget: int, ctx_batched: bool,
-                    unroll: int) -> DenseState:
-    """Pool-kernel backing for ``run_batch``: the loop copies ``s`` once,
-    then ONE in-place launch of the pool kernel (the plain version on the
-    CPU) advances every lane by an ``unroll``-step segment, until no lane
-    is active.  The scalar block (cursor, per-lane start and budget
-    columns) stays on the device across the loop; the host reads one
-    ``any(active)`` per segment (the flag the launch set).  With
-    ``cfg.resident_rebalance`` the budget column is rewritten from the
-    scoreboard between segments, and ``any(active)`` is recomputed from
-    it."""
-    own = _owned(s)
-    start = own.steps.clone()
-    p = pack(own, start, torch.full_like(start, budget))
-    loop = pool_run(g, cfg, own, p, unroll, ctx_batched=ctx_batched)
-    active = loop.active()
-    while active:
-        board = loop.launch()
-        if cfg.resident_rebalance:
-            p.scal[:, S_BUDGET] = _rebalance_budgets(
-                start, p.scal[:, S_BUDGET], p.scal[:, S_STEPS], board)
-        active = loop.active(fresh=cfg.resident_rebalance)
-    return unpack(own, p)
+def _run_batch_pool(gs, cfg: EngineConfig, ss, budget: int,
+                    ctx_batched: bool, unroll: int) -> list:
+    """Pool-kernel backing for ``run_batch``, over one pool or several
+    (the shards of a mesh, each on its own device): each run loop copies
+    its state once, then ONE in-place launch of the pool kernel (the
+    plain version on the CPU) advances every lane of a pool by an
+    ``unroll``-step segment, until no lane is active.  The scalar block
+    (cursor, per-lane start and budget columns) stays on the device
+    across the loop; the host reads one ``any(active)`` per pool and
+    segment (the flag the launch set).  The pools go in lockstep: one
+    launch on every pool still active, then every such pool's flag read,
+    so the devices run a segment at once while the host waits on the
+    first.  With ``cfg.resident_rebalance`` the budget column is
+    rewritten from the scoreboard between segments, and ``any(active)``
+    is recomputed from it."""
+    runs = []
+    for g, s in zip(gs, ss):
+        own = _owned(s)
+        start = own.steps.clone()
+        p = pack(own, start, torch.full_like(start, budget))
+        loop = pool_run(g, cfg, own, p, unroll, ctx_batched=ctx_batched)
+        runs.append([own, start, p, loop, loop.active()])
+    while any(r[4] for r in runs):
+        live = [r for r in runs if r[4]]
+        boards = [r[3].launch() for r in live]
+        for (_, start, p, _, _), board in zip(live, boards):
+            if cfg.resident_rebalance:
+                p.scal[:, S_BUDGET] = _rebalance_budgets(
+                    start, p.scal[:, S_BUDGET], p.scal[:, S_STEPS], board)
+        for r in live:
+            r[4] = r[3].active(fresh=cfg.resident_rebalance)
+    return [unpack(own, p) for own, _, p, _, _ in runs]
 
 
 def _lane(t, i: int):
@@ -559,7 +567,8 @@ def run_batch(g: GraphContext, cfg: EngineConfig, s: DenseState,
     dev = s.lvl.device
     budget = cfg.max_steps if max_steps is None else max_steps
     if pool_lanes(cfg, B, dev):
-        return _run_batch_pool(g, cfg, s, budget, ctx_batched, unroll)
+        return _run_batch_pool([g], cfg, [s], budget, ctx_batched,
+                               unroll)[0]
     if cfg.resident_active_on(dev) and not resident_supported(cfg, lanes=B):
         cfg = dataclasses.replace(cfg, resident=False)
     if cfg.resident_active_on(dev):
@@ -569,12 +578,27 @@ def run_batch(g: GraphContext, cfg: EngineConfig, s: DenseState,
     return _torch_loop(g, cfg, s, budget, unroll, batched=ctx_batched)
 
 
+def run_batch_shards(gs, cfg: EngineConfig, ss, max_steps: int | None = None,
+                     ctx_batched: bool = False, unroll: int = 1) -> list:
+    """``run_batch`` on every shard of a mesh (``gs[d]``, ``ss[d]`` on
+    shard d's device): on the pool-kernel path every shard advances in
+    the same segments (``_run_batch_pool``); otherwise one shard after
+    another."""
+    budget = cfg.max_steps if max_steps is None else max_steps
+    if all(pool_lanes(cfg, s.lvl.shape[0], s.lvl.device) for s in ss):
+        return _run_batch_pool(gs, cfg, ss, budget, ctx_batched, unroll)
+    return [run_batch(g, cfg, s, max_steps=max_steps,
+                      ctx_batched=ctx_batched, unroll=unroll)
+            for g, s in zip(gs, ss)]
+
+
 def replace_lane(batch_state: DenseState, batch_ctx: GraphContext, i: int,
                  lane_state: DenseState, lane_ctx: GraphContext
                  ) -> tuple[DenseState, GraphContext]:
     """Row surgery: a copy of the batch with lane ``i`` replaced (every
     other lane's rows untouched).  The reference's ``sharding`` re-pin
-    has no counterpart on one device."""
+    has no counterpart: ``ShardedExecutor`` writes each row into its
+    own shard."""
     return replace_lanes(batch_state, batch_ctx, [i],
                          _stack([lane_state]), _stack([lane_ctx]))
 

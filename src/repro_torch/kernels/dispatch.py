@@ -19,7 +19,11 @@ per-lane slots the cross-CTA fold of K1 and K4 uses; ``Outputs`` one
 allocation for a call's outputs.
 ``expect`` and ``lane_layout`` are the operand checks every wrapper makes
 before a launch; ``take_rows`` is the gather rule of the ``idx``
-(compact-array) kinds.
+(compact-array) kinds.  ``on_device`` is the one place a launch enters
+its tensors' CUDA device: every wrapper makes its C call inside it, so a
+launch on ``cuda:1`` runs with that device current (the C entries key
+their shared-memory records by ``cudaGetDevice``) on that device's
+stream, whatever device the caller has current.
 """
 from __future__ import annotations
 
@@ -63,6 +67,31 @@ def check_device(device) -> torch.device:
             f"device {device!r} requested but no CUDA device is present; "
             f"pass device='cpu' to run the plain torch-op path")
     return dev
+
+
+class on_device:
+    """``with on_device(t.device):`` around a kernel's C call: makes the
+    tensors' CUDA device current for the launch and gives the caller's
+    back after it (one device query when it already is current; nothing
+    for a device that is not a numbered CUDA device)."""
+
+    __slots__ = ("index", "prev")
+
+    def __init__(self, device: torch.device):
+        self.index = device.index if device.type == "cuda" else None
+        self.prev = self.index
+
+    def __enter__(self):
+        if self.index is not None:
+            self.prev = torch.cuda.current_device()
+            if self.index != self.prev:
+                torch.cuda.set_device(self.index)
+        return self
+
+    def __exit__(self, *exc):
+        if self.index != self.prev:
+            torch.cuda.set_device(self.prev)
+        return False
 
 
 def take_rows(adj: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -32,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dispatch import expect
+from repro_torch.kernels.dispatch import expect, on_device
 from repro_torch.kernels.flash_attention.ref import (_acc, flash_bwd_ref,
                                                      flash_fwd_ref)
 
@@ -100,11 +100,12 @@ def flash_fwd(qp, kp, vp, *, causal: bool, scale: float, sq: int, sk: int):
     dev = qp.device
     o = torch.empty_like(qp)
     lse = torch.empty((B, KV, G, Sqp), dtype=torch.float32, device=dev)
-    rc = _build.library().rt_flash_fwd(
-        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), DTYPES[qp.dtype], B * KV * G, G, Sqp, kp.shape[2],
-        sq, sk,
-        hd, float(scale), int(bool(causal)), _build.stream_ptr(dev))
+    with on_device(dev):
+        rc = _build.library().rt_flash_fwd(
+            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), DTYPES[qp.dtype], B * KV * G, G, Sqp,
+            kp.shape[2], sq, sk, hd, float(scale), int(bool(causal)),
+            _build.stream_ptr(dev))
     _build.check(rc, "flash_fwd launch")
     flash_fwd.launches += 1
     return o, lse
@@ -160,27 +161,31 @@ def launch_bwd(qp, kp, vp, dop, lse, dD, dq_acc, dk, dv, *, causal, scale,
     adds dq into ``dq_acc`` (fp32, zeroed by the caller), writes ``dk``,
     ``dv``."""
     lse, dD = pad_rows4(lse, dD)
-    rc = _build.library().rt_flash_bwd_fused(
-        *(t.data_ptr() for t in (qp, kp, vp, dop, lse, dD, dq_acc, dk, dv)),
-        lse.shape[-1], *_bwd_args(qp, kp, sq, sk, causal, scale))
+    with on_device(qp.device):
+        rc = _build.library().rt_flash_bwd_fused(
+            *(t.data_ptr()
+              for t in (qp, kp, vp, dop, lse, dD, dq_acc, dk, dv)),
+            lse.shape[-1], *_bwd_args(qp, kp, sq, sk, causal, scale))
     _build.check(rc, "flash_bwd fused launch")
     flash_bwd.fused_launches += 1
 
 
 def launch_dq(qp, kp, vp, dop, lse, dD, dq, *, causal, scale, sq, sk):
     """Launch the fp32 K7 dq into ``dq`` on checked operands."""
-    rc = _build.library().rt_flash_bwd_dq(
-        *(t.data_ptr() for t in (qp, kp, vp, dop, lse, dD, dq)),
-        DTYPES[qp.dtype], *_bwd_args(qp, kp, sq, sk, causal, scale))
+    with on_device(qp.device):
+        rc = _build.library().rt_flash_bwd_dq(
+            *(t.data_ptr() for t in (qp, kp, vp, dop, lse, dD, dq)),
+            DTYPES[qp.dtype], *_bwd_args(qp, kp, sq, sk, causal, scale))
     _build.check(rc, "flash_bwd dq launch")
     flash_bwd.dq_launches += 1
 
 
 def launch_dkv(qp, kp, vp, dop, lse, dD, dk, dv, *, causal, scale, sq, sk):
     """Launch the fp32 K7 dkv into ``dk``, ``dv`` on checked operands."""
-    rc = _build.library().rt_flash_bwd_dkv(
-        *(t.data_ptr() for t in (qp, kp, vp, dop, lse, dD, dk, dv)),
-        DTYPES[qp.dtype], *_bwd_args(qp, kp, sq, sk, causal, scale))
+    with on_device(qp.device):
+        rc = _build.library().rt_flash_bwd_dkv(
+            *(t.data_ptr() for t in (qp, kp, vp, dop, lse, dD, dk, dv)),
+            DTYPES[qp.dtype], *_bwd_args(qp, kp, sq, sk, causal, scale))
     _build.check(rc, "flash_bwd dkv launch")
     flash_bwd.dkv_launches += 1
 

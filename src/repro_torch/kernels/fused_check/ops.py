@@ -34,8 +34,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import (Outputs, aligned16, as_i32,
                                           current_stream_ptr, expect,
-                                          expect_i32, lane_layout, plan_rows,
-                                          row_scratch, use_kernel)
+                                          expect_i32, lane_layout, on_device,
+                                          plan_rows, row_scratch, use_kernel)
 from repro_torch.kernels.fused_check.ref import (
     fused_check_gathered_prefix2_ref, fused_check_gathered_ref,
     fused_check_packed_ref, fused_check_prefix2_ref, fused_check_ref)
@@ -123,7 +123,8 @@ def _launch(what, kind, adj, mask, n_mask, q, p, *, with_counts, idx=None,
         outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
         outs[3].data_ptr(), 0 if counts is None else counts.data_ptr(),
         scratch.data_ptr(), stream, *sig.ints, *plan[:7])
-    rc = _build.library().rt_fused_check(args)
+    with on_device(dev):
+        rc = _build.library().rt_fused_check(args)
     if rc:
         _build.check(rc, f"{what} launch")
     return outs[0], outs[1], outs[2], outs[3], counts

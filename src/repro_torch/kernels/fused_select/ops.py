@@ -33,8 +33,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import (Outputs, aligned16, as_i32,
                                           current_stream_ptr, expect,
-                                          expect_i32, lane_layout, plan_rows,
-                                          row_scratch, use_kernel)
+                                          expect_i32, lane_layout, on_device,
+                                          plan_rows, row_scratch, use_kernel)
 from repro_torch.kernels.fused_select.ref import (
     fused_select_gathered_prefix_ref, fused_select_gathered_ref,
     fused_select_packed_ref, fused_select_prefix_ref, fused_select_ref)
@@ -106,7 +106,8 @@ def _launch(what, kind, adj, mask, act, idx=None, plan=None):
         0 if idx is None else idx.data_ptr(), act.data_ptr(),
         out_idx.data_ptr(), out_val.data_ptr(), scratch.data_ptr(), stream,
         *sig.ints, *plan[:7])
-    rc = _build.library().rt_fused_select(args)
+    with on_device(dev):
+        rc = _build.library().rt_fused_select(args)
     if rc:
         _build.check(rc, f"{what} launch")
     return out_idx, out_val

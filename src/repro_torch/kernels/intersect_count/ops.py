@@ -22,8 +22,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import (Outputs, aligned16,
                                           current_stream_ptr, expect,
-                                          expect_i32, lane_layout, plan_rows,
-                                          use_kernel)
+                                          expect_i32, lane_layout, on_device,
+                                          plan_rows, use_kernel)
 from repro_torch.kernels.intersect_count.ref import (
     intersect_count_gathered_ref, intersect_count_ref)
 
@@ -84,7 +84,8 @@ def _launch(adj, mask, idx=None):
         adj.data_ptr(), mask.data_ptr(), 0 if idx is None else idx.data_ptr(),
         counts.data_ptr(), current_stream_ptr(dev.index), *sig.ints,
         *plan[:7])
-    rc = _build.library().rt_intersect_count(args)
+    with on_device(dev):
+        rc = _build.library().rt_intersect_count(args)
     if rc:
         _build.check(rc, f"{_WHAT} launch")
     return counts

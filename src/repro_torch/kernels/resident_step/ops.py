@@ -9,7 +9,9 @@ Pallas kernel ``src/repro/kernels/resident_step/kernel.py:resident_kernel``
 The kernel advances the state it is handed IN PLACE.  ``LaneRun`` is one
 run loop's handle on it: the operands are checked, the launch arguments
 built (one ``LaneArgs`` struct, passed by pointer) and the scoreboard and
-the "still active" flag allocated once, so each launch is one C call.  On
+the "still active" flag allocated once, so each launch is one C call,
+made with the state's device current (``dispatch.on_device``, as is the
+flag read's stream sync).  On
 a CPU tensor a launch runs the plain version (``ref.py``) and writes its
 result into the same buffers.  The functional entries ``resident_segment``
 and ``packed_segment`` clone the state once, then launch in place, as the
@@ -50,7 +52,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dispatch import MAX_SMEM_BYTES, use_kernel
+from repro_torch.kernels.dispatch import (MAX_SMEM_BYTES, on_device,
+                                          use_kernel)
 
 S_LVL, S_FORCED, S_TPOS, S_STEPS, S_NODES, S_NMAX, S_MAXFAIL, S_CS, \
     S_OUTN, S_NTASKS, S_START, S_BUDGET = range(12)
@@ -307,6 +310,7 @@ class LaneRun:
             else lib.rt_resident_pool
         self.what = "resident_step launch" if lanes is None \
             else "resident_pool launch"
+        self.device = dev
         self.stream = torch.cuda.current_stream(dev)
         self.stream_ptr = self.stream.cuda_stream
         self.seq = 0
@@ -318,7 +322,8 @@ class LaneRun:
         if not self.kernel:
             return self._plain()
         self.seq = self.seq % 0x7FFFFFFE + 1
-        rc = self.fn(self.addr, self.seq, self.stream_ptr)
+        with on_device(self.device):
+            rc = self.fn(self.addr, self.seq, self.stream_ptr)
         if rc:
             _build.check(rc, self.what)
         self.counter.launches += 1
@@ -331,7 +336,8 @@ class LaneRun:
         the scalar block."""
         if self.kernel and self.launched and not fresh \
                 and self.flag is not None:
-            self.stream.synchronize()
+            with on_device(self.device):
+                self.stream.synchronize()
             return int(self.flag_word[0]) == self.seq
         return bool(packed_active(self.p).any())
 

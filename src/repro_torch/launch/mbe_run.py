@@ -4,11 +4,12 @@ Twin of ``src/repro/launch/mbe_run.py``, with the same flags: enumerates
 all maximal bicliques (or runs another registered engine) of one
 generated or Konect-format graph through ``MBEClient`` as ONE request
 routed to the work-stealing big-graph lane (``big_graph_threshold=1``):
-the graph's root tasks are dealt over ``--workers`` workers of the card
-and re-dealt at round barriers.  The run is on one device: with more
-than one card visible it raises (several devices are the rest of ROADMAP
-Queue 1 item 8).  ``--file`` reads a local edge list; nothing is
-downloaded.
+the graph's root tasks are dealt over every visible card x ``--workers``
+stealing workers (one card: ``LocalExecutor``; several: the reference's
+``mesh="auto"``, a ``ShardedExecutor`` over all of them) and re-dealt at
+round barriers.  ``main(..., mesh=...)`` takes another mesh (N shards,
+or a ``launch.mesh.Mesh``), as the tests do on the CPU.  ``--file``
+reads a local edge list; nothing is downloaded.
 
 Usage (on the card):
   python -m repro_torch.launch.mbe_run --dataset marvel-like --workers 4
@@ -26,7 +27,6 @@ import torch
 from repro_torch.api import (MBEClient, MBEOptions, get_engine, imbalance,
                              unipartite_graph)
 from repro_torch.configs.cumbe import SMOKE
-from repro_torch.core.distributed import require_one_device
 from repro_torch.data.generators import dataset_suite, load_konect
 from repro_torch.kernels.dispatch import check_device
 
@@ -35,7 +35,7 @@ from repro_torch.kernels.dispatch import check_device
 _DEFAULT_DATASET = {"bench": "marvel-like", "test": "powerlaw-tiny"}
 
 
-def main(argv=None, *, device="cuda") -> dict:
+def main(argv=None, *, device="cuda", mesh=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataset", default=None,
                     help="name from repro_torch.data.generators."
@@ -52,7 +52,7 @@ def main(argv=None, *, device="cuda") -> dict:
     ap.add_argument("--count-q", type=int, default=2,
                     help="count engine: q of the (p,q)-biclique count")
     ap.add_argument("--workers", type=int, default=None,
-                    help="stealing workers on the device (default: cumbe "
+                    help="stealing workers per device (default: cumbe "
                          "SMOKE)")
     ap.add_argument("--steps-per-round", type=int, default=4096)
     ap.add_argument("--steps-per-call", type=int, default=1,
@@ -78,8 +78,9 @@ def main(argv=None, *, device="cuda") -> dict:
     args = ap.parse_args(argv)
 
     dev = check_device(device)
-    if dev.type == "cuda":
-        require_one_device(torch.cuda.device_count())
+    if mesh is None:
+        n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+        mesh = "auto" if n_dev > 1 else None
     if args.file:
         g = load_konect(args.file)
     else:
@@ -106,6 +107,7 @@ def main(argv=None, *, device="cuda") -> dict:
         big_graph_threshold=1,          # the whole run IS the big route
         steps_per_round=args.steps_per_round,
         steps_per_call=args.steps_per_call,
+        mesh=mesh,
         workers_per_device=workers, big_workers=workers,
         work_stealing=not args.no_work_stealing, device=str(dev)))
     t0 = time.time()

@@ -13,8 +13,9 @@ the card, with the reference's policies built from flags: admission
 ``--fault-seed``, ``--fault-device-lost-at``).  Every routing decision
 and pool placement is printed (``[route]`` / ``[pool]`` / ``[big]``),
 then one ``[serve-mbe]`` summary line with the reference's fields.
-``--mesh`` (lane pools over several devices) raises: the rest of ROADMAP
-Queue 1 item 8.
+``--mesh N`` serves through ``ShardedExecutor`` on a 1-D serving mesh
+over N cards (N shards of the CPU with ``device="cpu"``); 0 keeps the
+one-device ``LocalExecutor``.
 
 LM mode, every model family: the same loop as the reference: a
 fixed-slot batch, each slot holding one request's cache rows; a request
@@ -44,6 +45,7 @@ Usage (on the card):
   python -m repro_torch.launch.serve --arch qwen3-1.7b --smoke \
       --requests 8 --max-new 32
   python -m repro_torch.launch.serve --mbe --continuous --steps-per-round 64
+  python -m repro_torch.launch.serve --mbe --mesh 2 --big-graph-threshold 16
   python -m repro_torch.launch.serve --mbe --retry 3 \
       --fault-launch-rate 0.2 --fault-device-lost-at 6
   python -m repro_torch.launch.serve --mbe --trace build/trace.jsonl \
@@ -312,8 +314,8 @@ def serve(argv=None, *, device="cuda") -> dict:
                          "from finished to busy lanes at segment "
                          "boundaries")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="MBE: lane pools over N devices (not ported: "
-                         "ROADMAP Queue 1 item 8; 0 = LocalExecutor)")
+                    help="MBE: serve through ShardedExecutor on a 1-D "
+                         "mesh over N devices (0 = LocalExecutor)")
     ap.add_argument("--big-graph-threshold", type=int, default=None,
                     help="MBE: route graphs with >= K root tasks to the "
                          "work-stealing big-graph lane")

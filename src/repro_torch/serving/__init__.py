@@ -1,6 +1,7 @@
 """Continuous-batching multi-graph MBE serving layer (twin of
 ``repro.serving``): bucket planner, executable cache, the
-``LocalExecutor`` with its work-stealing ``BigGraphLane``, the
+``LocalExecutor`` and the ``ShardedExecutor`` (lane pools over a serving
+mesh) with their work-stealing ``BigGraphLane``, the
 ``MBEServer`` scheduler, the fault-tolerance subsystem (``faults``:
 the deterministic ``FaultInjector``; ``recovery``: ``RetryPolicy``,
 ``CheckpointStore``, ``verified_read``) and the SLO subsystem
@@ -12,7 +13,8 @@ from repro_torch.serving.cache import (CacheEntry,  # noqa: F401
                                        ExecutableCache)
 from repro_torch.serving.executor import (BigGraphLane,  # noqa: F401
                                           Executor, LanePool,
-                                          LocalExecutor, RoundTelemetry)
+                                          LocalExecutor, RoundTelemetry,
+                                          ShardedExecutor)
 from repro_torch.serving.faults import (DeviceLostError,  # noqa: F401
                                         FaultError, FaultInjector,
                                         FaultPlan, InjectedCompileError,

@@ -17,6 +17,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core.distributed import Sharded
 from repro_torch.core.engine import DENSE, Engine
 from repro_torch.kernels.dispatch import check_device
 
@@ -55,12 +56,14 @@ class CacheEntry:
 
     def timed_call(self, ctx, s):
         """Blocking call: ``(out, wall_s, compile_s)``; on the card the
-        wall time ends in ``torch.cuda.synchronize()``."""
-        dev = s.lvl.device
+        wall time ends in ``torch.cuda.synchronize()`` of every device
+        the state lies on (each shard's of a ``Sharded`` one)."""
+        devs = s.mesh.devices if isinstance(s, Sharded) else (s.lvl.device,)
         t0 = time.perf_counter()
         out = self(ctx, s)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        for dev in dict.fromkeys(devs):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         return out, time.perf_counter() - t0, 0.0
 
 

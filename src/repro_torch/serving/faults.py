@@ -184,6 +184,13 @@ class FaultInjector(Executor):
                                    poison_nth_install=None)
         return FaultInjector(inner, plan, _poison_fps=self._poison_fps)
 
+    def __getattr__(self, attr):
+        # the wrapped backend's own attributes (a sharded executor's
+        # mesh, axis, n_devices, ...)
+        if attr == "inner":
+            raise AttributeError(attr)
+        return getattr(self.inner, attr)
+
     # -- lane planning / placement (pure delegation) --------------------
     def plan_lanes(self, n_pending, policy):
         return self.inner.plan_lanes(n_pending, policy)

@@ -115,19 +115,11 @@ def test_import_firewall():
 
 def _unported(case):
     from repro_torch import configs
-    from repro_torch.core import distributed as tdd
-    from repro_torch.core import engine_dense as ted
     from repro_torch.launch.serve import serve
     from repro_torch.launch.train import train
     from repro_torch.training.optimizer import adamw
     from repro_torch.training.step import make_train_step
-    if case == "mesh":
-        repro_torch.MBEOptions(device="cpu", mesh=2)
-    elif case == "serve-mbe-mesh":
-        serve(["--mbe", "--mesh", "2"], device="cpu")
-    elif case == "make_round_fn":
-        tdd.make_round_fn(ted.make_config(STREAM[0].canonical()), 2)
-    elif case == "serve-model-parallel":
+    if case == "serve-model-parallel":
         serve(["--arch", "qwen3-1.7b", "--model-parallel", "2"],
               device="cpu")
     elif case == "train-compress":
@@ -139,13 +131,14 @@ def _unported(case):
 
 
 @pytest.mark.parametrize("case,item", [
-    ("mesh", "item 8"), ("serve-mbe-mesh", "item 8"),
-    ("make_round_fn", "item 8"), ("serve-model-parallel", "item 12c"),
+    ("serve-model-parallel", "item 12c"),
     ("train-compress", "item 8"), ("train-model-parallel", "item 12c")])
 def test_unported_options_raise(case, item):
     """What the port still does not serve raises, naming its ROADMAP
-    Queue 1 item: several devices (8: the int8 gradient all-reduce too),
-    sharding (12c: a model-parallel train or serve mesh)."""
+    Queue 1 item: the int8 gradient all-reduce (8's LM part) and
+    sharding (12c: a model-parallel train or serve mesh).  The MBE mesh
+    is served (``tests/test_torch_mesh.py``,
+    ``tests/test_torch_sharded_executor.py``)."""
     with pytest.raises(NotImplementedError, match=item):
         _unported(case)
 
@@ -204,8 +197,11 @@ def _default_device_calls():
     device: each must aim at the card."""
     import numpy as np
     from repro_torch.core import engine_compact as tec
+    from repro_torch.core import distributed as tdd
     from repro_torch.core import engine_dense as ted
     from repro_torch.core.engine import COMPACT, DENSE
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.sharding.axes import mbe_serve_mesh
     from repro_torch.serving.cache import ExecutableCache
     g = STREAM[0].canonical()
     cfg = ted.make_config(g)
@@ -240,6 +236,10 @@ def _default_device_calls():
             lambda: COMPACT.fresh_lane_state(cfg, 2),
         "ExecutableCache.get_round compact":
             lambda: ExecutableCache().get_round(cfg, 2, 8, engine=COMPACT),
+        "mbe_serve_mesh": lambda: mbe_serve_mesh(),
+        "make_local_mesh": lambda: make_local_mesh(),
+        "make_distributed_runner":
+            lambda: tdd.make_distributed_runner(g, cfg),
     }
 
 

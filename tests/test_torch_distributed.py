@@ -43,6 +43,7 @@ from repro_torch.launch import mbe_run as t_mbe_run
 
 W = 4
 MESH = Mesh(np.array(jax.devices()[:1]), ("workers",))
+T_MESH = tdd.Mesh(["cpu"], ("workers",))
 
 
 def _np(j):
@@ -98,8 +99,8 @@ def _rounds(engine, jg, tg, jcfg, tcfg, ws, spr, *, spc=1):
                             work_stealing=ws, steps_per_call=spc)
     jfn, nw, T = jdd.make_round_fn(jcfg, MESH, ("workers",), dist_j,
                                    with_telemetry=True, engine=je)
-    tfn, tnw, tT = tdd.make_round_fn(tcfg, 1, dist_t, with_telemetry=True,
-                                     engine=te)
+    tfn, tnw, tT = tdd.make_round_fn(tcfg, T_MESH, ("workers",), dist_t,
+                                     with_telemetry=True, engine=te)
     assert (nw, T) == (tnw, tT)
     jctx, tctx = je.make_context(jg, jcfg), te.make_context(tg, tcfg, "cpu")
     per = []
@@ -116,6 +117,7 @@ def _rounds(engine, jg, tg, jcfg, tcfg, ws, spr, *, spc=1):
     for r in range(200):
         js, jtel = jfn(jctx, js)
         ts, ttel = tfn(tctx, ts)
+        ts = ts.gather()
         msg = f"{engine} ws={ws} round {r}"
         _assert_leaves(js, ts, msg)
         for k in ("busy_steps", "pending"):
@@ -175,14 +177,14 @@ def test_every_root_task_runs_exactly_once(ws):
     cfg = ted.make_config(g)
     dist = tdd.DistConfig(steps_per_round=24, workers_per_device=W,
                           work_stealing=ws)
-    init, roundf, _ = tdd.make_distributed_runner(g, cfg, 1, dist,
-                                                  device="cpu")
-    state = init()
+    init, roundf, _ = tdd.make_distributed_runner(g, cfg, T_MESH, None,
+                                                  dist)
+    state = init().gather()
     pend = _pending(state)
     assert sorted(pend.elements()) == list(range(cfg.m_real))
     executed = Counter()
     for _ in range(dist.max_rounds):
-        state = roundf(state)
+        state = roundf(state).gather()
         after = _pending(state)
         consumed = pend - after
         assert sum(consumed.values()) == \
@@ -201,16 +203,22 @@ def test_every_root_task_runs_exactly_once(ws):
 
 
 def test_runner_loop_and_one_device_only():
+    """The runner's driver on a one-device mesh; the same driver on a
+    CPU mesh of 2 devices (3 workers each, see
+    ``tests/test_torch_mesh.py``) gives the same totals."""
     g = tgen.dataset_suite("test")["ucforum-like"]
     cfg = ted.make_config(g)
-    _, _, driver = tdd.make_distributed_runner(
-        g, cfg, 1, tdd.DistConfig(steps_per_round=16, workers_per_device=3),
-        device="cpu")
+    dist = tdd.DistConfig(steps_per_round=16, workers_per_device=3)
+    _, _, driver = tdd.make_distributed_runner(g, cfg, T_MESH, None, dist)
     state, log = driver()
     assert tdd.totals(state)["n_max"] == len(enumerate_mbea(g))
     assert log[-1]["done"] == 3 and len(log) > 1
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tdd.make_round_fn(cfg, 2)
+    mesh2 = tdd.Mesh(["cpu"] * 2, ("workers",))
+    _, _, driver2 = tdd.make_distributed_runner(g, cfg, mesh2, None, dist)
+    state2, log2 = driver2()
+    assert log2[-1]["done"] == 6
+    assert {k: v for k, v in tdd.totals(state2).items() if k != "steps"} \
+        == {k: v for k, v in tdd.totals(state).items() if k != "steps"}
 
 
 def _payload(r):

@@ -2,7 +2,8 @@
 (``--device cpu``) and do what they print: the quickstart's engines agree
 with the oracle, the custom engine counts the edges, the served streams
 have every request's tokens (a list of codebook tokens a step for
-musicgen)."""
+musicgen), the distributed example's big lane spreads over the 8 devices
+of its CPU mesh with and without stealing."""
 import importlib.util
 import pathlib
 
@@ -29,6 +30,19 @@ def test_quickstart():
     assert {"dense", "compact"} <= set(out["engines"])
     big = powerlaw_bipartite(192, 384, m_edges=4000, alpha=1.4, seed=7)
     assert out["big"] == count_mbea(big)
+
+
+def test_mbe_distributed(capsys):
+    out = _load("mbe_distributed").main(["--device", "cpu"])
+    big = powerlaw_bipartite(256, 512, m_edges=7000, alpha=1.35, seed=12)
+    printed = capsys.readouterr().out
+    assert printed.count("busy steps per device") == 2
+    for ws in (False, True):
+        assert out[ws]["n_max"] == count_mbea(big)
+        assert len(out[ws]["busy"]) == 16
+        per_dev = out[ws]["busy_per_device"]
+        assert len(per_dev) == 8 and all(b > 0 for b in per_dev)
+        assert sum(per_dev) == sum(out[ws]["busy"])
 
 
 def test_custom_engine(monkeypatch):

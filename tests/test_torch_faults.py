@@ -2,8 +2,9 @@
 (``repro_torch.serving.faults`` / ``.recovery`` and the scheduler's
 recovery ladder) against the JAX package's, on the CPU.
 
-Twins of ``tests/test_faults.py``'s tests on ``LocalExecutor`` (the
-``ShardedExecutor`` case is ROADMAP Queue 1 item 8), parametrised over
+Twins of ``tests/test_faults.py``'s tests on ``LocalExecutor`` (a chaos
+stream through ``ShardedExecutor`` on a CPU mesh of 4 is in
+``tests/test_torch_sharded_executor.py``), parametrised over
 the dense, compact, ``mce`` and ``count`` engines where the reference's
 are, and over the engines for the device-lost failover as well.  For one
 ``FaultPlan`` seed the two packages must give identical injector logs

@@ -265,8 +265,8 @@ def test_served_streams_equal_jax_serve(weights, monkeypatch):
 
 
 def test_serve_flags():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        serve(["--mbe", "--mesh", "2"], device="cpu")
+    mbe = serve(["--mbe", "--mesh", "2", "--requests", "2"], device="cpu")
+    assert mbe["executor"] == "sharded" and mbe["metric"] > 0
     with pytest.raises(NotImplementedError, match="item 12c"):
         serve(["--arch", ARCH, "--smoke", "--model-parallel", "2"],
               device="cpu")

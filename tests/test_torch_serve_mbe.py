@@ -6,13 +6,16 @@ and the same scheduling, SLO and fault counters — for the defaults in
 continuous mode, the compact / mce / count engines, a traced stream
 under backpressure and shed-on-deadline (the two trace files give the
 same events), and a chaos stream with retries and a device loss.
-``--mesh`` raises, naming ROADMAP Queue 1 item 8.  Tolerance: exact.
+``--mesh N`` serves through ``ShardedExecutor`` (against the reference's
+in ``tests/test_torch_sharded_executor.py``); asked of the card with no
+card, it raises.  Tolerance: exact.
 """
 import argparse
 import dataclasses
 import re
 
 import pytest
+import torch
 
 from test_torch_serving_pair import BOTH, LEDGER_KEYS, T, masked
 from repro.launch import serve as j_serve
@@ -79,8 +82,16 @@ def test_serve_mbe_matches_the_reference(case, capsys, tmp_path):
 
 
 def test_serve_mbe_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        T.serve(["--mbe", "--mesh", "2"])
+    """``--mesh 2`` serves on a CPU mesh of 2 (the same metric as the
+    one-device run); on the card path with no card it raises rather
+    than serving on the CPU."""
+    argv = ["--mbe", "--requests", "4", "--max-batch", "2"]
+    local, mesh = T.serve(argv), T.serve(argv + ["--mesh", "2"])
+    assert mesh["executor"] == "sharded" and mesh["metric"] > 0
+    assert mesh["metric"] == local["metric"]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            t_serve.serve(argv + ["--mesh", "2"])
 
 
 @pytest.mark.parametrize("flags", [
