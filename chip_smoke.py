@@ -83,9 +83,10 @@ makes the script exit non-zero):
               and dblp-like at steps_per_call=16; the stream unfused with
               impl='pallas'); the dense deg_nocache path with residency
               off (fused_select packed; unicode-like, and the 2-lane
-              64 x 256 pool) and the dense unfused path with
-              impl='pallas' (intersect_count); every n_max and cs against
-              the oracle, every kernel's launch count > 0 on its path;
+              512 x 2048 pool of dblp-like and corp-leadership) and the
+              dense unfused path with impl='pallas' (intersect_count);
+              every n_max and cs against the oracle, every kernel's
+              launch count > 0 on its path;
               the work-stealing big lane (``big_graph_threshold=1``: K3
               on one shared adjacency) on dblp-like and dblp-large at 4
               workers and at the most the pool gate admits, each with
@@ -162,7 +163,21 @@ makes the script exit non-zero):
               fault flagged), zamba2-7b's fp32 grads at 6 layers through
               K7 dq / dkv at hd 112 (the same floor rule), 2 AdamW steps
               with accum=2 (finite, params moved, peak memory), and the
-              launcher with a restart on zamba2-7b's smoke config;
+              launcher with a restart on zamba2-7b's smoke config; then
+              the LM on a mesh (``lm_mesh_path``; every visible card, or
+              4 shards of one): qwen3-1.7b at full width, prefill
+              (1, 32768) and (4, 4096) at model=4, ``serve
+              --model-parallel 4`` (4 slots, 8 requests), the bf16 grads
+              at (2, 4096), 2 AdamW steps with accum=2 at model=4 and at
+              data=2 x model=2, the launcher with a restart at
+              ``--model-parallel 2``, and granite-moe-1b-a400m's prefill
+              (1, 4096) at model=4 (8 of its 32 experts a shard); each
+              held against the same call on one device (logits at
+              LM_LOGIT_TOL / LM_LOGIT_RTOL, the served loop's decode
+              logits and picks, grads at max(TRAIN_GRAD_RTOL, 2 x the
+              floor), finite losses), every K7 fwd and bwd call of the
+              held drives against its plain version, with K7 launches
+              and peak memory by card;
 5. times    — per-kernel CUDA-event, profiler and queued times at each
               kernel's own path's shapes beside the plain version and the
               bound (K1 / K4 also under a sweep of launch plans, and past
@@ -2610,10 +2625,10 @@ def k7_held(fault=None):
                         causal, scale)
         qp, kp, vp = (x.contiguous() for x in ops._pack(q, k, v))
         S = q.shape[1]
-        seen.append(k7_errors(
+        seen.append(dict(k7_errors(
             qp, kp, vp, saved[3], saved[4], causal=causal,
             scale=q.shape[-1] ** -0.5 if scale is None else scale, sq=S,
-            sk=k.shape[1], spans=k7_spans(S, "ends")))
+            sk=k.shape[1], spans=k7_spans(S, "ends")), card=q.device.index))
         return o, saved
     ops._fwd = held
     try:
@@ -3073,8 +3088,13 @@ def grad_probe():
     from repro_torch.training.optimizer import Optimizer, global_norm
 
     def update(g, st, params):
-        zero = torch.zeros((), device=next(iter(g.values())).device)
-        return ({k: zero for k in g}, g,
+        first = next(iter(g.values()))
+        zero = torch.zeros((), device=getattr(first, "parts", [first])[0]
+                           .device)
+        # a leaf split over a mesh gets one zero a shard
+        return ({k: (v.like([zero.to(p.device) for p in v.parts])
+                     if hasattr(v, "parts") else zero)
+                 for k, v in g.items()}, g,
                 dict(lr=zero, grad_norm=global_norm(g)))
     return Optimizer(init=lambda p: None, update=update)
 
@@ -3314,17 +3334,18 @@ def train_path(dev, by_path):
     return info
 
 
-def launcher_restart(dev, argv, label, by_path) -> dict:
+def launcher_restart(dev, argv, label, by_path, **kw) -> dict:
     """``repro_torch.launch.train`` with ``argv`` (20 steps, a failure
     after step 7, a checkpoint every 5): one restart, resumed at data
-    step 5, finite losses."""
+    step 5, finite losses.  ``kw``: the launcher's device keywords
+    (default: ``dev`` alone)."""
     import shutil
     from repro_torch.launch.train import train
     ckpt = os.path.join(HERE, "build", "chip_smoke_ckpt")
     shutil.rmtree(ckpt, ignore_errors=True)
     reset_counters()
     t = time.perf_counter()
-    out = train(argv + ["--ckpt-dir", ckpt], device=str(dev))
+    out = train(argv + ["--ckpt-dir", ckpt], **(kw or dict(device=str(dev))))
     wall = time.perf_counter() - t
     by_path[label] = counters()
     losses = [x for _, x in out["history"]]
@@ -3332,7 +3353,7 @@ def launcher_restart(dev, argv, label, by_path) -> dict:
             and all(x == x and abs(x) != float("inf") for x in losses),
             f"{label}: {out}")
     info = dict(wall_s=wall, restarts=out["restarts"], starts=out["starts"],
-                history=out["history"])
+                history=out["history"], mesh=out["mesh"])
     log(f"  {label} {' '.join(argv)}: " + json.dumps(info))
     shutil.rmtree(ckpt, ignore_errors=True)
     return info
@@ -3447,6 +3468,513 @@ def families_train_path(dev, by_path):
         dev, FAMILY_LAUNCH, "zamba2-7b launcher --smoke", by_path)
     info["wall_s"] = time.perf_counter() - t_phase
     log(f"  [families train] {info['wall_s']:.1f} s")
+    return info
+
+
+# ---------------------------------------------------------------------------
+# phase 4 (the LM on a mesh): qwen3-1.7b and granite-moe-1b-a400m split
+# over every visible card (one card: a rehearsal mesh of REHEARSAL_SHARDS
+# shards of it), each drive held against the same call on one device
+# ---------------------------------------------------------------------------
+
+# the model axis of the prefill, serve and grad drives; the AdamW steps
+# also run at data=2 x model=2; the launcher at --model-parallel 2
+LM_MESH_MODEL = 4
+LM_MESH_STEP_LAYOUTS = (4, 2)             # model axis of each AdamW drive
+LM_MESH_STEPS = 2
+LM_MESH_LAUNCH = TRAIN_LAUNCH + ["--model-parallel", "2"]
+# the served loop on the mesh and on one device for its yardstick: 4
+# slots, 8 requests, shorter prompts and streams than LM_SERVE (the mesh's
+# decode is host-bound: ~4x the one-device loop's calls' ops)
+LM_MESH_SERVE = ["--arch", LM_ARCH, "--slots", "4", "--requests", "8",
+                 "--prompt-len", "8", "--max-new", "8", "--max-seq", "64"]
+# each AdamW step on the mesh against train_path's one-device step on the
+# same weights and batches: the loss within this relative limit (the
+# mesh's partial sums round in another order; PERF.md §6 has the gaps
+# measured), the grad norm within TRAIN_GRAD_RTOL (a norm moves no more
+# than the grads it is taken over, which mesh_grads holds at that limit)
+LM_MESH_LOSS_RTOL = 1e-3
+MOE_MESH_ARCH = "granite-moe-1b-a400m"
+MOE_MESH_PREFILL = (1, 4_096)
+
+
+def lm_mesh(dev, model):
+    """(mesh, the launchers' device keywords): every visible card as
+    (n // model, model); with one card REHEARSAL_SHARDS shards of it."""
+    import torch
+    from repro_torch.launch.mesh import make_local_mesh
+    if torch.cuda.device_count() > 1:
+        return make_local_mesh(model, device="cuda"), dict(device="cuda")
+    kw = dict(device=str(dev), shards=REHEARSAL_SHARDS)
+    return make_local_mesh(model, **kw), kw
+
+
+def cards(mesh) -> list:
+    """The distinct cards of ``mesh``, in index order."""
+    return sorted({d.index for d in mesh.devices})
+
+
+def sync_cards(mesh):
+    import torch
+    for i in cards(mesh):
+        torch.cuda.synchronize(i)
+
+
+def peaks_gb(mesh, reset=False) -> dict:
+    """Peak device memory (GB) of each card of ``mesh`` since the last
+    reset; with ``reset`` start a new window."""
+    import torch
+    out = {}
+    for i in cards(mesh):
+        out[i] = round(torch.cuda.max_memory_allocated(i) / 1e9, 3)
+        if reset:
+            torch.cuda.reset_peak_memory_stats(i)
+    return out
+
+
+def per_card(seen) -> dict:
+    out = {}
+    for e in seen:
+        out[e["card"]] = out.get(e["card"], 0) + 1
+    return dict(sorted(out.items()))
+
+
+@contextlib.contextmanager
+def k7_bwd_held():
+    """Hold every K7 backward call of the block against ``flash_bwd_ref``
+    on the same operands (``k7b_errors``), with the floor of that call:
+    the plain version against itself on fp32 copies of the operands (no
+    bf16 rounding of ds and p), since a model's own operands (tiny grads
+    whose dq rows cancel) move further under a rounding than the random
+    ones K7B_ROW_RTOL was set on; yields (errors, floor, card) per call."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_bwd_ref
+    real, seen = ops.flash_bwd, []
+
+    def held(qp, kp, vp, dop, lse, dD, **kw):
+        got = real(qp, kp, vp, dop, lse, dD, **kw)
+        want = flash_bwd_ref(qp, kp, vp, dop, lse, dD, **kw)
+        f32 = flash_bwd_ref(*(x.float() for x in (qp, kp, vp, dop)), lse,
+                            dD, **kw)
+        seen.append(dict(errs=k7b_errors(got, want),
+                         floor=k7b_errors(want, f32), card=qp.device.index,
+                         dtype=str(qp.dtype).split(".")[1]))
+        del want, f32
+        return got
+    counts = ("fused_launches", "dq_launches", "dkv_launches")
+    for c in counts:
+        setattr(held, c, getattr(real, c))
+    ops.flash_bwd = held
+    try:
+        yield seen
+    finally:
+        ops.flash_bwd = real
+        for c in counts:
+            setattr(real, c, getattr(held, c))
+
+
+def k7b_held_ok(e) -> bool:
+    """A held K7 backward call: finite, and each output within the larger
+    of K7B_ROW_RTOL / K7B_SCALED_TOL and twice its call's floor."""
+    return all(v["finite"]
+               and v["row"] <= max(K7B_ROW_RTOL[e["dtype"]],
+                                   2 * e["floor"][k]["row"])
+               and v["scaled"] <= max(K7B_SCALED_TOL[e["dtype"]],
+                                      2 * e["floor"][k]["scaled"])
+               for k, v in e["errs"].items())
+
+
+def k7_verdict(label, fwd, bwd=()) -> dict:
+    """Every held K7 call passed; their counts by card."""
+    bad_f = [e for e in fwd if not k7_ok(e, "bfloat16")]
+    bad_b = [e for e in bwd if not k7b_held_ok(e)]
+    out = dict(fwd_by_card=per_card(fwd), bwd_by_card=per_card(bwd))
+    if fwd:
+        out["fwd_worst"] = worst_k7(fwd)
+    if bwd:
+        out["bwd_worst"] = {k: dict(row=max(e["errs"][k]["row"] for e in bwd),
+                                    scaled=max(e["errs"][k]["scaled"]
+                                               for e in bwd),
+                                    floor_row=max(e["floor"][k]["row"]
+                                                  for e in bwd))
+                            for k in ("dq", "dk", "dv")}
+    require(not bad_f and not bad_b,
+            f"{label}: K7 calls off their plain version: fwd {bad_f[:2]}, "
+            f"bwd {bad_b[:2]}")
+    return out
+
+
+def mesh_prefill(cfg, params, mesh, B, S, label, by_path, seed,
+                 floor=False) -> dict:
+    """``make_prefill_step`` at (B, S) on ``mesh`` (timed after a warm-up
+    call), then the logits at every position against the same forward on
+    one device: ``logit_errors`` at LM_LOGIT_RTOL, the last position's max
+    |dlogit| at LM_LOGIT_TOL with equal argmax or a top-2 gap under it,
+    and every K7 call of the mesh's forward held against its plain
+    version, on every card.  With ``floor`` the limits are the families'
+    (``family_logits``): the larger of those and twice the floor, the
+    one-device torch-op path against itself at half its key tile (a
+    moe router's near-tie moves a position's logits when the sums round
+    in another order, as the mesh's partial sums do)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.layers import shard_params
+    from repro_torch.sharding.auto import make_rules
+    from repro_torch.sharding.axes import use_rules
+    from repro_torch.training.step import make_prefill_step
+    dev = mesh.devices[0]
+    rules = make_rules(cfg, mesh, ShapeSpec("prefill", S, B, "prefill"))
+    sp = shard_params(params, M.param_specs(cfg), rules)
+    peaks_gb(mesh, reset=True)
+    toks = torch.randint(0, cfg.vocab, (B, S), device=dev,
+                         generator=torch.Generator(device=dev)
+                         .manual_seed(seed))
+    batch = dict(tokens=toks)
+    prefill = make_prefill_step(cfg)
+    L = k7_calls(cfg)
+    with use_rules(rules):
+        prefill(sp, batch)                      # warm-up
+        sync_cards(mesh)
+        reset_counters()
+        t = time.perf_counter()
+        nxt = prefill(sp, batch)
+        sync_cards(mesh)
+        wall = time.perf_counter() - t
+        by_path[label] = c = counters()
+        peak = peaks_gb(mesh)
+        with torch.no_grad(), k7_held() as seen:
+            lm = M.forward(cfg, sp, toks)[0]
+    n_k7 = L * mesh.size
+    require(c["flash_fwd"] == n_k7 and sum(c.values()) == n_k7,
+            f"{label}: launches {nonzero(c)}, expected {n_k7} flash_fwd")
+    del sp
+    with torch.no_grad():
+        l1 = M.forward(cfg, params, toks)[0]
+    sound = logit_errors(lm, l1)
+    lp, lx = lm[:, -1].float(), l1[:, -1].float()
+    del lm
+    rtol, atol, fl = LM_LOGIT_RTOL, LM_LOGIT_TOL, None
+    if floor:
+        xla = dataclasses.replace(cfg, attn_impl="xla")
+        half = dataclasses.replace(xla, attn_chunk_k=xla.attn_chunk_k // 2)
+        with torch.no_grad():
+            lx_full = M.forward(xla, params, toks)[0]
+            fl = logit_errors(M.forward(half, params, toks)[0], lx_full)
+        del lx_full
+        rtol = max(rtol, 2 * fl["rel"])
+        atol = max(atol, 2 * fl["last_abs"])
+    del l1
+    top2 = lx.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    same = (lp.argmax(-1) == lx.argmax(-1)) | (gap < atol)
+    d = float((lp - lx).abs().max())
+    k7 = k7_verdict(label, seen)
+    out = dict(wall_s=wall, tok_per_s=B * S / wall, max_dlogit=d,
+               argmax_equal=int((lp.argmax(-1) == lx.argmax(-1)).sum()),
+               logits_all=sound, floor=fl, rtol=rtol, atol=atol, k7=k7,
+               peak_gb=peak)
+    log(f"  {label} on {mesh}: {wall:.3f} s ({B * S / wall:,.0f} tok/s), "
+        f"launches {nonzero(c)}; against one device: last position max "
+        f"|dlogit| {d:.4g} (tol {atol:.3g}), argmax equal "
+        f"{out['argmax_equal']}/{B}, every position " + json.dumps(sound)
+        + f" (tol {rtol:.3g}" + ("" if fl is None else
+                                 ": twice the floor " + json.dumps(fl))
+        + "); K7 held " + json.dumps(k7) + ", peak GB by card "
+        + json.dumps(peak))
+    require(bool(torch.isfinite(lp).all()), f"{label}: non-finite logits")
+    require(torch.equal(nxt.long().to(lp.device), lp.argmax(-1)),
+            f"{label}: prefill_step tokens != argmax of the mesh's logits")
+    require(d <= atol and bool(same.all()),
+            f"{label}: max |dlogit| {d} (tol {atol}), top-2 gaps "
+            f"{gap.tolist()}")
+    require(sound["rel"] <= rtol,
+            f"{label}: logits differ from one device: {sound} (tol {rtol})")
+    return out
+
+
+@contextlib.contextmanager
+def decode_logits():
+    """Record every ``decode_step`` call's logits (fp32, on the host),
+    tokens and positions inside the block."""
+    import torch
+    from repro_torch.models import model as M
+    real, calls = M.decode_step, []
+
+    def rec(cfg, params, cache, tokens, pos):
+        lg, cache = real(cfg, params, cache, tokens, pos)
+        calls.append(tuple(x.detach().to("cpu", copy=True)
+                           for x in (lg.float(), tokens,
+                                     torch.as_tensor(pos))))
+        return lg, cache
+    M.decode_step = rec
+    try:
+        yield calls
+    finally:
+        M.decode_step = real
+
+
+def served_against(one, mesh) -> dict:
+    """The served loop's decode calls on a mesh against one device's
+    (the same schedule): for each slot, while its inputs since its last
+    admission are equal, every call's ||dlogit|| / ||logit|| (limit
+    LM_LOGIT_RTOL) and, where the two runs pick different tokens, each
+    run's logit gap between the two picks (one device's logits and the
+    mesh's, limit LM_LOGIT_TOL: a near-tie); past that the slot's stream
+    differs and is not compared until its next request."""
+    rel, gaps, equal_calls = 0.0, [], 0
+    diverged = None
+    for i, ((l1, t1, p1), (lm, tm, pm)) in enumerate(zip(one, mesh)):
+        if diverged is None:
+            diverged = [False] * l1.shape[0]
+        for b in range(l1.shape[0]):
+            if int(p1[b]) == 0:
+                diverged[b] = False            # a new request's replay
+            if diverged[b] or not (bool((t1[b] == tm[b]).all())
+                                   and int(p1[b]) == int(pm[b])):
+                diverged[b] = True
+                continue
+            x, y = lm[b], l1[b]
+            rel = max(rel, float((x - y).norm() / y.norm()))
+            equal_calls += 1
+            a1, am = int(y.argmax()), int(x.argmax())
+            if a1 != am:
+                gaps.append(dict(call=i, slot=b,
+                                 one=float(y[a1] - y[am]),
+                                 mesh=float(x[am] - x[a1])))
+                diverged[b] = True
+    return dict(calls=len(one), compared=equal_calls, rel=rel,
+                picks_differ=gaps)
+
+
+def mesh_serve(dev, kw, by_path) -> dict:
+    """``serve`` with LM_MESH_SERVE and ``--model-parallel LM_MESH_MODEL``
+    against the same loop on one device (same seed: same weights and
+    prompts), every decode call's logits recorded: ``served_against``."""
+    from repro_torch.launch.serve import serve
+    argv = LM_MESH_SERVE + ["--model-parallel", str(LM_MESH_MODEL)]
+    reset_counters()
+    with decode_logits() as calls_m:
+        out = serve(argv, **kw)
+    by_path["serve mesh"] = c = counters()
+    with decode_logits() as calls_1:
+        one = serve(LM_MESH_SERVE, device=str(dev))
+    cmp = served_against(calls_1, calls_m)
+    info = {k: out[k] for k in ("tokens", "steps", "decode_calls", "wall_s",
+                                "tok_per_s", "mesh")}
+    info["one_device_wall_s"] = one["wall_s"]
+    info["streams_equal"] = sum(out["outputs"][r] == one["outputs"][r]
+                                for r in one["outputs"])
+    info["against_one_device"] = cmp
+    log(f"  serve {' '.join(argv)}: " + json.dumps(info)
+        + f", launches {nonzero(c)} (limits: rel {LM_LOGIT_RTOL}, a pick's "
+        f"gap {LM_LOGIT_TOL})")
+    require(out["tokens"] == one["tokens"] and len(calls_m) == len(calls_1)
+            and all(len(out["outputs"][r]) == len(v)
+                    for r, v in one["outputs"].items()),
+            f"serve mesh: {out['tokens']} tokens, {len(calls_m)} calls "
+            f"against {one['tokens']}, {len(calls_1)}")
+    require(cmp["rel"] <= LM_LOGIT_RTOL and all(
+        g["one"] <= LM_LOGIT_TOL and g["mesh"] <= LM_LOGIT_TOL
+        for g in cmp["picks_differ"]),
+            f"serve mesh: decode logits differ from one device: {cmp}")
+    return info
+
+
+def mesh_grads(cfg, master, mesh, by_path) -> dict:
+    """The train step's bf16 grads through the grad probe at (TRAIN_MICRO,
+    TRAIN_SEQ) on ``mesh`` against one device, both on the K7 path, at
+    the families' limit max(TRAIN_GRAD_RTOL, 2 x the torch-op path's
+    floor at half its key tile); every K7 fwd and bwd call of the mesh's
+    step held against its plain version."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.layers import gather_params, shard_params
+    from repro_torch.sharding.auto import make_rules
+    from repro_torch.sharding.axes import use_rules
+    dev = mesh.devices[0]
+    label = f"train grads ({TRAIN_MICRO}, {TRAIN_SEQ}) bf16 mesh"
+    pal = dataclasses.replace(cfg, attn_impl="pallas", dtype="bfloat16")
+    xla = dataclasses.replace(pal, attn_impl="xla")
+    half = dataclasses.replace(xla, attn_chunk_k=xla.attn_chunk_k // 2)
+    micro = train_batch(cfg, TRAIN_MICRO, 0, dev)
+    gx, _ = probe_grads(xla, master, micro)
+    gf, _ = probe_grads(half, master, micro)
+    floor = grad_errors(gf, gx)
+    del gf, gx
+    g1, _ = probe_grads(pal, master, micro)
+    rules = make_rules(pal, mesh, ShapeSpec("train", TRAIN_SEQ, TRAIN_MICRO,
+                                            "train"))
+    sm = shard_params(master, M.param_specs(cfg), rules)
+    peaks_gb(mesh, reset=True)
+    with use_rules(rules):
+        sync_cards(mesh)
+        t = time.perf_counter()
+        gm, c = probe_grads(pal, sm, micro)
+        sync_cards(mesh)
+        wall = time.perf_counter() - t
+        by_path[label] = c
+        peak = peaks_gb(mesh)
+        del gm
+        with k7_held() as fwd, k7_bwd_held() as bwd:   # the same step again
+            gm, _ = probe_grads(pal, sm, micro)
+    del sm
+    gm = gather_params(gm, dev)
+    sound = grad_errors(gm, g1)
+    del gm, g1
+    torch.cuda.empty_cache()
+    limit = max(TRAIN_GRAD_RTOL["bfloat16"], 2 * floor["max"])
+    L = k7_calls(cfg) * mesh.size
+    k7 = k7_verdict(label, fwd, bwd)
+    info = dict(wall_s=wall, grads=sound, floor=floor, limit=limit,
+                launches=nonzero(c), k7=k7, peak_gb=peak)
+    log(f"  {label} on {mesh}: {wall:.3f} s, grads (a second run, every "
+        f"K7 call held) vs one device " + json.dumps(sound) + f" (limit "
+        f"{limit:.3g}, floor " + json.dumps(floor) + "), launches "
+        f"{nonzero(c)}, K7 " + json.dumps(k7) + ", peak GB by card "
+        + json.dumps(peak))
+    require((c["flash_fwd"], c["flash_bwd_fused"]) == (2 * L, L)
+            and sum(c.values()) == 3 * L,
+            f"{label}: launches {nonzero(c)}, expected (fwd, fused) = "
+            f"({2 * L}, {L})")
+    require(sound["max"] <= limit, f"{label}: grads differ from one "
+                                   f"device: {sound} (limit {limit})")
+    return info
+
+
+def mesh_adamw(cfg, dev, model, by_path, one_device) -> dict:
+    """LM_MESH_STEPS AdamW steps, ``accum=TRAIN_ACCUM`` on (TRAIN_MICRO x
+    TRAIN_ACCUM, TRAIN_SEQ), on a mesh with ``model`` on its model axis:
+    the first step's K7 calls held against their plain versions, the
+    second timed; finite losses and grad norms, the launches of a step,
+    the params moved, peak memory by card; each loss and grad norm held
+    against train_path's one-device step on the same weights and batches
+    (LM_MESH_LOSS_RTOL, TRAIN_GRAD_RTOL)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.layers import init_params, shard_params
+    from repro_torch.sharding.auto import make_rules
+    from repro_torch.sharding.axes import use_rules
+    from repro_torch.training.optimizer import adamw
+    from repro_torch.training.step import make_train_step
+    mesh, _ = lm_mesh(dev, model)
+    B = TRAIN_MICRO * TRAIN_ACCUM
+    label = f"train ({B}, {TRAIN_SEQ}) accum={TRAIN_ACCUM} mesh {mesh.shape}"
+    rules = make_rules(cfg, mesh, ShapeSpec("train", TRAIN_SEQ, B, "train"))
+    specs = M.param_specs(cfg)
+    params = shard_params(init_params(specs, 0, device=dev), specs, rules)
+    torch.cuda.empty_cache()
+    opt = adamw(peak_lr=3e-4, warmup=1, total_steps=TRAIN_STEPS + 1)
+    step = make_train_step(cfg, opt, accum=TRAIN_ACCUM)
+    state = opt.init(params)
+    before = params["layers/attn/wq"].parts[0][..., :64].clone()
+    L = k7_calls(cfg) * mesh.size
+    want = (2 * L * TRAIN_ACCUM, L * TRAIN_ACCUM)
+    peaks_gb(mesh, reset=True)
+    hist, walls, k7 = [], [], None
+    for i in range(LM_MESH_STEPS):
+        batch = train_batch(cfg, B, i, dev)
+        sync_cards(mesh)
+        reset_counters()
+        held = i == 0
+        t = time.perf_counter()
+        with use_rules(rules), \
+                (k7_held() if held else contextlib.nullcontext()) as fwd, \
+                (k7_bwd_held() if held else contextlib.nullcontext()) as bwd:
+            params, state, m = step(params, state, batch)
+        sync_cards(mesh)
+        walls.append(time.perf_counter() - t)
+        c = counters()
+        require((c["flash_fwd"], c["flash_bwd_fused"]) == want
+                and sum(c.values()) == sum(want),
+                f"{label} step {i}: launches {nonzero(c)}, expected (fwd, "
+                f"fused) = {want}")
+        if held:
+            k7 = k7_verdict(label, fwd, bwd)
+        one = one_device[i]
+        h = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                 one_device_loss=one["loss"],
+                 one_device_grad_norm=one["grad_norm"])
+        h["loss_rel"] = abs(h["loss"] - one["loss"]) / abs(one["loss"])
+        h["grad_norm_rel"] = (abs(h["grad_norm"] - one["grad_norm"])
+                              / one["grad_norm"])
+        hist.append(h)
+        require(all(x == x and abs(x) != float("inf") for x in h.values()),
+                f"{label}: {h}")
+        require(h["loss_rel"] <= LM_MESH_LOSS_RTOL
+                and h["grad_norm_rel"] <= TRAIN_GRAD_RTOL["bfloat16"],
+                f"{label} step {i}: against one device {h} (limits: loss "
+                f"{LM_MESH_LOSS_RTOL}, grad norm "
+                f"{TRAIN_GRAD_RTOL['bfloat16']}, relative)")
+    by_path[label] = c
+    moved = float((params["layers/attn/wq"].parts[0][..., :64] - before)
+                  .abs().max())
+    require(moved > 0 and int(state.step) == LM_MESH_STEPS,
+            f"{label}: wq moved {moved}, step {int(state.step)}")
+    info = dict(history=hist, walls_s=walls, wall_s=walls[-1],
+                tok_per_s=B * TRAIN_SEQ / walls[-1], k7=k7,
+                peak_gb=peaks_gb(mesh), launches=nonzero(c))
+    log(f"  {label}: {LM_MESH_STEPS} AdamW steps (the first with every K7 "
+        f"call held, the second timed), " + json.dumps(info))
+    del params, state, step
+    torch.cuda.empty_cache()
+    return info
+
+
+def lm_mesh_path(dev, by_path, train):
+    """qwen3-1.7b at full width (random weights, seed 0) on a mesh of
+    every visible card, or REHEARSAL_SHARDS shards of one: prefill
+    (LM_PREFILL, K7) at model=LM_MESH_MODEL, ``serve --model-parallel``,
+    the bf16 grads at (TRAIN_MICRO, TRAIN_SEQ), AdamW steps at model=4 and
+    at data=2 x model=2, the launcher with a restart at
+    ``--model-parallel 2``; then granite-moe-1b-a400m's prefill (its 32
+    experts 8 a shard at model=4).  Each drive is held against the same
+    call on one device; every K7 call of the held drives against its
+    plain version, by card."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import init_params
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(configs.get_config(LM_ARCH), remat=True,
+                              attn_impl="pallas")
+    mesh, kw = lm_mesh(dev, LM_MESH_MODEL)
+    log(f"  LM mesh {mesh} ({len(cards(mesh))} card(s))")
+    info = {"mesh": str(mesh), "prefill": {}}
+    master = init_params(M.param_specs(cfg), 0, device=dev)
+    params = M.cast_params(cfg, master)
+    for B, S in LM_PREFILL:
+        info["prefill"][f"{B}x{S}"] = mesh_prefill(
+            cfg, params, mesh, B, S, f"prefill ({B}, {S}) pallas mesh",
+            by_path, seed=S + B)
+        torch.cuda.empty_cache()
+    info["serve"] = mesh_serve(dev, kw, by_path)
+    del params
+    torch.cuda.empty_cache()
+    info["grads"] = mesh_grads(cfg, master, mesh, by_path)
+    del master
+    torch.cuda.empty_cache()
+    info["steps"] = {m: mesh_adamw(cfg, dev, m, by_path,
+                                   train["steps"]["history"])
+                     for m in LM_MESH_STEP_LAYOUTS}
+    info["launcher"] = launcher_restart(dev, LM_MESH_LAUNCH,
+                                        "launcher --smoke --model-parallel 2",
+                                        by_path, **kw)
+    gcfg = dataclasses.replace(configs.get_config(MOE_MESH_ARCH),
+                               attn_impl="pallas")
+    gmaster = init_params(M.param_specs(gcfg), 0, device=dev)
+    gparams = M.cast_params(gcfg, gmaster)
+    del gmaster
+    B, S = MOE_MESH_PREFILL
+    info["moe_prefill"] = mesh_prefill(
+        gcfg, gparams, mesh, B, S, f"{MOE_MESH_ARCH} prefill ({B}, {S}) "
+        f"pallas mesh", by_path, seed=S + B, floor=True)
+    del gparams
+    torch.cuda.empty_cache()
+    info["wall_s"] = time.perf_counter() - t_phase
+    log(f"  [lm mesh] {info['wall_s']:.1f} s on {mesh}")
     return info
 
 
@@ -4502,6 +5030,7 @@ def main() -> int:
     fam = families_path(dev, by_path)
     train = train_path(dev, by_path)
     ftrain = families_train_path(dev, by_path)
+    lm_mesh_path(dev, by_path, train)
     log(f"[main] {time.perf_counter() - t0:.1f} s, launches by path "
         f"{json.dumps({k: nonzero(c) for k, c in by_path.items()})}")
     t0 = time.perf_counter()

@@ -16,6 +16,12 @@ package restores the other's checkpoints:
   words) with ``"bfloat16"`` in the manifest, and read back without
   ml_dtypes.
 
+A leaf split over a mesh (``sharding.axes.Shards``) is saved whole, its
+shards gathered, so a checkpoint does not depend on the mesh it was
+written from; ``restore`` with ``shardings`` (a tree like ``tree_like``
+of ``NamedSharding``s, or None for a leaf placed whole) cuts each leaf
+into the mesh's layout, as the reference restores with shardings.
+
 ``CheckpointManager`` adds keep-N retention and async writes: the device
 -> host copy is synchronous, the files are written on a background
 thread, ``wait()`` joins the writes (and is called before a restore and
@@ -34,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.dispatch import check_device
+from repro_torch.sharding.axes import Shards
 
 _MANIFEST = "manifest.json"
 _COMMIT = "COMMIT"
@@ -73,7 +80,9 @@ def _unflatten(tree: Any, leaves: dict[str, Any], prefix: str = "") -> Any:
 def _to_host(x) -> np.ndarray:
     """A leaf copied to a numpy array (a copy even on the CPU: the
     optimizer updates its moments in place while an async write runs);
-    bf16 as raw 2-byte words (dtype V2)."""
+    bf16 as raw 2-byte words (dtype V2); a sharded leaf whole."""
+    if isinstance(x, Shards):
+        x = x.full("cpu")
     if isinstance(x, torch.Tensor):
         x = x.detach().to("cpu", copy=True)
         if x.dtype == torch.bfloat16:
@@ -83,7 +92,7 @@ def _to_host(x) -> np.ndarray:
 
 
 def _dtype_name(x, host: np.ndarray) -> str:
-    if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+    if isinstance(x, (torch.Tensor, Shards)) and x.dtype == torch.bfloat16:
         return "bfloat16"
     return str(host.dtype)
 
@@ -150,10 +159,12 @@ def _from_host(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 
 def restore(directory: str, tree_like: Any, *, step: int | None = None,
-            device="cuda") -> tuple[Any, dict]:
+            device="cuda", shardings: Any = None) -> tuple[Any, dict]:
     """Restore a tree shaped like ``tree_like`` (its leaves are only
     placeholders: the names come from its structure, the values, shapes
-    and dtypes from the files) onto ``device``.  Returns (tree, extra)."""
+    and dtypes from the files) onto ``device``, or, where ``shardings``
+    names a ``NamedSharding`` for a leaf, into that split over its mesh.
+    Returns (tree, extra)."""
     dev = check_device(device)
     if step is None:
         step = latest_step(directory)
@@ -165,13 +176,16 @@ def restore(directory: str, tree_like: Any, *, step: int | None = None,
     with open(os.path.join(sdir, _MANIFEST)) as f:
         manifest = json.load(f)
     by_key = {e["key"]: e for e in manifest["leaves"]}
+    layout = dict(_flatten(shardings)) if shardings is not None else {}
     leaves = {}
     for name, _ in _flatten(tree_like):
         entry = by_key.get(name)
         if entry is None:
             raise KeyError(f"checkpoint {sdir} missing leaf {name}")
         arr = np.load(os.path.join(sdir, entry["file"]), allow_pickle=False)
-        leaves[name] = _from_host(arr, entry["dtype"]).to(dev)
+        x = _from_host(arr, entry["dtype"])
+        sh = layout.get(name)
+        leaves[name] = sh.shard(x) if sh is not None else x.to(dev)
     return _unflatten(tree_like, leaves), manifest.get("extra", {})
 
 
@@ -213,14 +227,15 @@ class CheckpointManager:
             raise RuntimeError("checkpoint write failed") from err
         self._gc()
 
-    def restore_latest(self, tree_like: Any, device="cuda"
+    def restore_latest(self, tree_like: Any, device="cuda",
+                       shardings: Any = None
                        ) -> tuple[Any, dict, int] | None:
         self.wait()
         step = latest_step(self.directory)
         if step is None:
             return None
         tree, extra = restore(self.directory, tree_like, step=step,
-                              device=device)
+                              device=device, shardings=shardings)
         return tree, extra, step
 
     def _gc(self) -> None:

@@ -6,7 +6,7 @@ CPU tests); the modules are copies of the reference's, pure data.
 ``cumbe`` is the paper's own workload (an ``MBEWorkload``, not a
 ``ModelConfig``).  ``input_specs`` (the dry-run's abstract inputs) and
 the cache sizing ``round_up`` / ``cache_len`` wait for the dry run
-(ROADMAP Queue 1 item 12c).
+(ROADMAP Queue 1 item 12d).
 """
 from __future__ import annotations
 

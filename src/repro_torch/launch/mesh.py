@@ -4,8 +4,12 @@ Twin of ``src/repro/launch/mesh.py``.  The port has no
 ``jax.sharding.Mesh``: ``Mesh`` is an ordered tuple of ``torch.device``s
 laid out row-major over named axes.  It hashes and compares by value, so
 the serving layer's cache keys can carry it, and nothing is placed on a
-device when one is built.  ``make_production_mesh`` (the 16 x 16 pod
-layout) waits for the LM mesh of ROADMAP Queue 1 item 12c.
+device when one is built.  ``make_local_mesh`` lays the LM's ``(data,
+model)`` mesh over every visible card, over N shards of the CPU device
+(the port's counterpart of the reference tests' forced host devices) or,
+with ``shards=``, over N shards of one card (a rehearsal of a
+several-card mesh on one card).  ``make_production_mesh`` (the 16 x 16
+pod layout) waits for the dry run (ROADMAP Queue 1 item 12d).
 """
 from __future__ import annotations
 
@@ -45,6 +49,44 @@ class Mesh:
     def size(self) -> int:
         return len(self.devices)
 
+    def shape_of(self, axes) -> int:
+        """The number of devices along ``axes`` (one name or several)."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return math.prod(self.shape[a] for a in axes)
+
+    def coords(self, k: int) -> dict[str, int]:
+        """Device ``k``'s index along each axis (row-major)."""
+        out = {}
+        for a, n in zip(reversed(self.axis_names), reversed(self._sizes)):
+            k, out[a] = divmod(k, n)
+        return {a: out[a] for a in self.axis_names}
+
+    def index(self, coords: dict[str, int]) -> int:
+        """The device index at ``coords`` (every axis named)."""
+        k = 0
+        for a, n in zip(self.axis_names, self._sizes):
+            k = k * n + coords[a]
+        return k
+
+    def group(self, k: int, axes) -> list[int]:
+        """The devices that share device ``k``'s coordinates on every axis
+        but ``axes``, row-major over ``axes`` (a collective's
+        participants, device ``k`` among them)."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        c = self.coords(k)
+        out = [c]
+        for a in axes:
+            out = [dict(x, **{a: i}) for x in out
+                   for i in range(self.shape[a])]
+        return [self.index(x) for x in out]
+
+    def take(self, axis: str, i: int) -> "Mesh":
+        """The sub-mesh at index ``i`` of ``axis`` (that axis at size 1)."""
+        ks = [k for k in range(self.size) if self.coords(k)[axis] == i]
+        return Mesh([self.devices[k] for k in ks], self.axis_names,
+                    [1 if a == axis else n
+                     for a, n in zip(self.axis_names, self._sizes)])
+
     def _key(self):
         return self.devices, self.axis_names, self._sizes
 
@@ -69,11 +111,26 @@ def local_devices(device="cuda") -> list[torch.device]:
     return [torch.device("cpu")]
 
 
-def make_local_mesh(model: int = 1, device="cuda") -> Mesh:
-    """Whatever this host has, as (data, model)."""
-    devs = local_devices(device)
+def make_local_mesh(model: int = 1, device="cuda",
+                    shards: int | None = None) -> Mesh:
+    """Whatever this host has, as (data, model): every visible card
+    (``device="cuda"``); one named card (``"cuda:1"``); ``model`` shards
+    of the CPU device (``"cpu"``); or ``shards`` shards of the one device
+    named (``device="cuda:0", shards=4``: a rehearsal of four cards on
+    one).  ``model`` must divide the device count."""
+    dev = check_device(device)
+    if dev.type == "cuda" and dev.index is None and shards is None:
+        devs = local_devices(dev)
+    else:
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", 0)
+        n = shards if shards is not None else \
+            model if dev.type == "cpu" else 1
+        devs = [dev] * n
     n = len(devs)
-    assert n % model == 0, (n, model)
+    if model < 1 or n % model:
+        raise ValueError(f"make_local_mesh: model={model} does not divide "
+                         f"the {n} devices of {device!r}")
     return Mesh(devs, ("data", "model"), (n // model, model))
 
 

@@ -38,12 +38,21 @@ own prefix.  What the vmap implies is kept:
 * audio prompts are (prompt_len, n_cb) and each generated token a list
   of n_cb codes.
 
-A model-parallel mesh (``--model-parallel`` > 1) is ROADMAP Queue 1
-item 12c and raises here.
+On a mesh (the reference's ``make_local_mesh`` + ``make_rules`` +
+``use_rules``): ``--model-parallel N`` lays the visible cards out as
+(data, model) with N on ``model`` (N shards of the CPU with
+``device="cpu"``), and the parameters are split by ``serve_rules`` as
+``make_rules`` adapts them (TP over heads, ff, vocab and experts; the
+slots over ``data`` when they divide it, else the KV cache's sequence
+over every axis).  ``--model-parallel 1`` on several cards is a
+data-parallel mesh of all of them; on one device the loop runs as it
+always did.  A mesh that cannot be built (N not dividing the cards)
+raises: nothing falls back to one card.
 
 Usage (on the card):
   python -m repro_torch.launch.serve --arch qwen3-1.7b --smoke \
       --requests 8 --max-new 32
+  python -m repro_torch.launch.serve --arch qwen3-1.7b --model-parallel 4
   python -m repro_torch.launch.serve --mbe --continuous --steps-per-round 64
   python -m repro_torch.launch.serve --mbe --mesh 2 --big-graph-threshold 16
   python -m repro_torch.launch.serve --mbe --retry 3 \
@@ -61,9 +70,12 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import model as M
-from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import init_params
+from repro_torch.models.config import ModelConfig, ShapeSpec
+from repro_torch.models.layers import init_params, shard_params
+from repro_torch.sharding.auto import make_rules
+from repro_torch.sharding.axes import Shards, mesh_rules, use_rules
 from repro_torch.training.step import make_serve_step
 
 
@@ -73,9 +85,20 @@ def serve_lm(cfg: ModelConfig, params: dict, prompts: list[np.ndarray], *,
     (prompt_len, n_cb) for audio) through ``slots`` decode slots on the
     device that holds ``params``; returns the reference's result dict
     (``outputs``: request id -> generated tokens) plus the loop's wall
-    time and its decode steps, prompt replay included."""
-    dev = params["embed/tok"].device
+    time and its decode steps, prompt replay included.  Under mesh rules
+    ``params`` are ``shard_params``' leaves: each device's view is cast
+    and copied to it once."""
     params = M.cast_params(cfg, params)     # once per call, not per step
+    emb = params["embed/tok"]
+    if isinstance(emb, Shards):
+        r = mesh_rules()
+        if r is None or r.mesh != emb.sharding.mesh:
+            raise ValueError("serve_lm: sharded params need the rules of "
+                             "their mesh (use_rules)")
+        dev = r.mesh.devices[0]
+        params = {k: v.place(M._fsdp(r)) for k, v in params.items()}
+    else:
+        dev = emb.device
     # moe: each slot's token a capacity group of its own, as in the
     # reference's vmapped one-slot decode
     step = make_serve_step(dataclasses.replace(cfg, moe_group=1)
@@ -276,7 +299,12 @@ def serve_mbe(args, device="cuda") -> dict:
                 results=results, **stats)
 
 
-def serve(argv=None, *, device="cuda") -> dict:
+def serve(argv=None, *, device="cuda",
+          shards: int | None = None) -> dict:
+    """The launcher's CLI (``argv``) on ``device``: every visible card for
+    ``"cuda"``, one card for ``"cuda:i"``, or the CPU; ``shards`` lays
+    the LM's mesh over that many shards of the one device named
+    (``launch.mesh.make_local_mesh``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--mbe", action="store_true",
                     help="serve bipartite graphs (MBE) instead of LM decode")
@@ -371,23 +399,29 @@ def serve(argv=None, *, device="cuda") -> dict:
         return serve_mbe(args, device=device)
     if args.arch is None:
         ap.error("--arch is required unless --mbe is given")
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "--model-parallel > 1 needs the sharding port (ROADMAP Queue 1 "
-            "item 12c); the port serves on one card")
-
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get_config(args.arch))
-    params = init_params(M.param_specs(cfg), args.seed, device=device)
+    mesh = make_local_mesh(model=args.model_parallel, device=device,
+                           shards=shards)
+    specs = M.param_specs(cfg)
+    params = init_params(specs, args.seed, device=mesh.devices[0])
+    rules = None
+    if mesh.size > 1:
+        rules = make_rules(cfg, mesh, ShapeSpec("serve", args.max_seq,
+                                                args.slots, "decode"))
+        params = shard_params(params, specs, rules)
     rng = np.random.default_rng(args.seed)
     cb = (cfg.n_codebooks,) if cfg.n_codebooks else ()
     prompts = [rng.integers(0, cfg.vocab,
                             (args.prompt_len,) + cb).astype(np.int32)
                for _ in range(args.requests)]
-    out = serve_lm(cfg, params, prompts, slots=args.slots,
-                   max_new=args.max_new, max_seq=args.max_seq)
+    with use_rules(rules):
+        out = serve_lm(cfg, params, prompts, slots=args.slots,
+                       max_new=args.max_new, max_seq=args.max_seq)
     print(f"[serve] {out['requests']} requests, {out['tokens']} tokens, "
-          f"{out['steps']} batch steps, {out['tok_per_s']:.1f} tok/s")
+          f"{out['steps']} batch steps, {out['tok_per_s']:.1f} tok/s, mesh "
+          f"{mesh.shape}")
+    out["mesh"] = mesh.shape
     return out
 
 

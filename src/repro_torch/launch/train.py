@@ -1,7 +1,7 @@
 """Fault-tolerant training launcher.
 
-Twin of ``src/repro/launch/train.py`` on one device, with the same flags
-and the same loop:
+Twin of ``src/repro/launch/train.py``, with the same flags and the same
+loop:
 
 * **checkpoint/restart** — ``CheckpointManager`` with async saves and a
   COMMIT marker; a restart restores the latest committed step and the
@@ -12,15 +12,25 @@ and the same loop:
   attempt; the supervisor loop (retry budget ``--max-restarts``) restarts
   from the last checkpoint.
 
+* **the mesh** — ``make_local_mesh(model=--model-parallel)`` over every
+  visible card (over N shards of the CPU with ``device="cpu"``): the
+  params and the optimizer's moments are split by ``make_rules``'
+  ``train_rules`` (the batch over ``data``, FSDP over ``data``, TP over
+  ``model``), a checkpoint holds whole leaves, and a restart restores
+  into the mesh's layout.  ``--model-parallel 1`` on several cards is
+  data-parallel FSDP over all of them; on one device the step runs as it
+  always did.
+
 Every family trains: the data source's batches carry the audio family's
 codebook tokens and the vlm family's ``patch_emb`` rows to the device with
-the tokens and labels.  A model-parallel mesh (``--model-parallel`` > 1)
-needs the sharding port (ROADMAP Queue 1 item 12c, ``sharding/*``) and
-raises.
+the tokens and labels (the hybrid and ssm families on a data-only mesh:
+their model axis is ROADMAP Queue 1 item 12e).
 
 Usage (on the card):
   python -m repro_torch.launch.train --arch qwen3-1.7b --smoke --steps 100
   python -m repro_torch.launch.train --arch zamba2-7b --smoke --steps 100
+  python -m repro_torch.launch.train --arch qwen3-1.7b --smoke \
+      --model-parallel 2
 """
 from __future__ import annotations
 
@@ -34,9 +44,12 @@ import torch
 from repro_torch import configs
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.datapipe import DataConfig, SyntheticSource, make_pipeline
-from repro_torch.kernels.dispatch import check_device
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import model as M
+from repro_torch.models.config import ShapeSpec
 from repro_torch.models.layers import init_params
+from repro_torch.sharding.auto import make_rules
+from repro_torch.sharding.axes import named_sharding, use_rules
 from repro_torch.training.optimizer import AdamWState, adamw
 from repro_torch.training.step import make_train_step
 
@@ -45,31 +58,51 @@ class SimulatedFailure(RuntimeError):
     pass
 
 
-def build(cfg, *, accum: int, lr: float, steps: int):
-    """(param specs, optimizer, train step) of a run."""
+def build(cfg, mesh, shape, *, accum: int, lr: float, steps: int):
+    """(rules, param specs, param shardings, optimizer, train step) of a
+    run; rules and shardings are None on a one-device mesh."""
     specs = M.param_specs(cfg)
+    rules = p_shard = None
+    if mesh.size > 1:
+        rules = make_rules(cfg, mesh, shape)
+        M._mesh_family(cfg, rules)          # raise before any restore
+        p_shard = {k: named_sharding(s.logical, rules)
+                   for k, s in specs.items()}
     opt = adamw(peak_lr=lr, total_steps=steps, warmup=max(steps // 20, 1))
-    return specs, opt, make_train_step(cfg, opt, accum=accum)
+    return rules, specs, p_shard, opt, make_train_step(cfg, opt,
+                                                       accum=accum)
 
 
-def init_or_restore(ckpt: CheckpointManager, specs, opt, seed: int,
-                    device) -> tuple[dict, AdamWState, int]:
+def init_or_restore(ckpt: CheckpointManager, specs, p_shard, opt,
+                    seed: int, device) -> tuple[dict, AdamWState, int]:
     """(params, optimizer state, data step) from the latest committed
-    checkpoint, or fresh ones from ``seed`` at data step 0."""
+    checkpoint, or fresh ones from ``seed`` at data step 0; split by
+    ``p_shard`` over its mesh when given."""
     tmpl_p = {k: None for k in specs}
     tmpl_o = AdamWState(step=None, mu=dict(tmpl_p), nu=dict(tmpl_p))
+    shardings = None
+    if p_shard is not None:
+        shardings = {"params": p_shard,
+                     "opt": AdamWState(step=None, mu=p_shard, nu=p_shard)}
     got = ckpt.restore_latest({"params": tmpl_p, "opt": tmpl_o},
-                              device=device)
+                              device=device, shardings=shardings)
     if got is not None:
         tree, extra, step = got
         print(f"[train] restored step {step}")
         return tree["params"], tree["opt"], int(extra.get("data_step",
                                                           step))
     params = init_params(specs, seed, device=device)
+    if p_shard is not None:
+        params = {k: p_shard[k].shard(v) for k, v in params.items()}
     return params, opt.init(params), 0
 
 
-def train(argv=None, *, device="cuda") -> dict:
+def train(argv=None, *, device="cuda",
+          shards: int | None = None) -> dict:
+    """The launcher's CLI (``argv``) on ``device``: every visible card for
+    ``"cuda"``, one card for ``"cuda:i"``, or the CPU; ``shards`` lays
+    the LM's mesh over that many shards of the one device named
+    (``launch.mesh.make_local_mesh``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
@@ -88,16 +121,15 @@ def train(argv=None, *, device="cuda") -> dict:
     ap.add_argument("--max-restarts", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "--model-parallel > 1 needs the sharding port (sharding/*, "
-            "ROADMAP Queue 1 item 12c)")
-    dev = check_device(device)
 
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get_config(args.arch))
-    specs, opt, step_fn = build(cfg, accum=args.accum, lr=args.lr,
-                                steps=args.steps)
+    mesh = make_local_mesh(model=args.model_parallel, device=device,
+                           shards=shards)
+    dev = mesh.devices[0]
+    rules, specs, p_shard, opt, step_fn = build(
+        cfg, mesh, ShapeSpec("cli", args.seq, args.batch, "train"),
+        accum=args.accum, lr=args.lr, steps=args.steps)
     ckpt = CheckpointManager(args.ckpt_dir, keep=3, async_save=True)
     dcfg = DataConfig(batch=args.batch, seq_len=args.seq,
                       vocab=cfg.vocab, n_codebooks=cfg.n_codebooks,
@@ -109,8 +141,8 @@ def train(argv=None, *, device="cuda") -> dict:
     metrics_hist = []
     starts = []
     while True:
-        params, opt_state, start = init_or_restore(ckpt, specs, opt,
-                                                   args.seed, dev)
+        params, opt_state, start = init_or_restore(ckpt, specs, p_shard,
+                                                   opt, args.seed, dev)
         starts.append(start)
         pipe = make_pipeline(src, start_step=start)
         t0 = time.time()
@@ -120,7 +152,8 @@ def train(argv=None, *, device="cuda") -> dict:
                     break
                 batch = {k: torch.from_numpy(v).to(dev)
                          for k, v in batch.items()}
-                params, opt_state, m = step_fn(params, opt_state, batch)
+                with use_rules(rules):
+                    params, opt_state, m = step_fn(params, opt_state, batch)
                 if step == args.fail_at and restarts == 0:
                     raise SimulatedFailure(f"injected at {step}")
                 if step % 10 == 0 or step == args.steps - 1:
@@ -145,7 +178,7 @@ def train(argv=None, *, device="cuda") -> dict:
     ckpt.wait()
     final = dict(loss=metrics_hist[-1][1] if metrics_hist else None,
                  restarts=restarts, steps=args.steps,
-                 history=metrics_hist, starts=starts)
+                 history=metrics_hist, starts=starts, mesh=mesh.shape)
     print(f"[train] done: {final['loss']}")
     return final
 

@@ -10,11 +10,16 @@ the ``attn_impl="pallas"`` path).
   of ``chunk_k``.
 * ``decode_attention`` — one new token per slot against a KV cache, each
   slot attending over positions [0, cache_len[slot]].
+* ``decode_partial`` — the same over one device's chunk of a cache split
+  along its sequence (``cache_seq`` on a mesh): the chunk's running
+  (max, sum, acc), which ``combine_partials`` merges by logsumexp.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding.axes import constrain
 
 _NEG = -1e30
 
@@ -87,6 +92,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     G = H // KV
     scale = 1.0 / (hd ** 0.5)
     q5 = q.reshape(B, KV, G, hd)
+    k_cache = constrain(k_cache, "cache_batch", "cache_seq", "act_kv", None)
+    v_cache = constrain(v_cache, "cache_batch", "cache_seq", "act_kv", None)
     s = torch.einsum("bvgd,bsvd->bvgs", q5, k_cache).float()
     s = s * scale
     lens = torch.as_tensor(cache_len, device=q.device).reshape(-1)
@@ -100,3 +107,40 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                        (p / torch.clamp(l, min=1e-20)).to(v_cache.dtype),
                        v_cache)
     return out.reshape(B, H, hd).to(q.dtype)
+
+
+def decode_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor, cache_len: torch.Tensor,
+                   offset: int):
+    """``decode_attention`` over a cache chunk that holds positions
+    ``offset ..`` of the sequence: returns (m, l, acc), the chunk's row
+    max, sum of exp and unnormalised output, (B, KV, G[, hd]) fp32."""
+    B, H, hd = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    q5 = q.reshape(B, KV, G, hd)
+    s = torch.einsum("bvgd,bsvd->bvgs", q5, k_cache).float()
+    s = s * (1.0 / (hd ** 0.5))
+    lens = torch.as_tensor(cache_len, device=q.device).reshape(-1)
+    kpos = offset + torch.arange(S, device=q.device)
+    s = torch.where((kpos[None, :] <= lens[:, None])[:, None, None, :],
+                    s, _NEG)
+    m = torch.amax(s, dim=-1)
+    p = torch.exp(s - m[..., None])
+    acc = torch.einsum("bvgs,bsvd->bvgd", p.to(v_cache.dtype),
+                       v_cache).float()
+    return m, p.sum(-1), acc
+
+
+def combine_partials(parts, dtype) -> torch.Tensor:
+    """The (m, l, acc) of every chunk of the sequence merged by
+    logsumexp: (B, H, hd) in ``dtype``."""
+    m = torch.stack([p[0] for p in parts]).amax(0)
+    l = acc = 0
+    for mj, lj, aj in parts:
+        c = torch.exp(mj - m)
+        l = l + lj * c
+        acc = acc + aj * c[..., None]
+    out = acc / torch.clamp(l, min=1e-20)[..., None]
+    B, KV, G, hd = out.shape
+    return out.reshape(B, KV * G, hd).to(dtype)

@@ -3,9 +3,14 @@
 Twin of ``src/repro/models/layers.py``.  Parameters live in a flat
 ``dict[str, torch.Tensor]`` keyed by '/'-joined paths; each model family
 declares its parameters as a table of ``ParamSpec(shape, logical_axes,
-init)``, the single source from which initialization and the parameter
-count derive (see ``model.py``).  The logical axes are kept for the
-sharding port (ROADMAP Queue 1 item 12c); nothing reads them yet.
+init)``, the single source from which initialization, the parameter
+count and the sharding derive (see ``model.py``).
+
+``shard_params(params, specs, rules)`` is the port's counterpart of the
+reference launchers' ``device_put(v, NamedSharding(mesh, spec_for(...)))``:
+each leaf becomes a ``sharding.axes.Shards`` split by its logical axes
+under ``rules``; ``gather_params`` is its inverse (whole leaves on one
+device).
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.dispatch import check_device
+from repro_torch.sharding.axes import Shards, constrain, named_sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +59,26 @@ def init_params(specs: dict[str, ParamSpec], seed: int = 0, *,
 
 
 # ---------------------------------------------------------------------------
+# parameters over a mesh
+# ---------------------------------------------------------------------------
+
+def shard_params(params: dict[str, torch.Tensor],
+                 specs: dict[str, ParamSpec], rules) -> dict[str, Shards]:
+    """Each whole leaf split by its logical axes under ``rules``, each
+    shard on its home device of ``rules.mesh``."""
+    return {k: named_sharding(specs[k].logical, rules).shard(v)
+            for k, v in params.items()}
+
+
+def gather_params(params: dict, device=None) -> dict[str, torch.Tensor]:
+    """The inverse of ``shard_params``: whole leaves on ``device`` (plain
+    tensors pass through, moved there)."""
+    return {k: (v.full(device) if isinstance(v, Shards)
+                else v if device is None else v.to(device))
+            for k, v in params.items()}
+
+
+# ---------------------------------------------------------------------------
 # primitive layers
 # ---------------------------------------------------------------------------
 
@@ -70,7 +96,12 @@ def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     gate: ``silu(x @ w3) * (x @ w1)``."""
     h = x @ w1.to(x.dtype)
     g = x @ w3.to(x.dtype)
-    return (F.silu(g) * h) @ w2.to(x.dtype)
+    h = F.silu(g) * h
+    # each device already holds its act_ff columns (w1 / w3 split by
+    # columns): the reference's constraint, a no-op inside a shard
+    h = constrain(h, *(("act_batch",) + (None,) * (h.dim() - 2)
+                       + ("act_ff",)))
+    return h @ w2.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

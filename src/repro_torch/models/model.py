@@ -21,8 +21,43 @@ differentiable; with ``cfg.remat`` and grad enabled each layer's block
 runs under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``
 in ``_maybe_remat``): only the layer's input is kept, and the block is
 recomputed in the backward pass.  ``param_specs(cfg)`` is the
-single source of truth for shapes.  The reference's sharding constraints
-(``constrain``) are no-ops without a mesh and are dropped here.
+single source of truth for shapes and logical axes.
+
+**On a mesh** (``forward`` / ``decode_step`` under ``use_rules`` whose
+mesh has several devices; params from ``layers.shard_params``, a
+serving loop's placed once with ``Shards.place``): one process runs
+every device's share in turn, each on its device, with the collectives
+of ``sharding/collectives.py`` between them:
+
+* the batch is laid out over ``act_batch`` (``constrain`` at the
+  reference's :331 / :531 sites); a device runs its batch rows;
+* ``wq`` / ``wk`` / ``wv`` and ``w1`` / ``w3`` are split by columns over
+  ``model``, so a device runs its heads (and its K7 calls on them) and
+  its ff columns; ``wo`` / ``w2`` are split by rows, and their partial
+  sums are all-reduced over ``model``;
+* moe: a device runs its ``E / m`` experts (``p_expert``) over its
+  group's tokens, and the outputs are summed over ``model``;
+* the token embedding and the LM head are split over the vocab
+  (``p_vocab``): a device looks up the token rows it holds (the others'
+  rows add zeros) and computes its vocab columns of the logits (the
+  :311 site's ``act_vocab`` layout, kept for the train loss, gathered
+  for a caller of ``forward``);
+* under ``train_rules`` every weight's ``p_embed`` dim is split over
+  ``data`` (FSDP) and all-gathered inside each layer's block, inside
+  remat, so the gathered weights are freed after use and gathered again
+  in the backward, whose copies reduce-scatter the grads;
+* decode: the KV cache is laid out over ``cache_batch`` / ``cache_seq``
+  / ``act_kv``; with ``act_kv`` split a device attends over its kv heads,
+  and with ``cache_seq`` split every device attends over its chunk of
+  the sequence for all heads (q, k, v gathered over ``model``) and the
+  chunks merge by logsumexp.
+
+The ``act_seq`` dim stays whole (the reference shards it, Megatron
+sequence parallelism; ROADMAP Queue 3), so the :234 ``q`` site and the
+activations inside a device's share need no layout change.  The hybrid
+and ssm families run on a mesh with ``model`` of 1 only (each device
+its batch rows with the weights gathered whole); their model axis is
+ROADMAP Queue 1 item 12e.
 
 Weights are cast to ``cfg.dtype`` at use, as in the reference
 (``w.astype(x.dtype)``); ``cast_params`` does that cast once for a caller
@@ -37,14 +72,21 @@ Entry points:
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.utils.checkpoint
 
 from repro_torch.kernels.dispatch import check_device
-from repro_torch.models.attention import decode_attention, flash_attention
+from repro_torch.models.attention import (combine_partials, decode_attention,
+                                          decode_partial, flash_attention)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamSpec, apply_rope, rms_norm, swiglu
-from repro_torch.models.moe import moe_ffn
+from repro_torch.models.moe import moe_aux, moe_ffn
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.axes import (NamedSharding, constrain, leaf_like,
+                                       leaf_parts, mesh_rules, named_sharding,
+                                       use_rules)
 from repro_torch.models.ssm import mamba2_block
 from repro_torch.models.xlstm import mlstm_block, slstm_block
 
@@ -223,11 +265,16 @@ def param_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
 def cast_params(cfg: ModelConfig, params: dict) -> dict:
     """The fp32 masters cast once to ``cfg.dtype`` (matrices only; the
     1-D scales, ``a_log`` and ``d_skip`` stay fp32).  Same numbers as the
-    cast at every use."""
+    cast at every use.  Takes sharded leaves too (each shard cast)."""
     dt = dtype_of(cfg)
-    return {k: (v.to(dt) if v.dim() >= 2
+    return {k: (cast_leaf(v, dt) if v.dim() >= 2
                 and k.rsplit("/", 1)[-1] not in _FP32_LEAVES else v)
             for k, v in params.items()}
+
+
+def cast_leaf(v, dtype):
+    """A whole or sharded leaf cast to ``dtype``."""
+    return leaf_like(v, [p.to(dtype) for p in leaf_parts(v)])
 
 
 # ---------------------------------------------------------------------------
@@ -282,23 +329,44 @@ def _attn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
 
 
+def _qkv_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                pos: torch.Tensor):
+    """One token a slot: x (B, d), pos (B,) int64 -> q (B, H, hd), k, v
+    (B, KV, hd), q and k roped at ``pos``."""
+    q, k, v = _qkv(cfg, p, x)
+    q = apply_rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+    k = apply_rope(k[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+    return q, k, v
+
+
+def _cache_write(kc: torch.Tensor, vc: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, pos: torch.Tensor, off: int = 0,
+                 total: int | None = None) -> None:
+    """Write each slot's k / v (B, KV, hd) IN PLACE at its ``min(pos,
+    total - 1)`` (the reference's ``dynamic_update_slice`` clamps its start
+    the same way).  kc / vc (B, Sl, KV, hd) hold the cache's positions
+    [off, off + Sl) of ``total`` (default: all of them); a slot whose
+    position lies outside them writes nothing here."""
+    Sl = kc.shape[1]
+    total = Sl if total is None else total
+    slot = torch.arange(k.shape[0], device=k.device)
+    at = torch.clamp(pos, max=total - 1)
+    if total != Sl:                       # one shard of the sequence
+        sel = (at >= off) & (at < off + Sl)
+        slot, at, k, v = slot[sel], at[sel] - off, k[sel], v[sel]
+    kc[slot, at] = k.to(kc.dtype)
+    vc[slot, at] = v.to(vc.dtype)
+
+
 def _attn_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
                  kc: torch.Tensor, vc: torch.Tensor, pos: torch.Tensor
                  ) -> torch.Tensor:
     """One-token attention per slot. x: (B, d); kc/vc: (B, Smax, KV, hd),
-    written IN PLACE at each slot's ``min(pos, Smax - 1)`` (the
-    reference's ``dynamic_update_slice`` clamps its start the same way);
-    pos: (B,) int64."""
-    B = x.shape[0]
-    q, k, v = _qkv(cfg, p, x)
-    q = apply_rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
-    k = apply_rope(k[:, None], pos[:, None], cfg.rope_theta)[:, 0]
-    slot = torch.arange(B, device=x.device)
-    at = torch.clamp(pos, max=kc.shape[1] - 1)
-    kc[slot, at] = k.to(kc.dtype)
-    vc[slot, at] = v.to(vc.dtype)
+    written in place (``_cache_write``); pos: (B,) int64."""
+    q, k, v = _qkv_decode(cfg, p, x, pos)
+    _cache_write(kc, vc, k, v, pos)
     o = decode_attention(q, kc, vc, pos)
-    return o.reshape(B, -1) @ p["wo"].to(x.dtype)
+    return o.reshape(x.shape[0], -1) @ p["wo"].to(x.dtype)
 
 
 def _mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -306,11 +374,23 @@ def _mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     return swiglu(h, p["w1"], p["w3"], p["w2"])
 
 
-def _moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor
-               ) -> tuple[torch.Tensor, torch.Tensor]:
+def _moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, **kw):
+    """``moe_ffn`` on the pre-normed x (B, S, d) in groups of
+    ``cfg.moe_group``; ``kw``: its ``experts`` / ``stats``."""
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     return moe_ffn(h, p["wg"], p["w1"], p["w3"], p["w2"], top_k=cfg.top_k,
-                   capacity_factor=cfg.capacity_factor, group=cfg.moe_group)
+                   capacity_factor=cfg.capacity_factor, group=cfg.moe_group,
+                   **kw)
+
+
+def _ffn_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, **kw
+                ) -> torch.Tensor:
+    """The FFN sub-block on one token a slot: x (B, d) -> (B, d); the moe
+    family routes the B tokens in groups of ``cfg.moe_group`` (``kw``:
+    ``_moe_apply``'s)."""
+    if cfg.is_moe:
+        return _moe_apply(cfg, p, x[:, None], **kw)[0][:, 0]
+    return _mlp_apply(cfg, p, x)
 
 
 def _residual(x: torch.Tensor, p: dict, block, cfg: ModelConfig, **kw):
@@ -360,7 +440,13 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     For the vlm family ``patch_emb`` (B, n_patch, d_model) is prepended.
     ``last_only`` computes the LM head on the final position only
     (prefill).  Returns (logits, aux): aux is the moe family's load-balance
-    loss summed over the layers, else 0."""
+    loss summed over the layers, else 0.  Under mesh rules the logits come
+    back whole on the mesh's first device."""
+    r = mesh_rules()
+    if r is not None:
+        parts, aux = forward_parts(cfg, params, tokens, patch_emb=patch_emb,
+                                   last_only=last_only)
+        return gather_logits(parts, r), aux
     dtype = dtype_of(cfg)
     x = _embed(cfg, params, tokens, dtype)
     if cfg.family == "vlm":
@@ -485,12 +571,51 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int
     raise ValueError(cfg.family)
 
 
+def cache_logical_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of every cache leaf (the reference's)."""
+    kv_axes = (None, "cache_batch", "cache_seq", "act_kv", None)
+    if cfg.family in _ATTN_FAMILIES:
+        return {"k": kv_axes, "v": kv_axes}
+    if cfg.family == "hybrid":
+        return {
+            "ssm_h": (None, "cache_batch", "act_inner", None, None),
+            "conv": (None, "cache_batch", None, "act_inner"),
+            "k": kv_axes, "v": kv_axes,
+        }
+    if cfg.family == "ssm":
+        ax = {
+            "mC": (None, "cache_batch", None, "act_inner", None),
+            "mn": (None, "cache_batch", None, "act_inner"),
+            "mm": (None, "cache_batch", None),
+            "mconv": (None, "cache_batch", None, "act_inner"),
+        }
+        if cfg.slstm_every:
+            for nm in ("sc", "sn", "sm", "sh"):
+                ax[nm] = (None, "cache_batch", None, None)
+        return ax
+    raise ValueError(cfg.family)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
-               device="cuda") -> dict[str, torch.Tensor]:
-    """The decode cache, all zeros, on ``device``."""
+               device="cuda") -> dict:
+    """The decode cache, all zeros, on ``device``.  Under mesh rules each
+    leaf is a list with one part a device: its shard of the leaf under
+    ``cache_logical_axes``, zeros on that device."""
+    r = mesh_rules()
+    specs = cache_specs(cfg, batch, max_seq)
+    if r is not None:
+        _mesh_family(cfg, r)
+        axes = cache_logical_axes(cfg)
+        out = {}
+        for name, (shape, dt) in specs.items():
+            sh = named_sharding(axes[name], r)
+            out[name] = [torch.zeros(_local_shape(sh, shape, k), dtype=dt,
+                                     device=r.mesh.devices[k])
+                         for k in range(r.mesh.size)]
+        return out
     dev = check_device(device)
     return {name: torch.zeros(shape, dtype=dt, device=dev)
-            for name, (shape, dt) in cache_specs(cfg, batch, max_seq).items()}
+            for name, (shape, dt) in specs.items()}
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
@@ -500,7 +625,11 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     slot.  The recurrent state advances whatever ``pos`` is.  The moe
     family routes the B tokens in groups of ``cfg.moe_group``, as the
     reference's decode does.  The cache is updated in place and
-    returned."""
+    returned.  Under mesh rules the cache is ``init_cache``'s laid-out
+    form and the logits come back whole on the mesh's first device."""
+    r = mesh_rules()
+    if r is not None:
+        return _mesh_decode(cfg, params, cache, tokens, pos, r), cache
     dtype = dtype_of(cfg)
     x = _embed(cfg, params, tokens, dtype)
     B = x.shape[0]
@@ -513,11 +642,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
         for i, (ap, fp) in enumerate(zip(attn_p, ff_p)):
             x = x + _attn_decode(cfg, ap, x, cache["k"][i], cache["v"][i],
                                  pos)
-            if cfg.is_moe:
-                f_out, _ = _moe_apply(cfg, fp, x[:, None])
-                x = x + f_out[:, 0]
-            else:
-                x = x + _mlp_apply(cfg, fp, x)
+            x = x + _ffn_decode(cfg, fp, x)
     elif cfg.family == "hybrid":
         x = _zamba_decode(cfg, params, cache, x, pos)
     elif cfg.family == "ssm":
@@ -581,3 +706,302 @@ def _xlstm_decode(cfg, params, cache, x):
     for j in range(n_s * per, len(mp)):
         x = m_step(x, j)
     return x
+
+
+# ---------------------------------------------------------------------------
+# the model on a mesh (see the module docstring)
+# ---------------------------------------------------------------------------
+
+def _ax(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _mesh_family(cfg: ModelConfig, r) -> None:
+    """Raise where the port does not run ``cfg`` on the rules' mesh."""
+    if cfg.family not in _ATTN_FAMILIES and r.mesh.shape["model"] > 1:
+        raise NotImplementedError(
+            f"the {cfg.family} family on a mesh with model="
+            f"{r.mesh.shape['model']}: its model axis is ROADMAP Queue 1 "
+            f"item 12e (a data-only mesh, model=1, runs)")
+
+
+def _local_shape(sh: NamedSharding, shape, k: int) -> tuple[int, ...]:
+    return tuple(x.stop - x.start
+                 for x in sh.slices(shape, sh.mesh.coords(k)))
+
+
+def _offset(leaf, dim: int, k: int) -> int:
+    """Where device ``k``'s shard of ``leaf`` starts along ``dim``."""
+    sh = leaf.sharding
+    return sh.slices(leaf.shape, sh.mesh.coords(k))[dim].start
+
+
+def _experts(w: dict, k: int) -> tuple[int, int]:
+    """The experts [e0, e1) whose weights device ``k`` holds (``p_expert``
+    splits dim 0 of a moe layer's ``w1`` / ``w3`` / ``w2``)."""
+    e0 = _offset(w["w1"], 0, k)
+    return e0, e0 + _local_shape(w["w1"].sharding, w["w1"].shape, k)[0]
+
+
+def _chunk(mesh, k: int, axes) -> int:
+    """Device ``k``'s index, row-major, over ``axes``."""
+    c, i = mesh.coords(k), 0
+    for a in axes:
+        i = i * mesh.shape[a] + c[a]
+    return i
+
+
+def _fsdp(r) -> tuple[str, ...]:
+    """The axes a device gathers a weight over before it computes with it
+    (``p_embed``'s: FSDP under ``train_rules``)."""
+    return _ax(r.table.get("p_embed"))
+
+
+def _local_cfg(cfg: ModelConfig, r) -> ModelConfig:
+    """The config one device computes with: its share of the heads and
+    kv heads (``p_heads`` / ``p_kv`` split ``wq`` / ``wk`` / ``wv`` by
+    columns)."""
+    mh = r.mesh.shape_of(_ax(r.table["p_heads"]))
+    mk = r.mesh.shape_of(_ax(r.table["p_kv"]))
+    if cfg.n_heads % mh or cfg.n_kv % mk or mh != mk:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.n_heads} heads / {cfg.n_kv} kv heads do not "
+            f"split over the model axis ({mh} / {mk} ways); the port splits "
+            f"whole heads")
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // mh,
+                               n_kv=cfg.n_kv // mk, head_dim=cfg.hd)
+
+
+def _mesh_layers(params: dict, prefix: str, n: int) -> list[dict]:
+    rows = {k: v.unbind0() for k, v in _subtree(params, prefix).items()}
+    return [{k: r[i] for k, r in rows.items()} for i in range(n)]
+
+
+def _views(p: dict, k: int, gather) -> dict:
+    return {name: leaf.local(k, gather) for name, leaf in p.items()}
+
+
+def _mesh_embed(cfg: ModelConfig, params: dict, toks: list, r, dtype,
+                gather) -> list:
+    """The token embedding with its table split over the vocab: each
+    device looks up the rows it holds (zeros for the others) and the
+    lookups are all-reduced over the vocab axes, one codebook at a time,
+    so the sum is the one-device lookup exactly."""
+    mesh = r.mesh
+    emb = params["embed/tok"]
+    vdim = 1 if cfg.family == "audio" else 0
+    vax = _ax(emb.sharding.spec[vdim])
+    n_cb = cfg.n_codebooks if cfg.family == "audio" else 1
+    rows = [[] for _ in range(n_cb)]
+    for k in range(mesh.size):
+        e = emb.local(k, gather)
+        v0, nv = _offset(emb, vdim, k), e.shape[vdim]
+        t = toks[k].long() - v0
+        hit = (t >= 0) & (t < nv)
+        t = t.clamp(0, nv - 1)
+        for i in range(n_cb):
+            if cfg.family == "audio":
+                x = torch.where(hit[..., i, None], e[i][t[..., i]], 0)
+            else:
+                x = torch.where(hit[..., None], e[t], 0)
+            rows[i].append(x.to(e.dtype))
+    looked = [C.all_reduce(x, mesh, vax) for x in rows]
+    return [sum(x[k] for x in looked).to(dtype) if n_cb > 1
+            else looked[0][k].to(dtype) for k in range(mesh.size)]
+
+
+def _lm_heads(cfg: ModelConfig, params: dict, xs: list, gather) -> list:
+    """final norm + each device's vocab columns of the LM head."""
+    out = []
+    with use_rules(None):
+        for k, x in enumerate(xs):
+            x = rms_norm(x, params["final_norm/scale"].local(k, gather),
+                         cfg.norm_eps)
+            out.append(_lm_head(cfg, {"lm_head/w": params["lm_head/w"]
+                                      .local(k, gather)}, x))
+    return out
+
+
+def gather_logits(parts: list, r) -> torch.Tensor:
+    """Logits laid out over the mesh (a device's batch rows, its vocab
+    columns) brought whole to the mesh's first device."""
+    mesh = r.mesh
+    dev = mesh.devices[0]
+    vax, bax = _ax(r.table["p_vocab"]), _ax(r.table["act_batch"])
+    return torch.cat([torch.cat([parts[j].to(dev)
+                                 for j in mesh.group(k, vax)], dim=-1)
+                      for k in mesh.group(0, bax)], dim=0)
+
+
+def _batch_mean(xs: list, r) -> torch.Tensor:
+    """The mean over the batch shards (one device each) of per-device
+    values, on the mesh's first device."""
+    mesh = r.mesh
+    reps = mesh.group(0, _ax(r.table["act_batch"]))
+    dev = mesh.devices[0]
+    tot = xs[reps[0]].to(dev)
+    for j in reps[1:]:
+        tot = tot + xs[j].to(dev)
+    return tot / len(reps)
+
+
+def forward_parts(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+                  patch_emb: torch.Tensor | None = None,
+                  last_only: bool = False) -> tuple[list, torch.Tensor]:
+    """``forward`` under mesh rules, its logits left laid out: one part a
+    device, that device's batch rows and vocab columns.  aux (0-d, on the
+    mesh's first device) is taken over the whole batch."""
+    r = mesh_rules()
+    _mesh_family(cfg, r)
+    mesh, n = r.mesh, r.mesh.size
+    gather = _fsdp(r)
+    dtype = dtype_of(cfg)
+    cb = (None,) if cfg.family == "audio" else ()
+    toks = constrain(tokens, "act_batch", "act_seq", *cb)
+    zero = torch.zeros((), device=mesh.devices[0])
+    if cfg.family not in _ATTN_FAMILIES:
+        outs = []
+        for k in range(n):
+            with use_rules(None):
+                outs.append(forward(cfg, _views(params, k, gather), toks[k],
+                                    last_only=last_only)[0])
+        return outs, zero
+    xs = _mesh_embed(cfg, params, toks, r, dtype, gather)
+    if cfg.family == "vlm":
+        pe = constrain(patch_emb, "act_batch", "act_seq", "act_embed")
+        xs = [torch.cat([p.to(dtype), x], dim=1) for p, x in zip(pe, xs)]
+    xs = constrain(xs, "act_batch", "act_seq", "act_embed")
+    S = xs[0].shape[1]
+    pos = [torch.arange(S, device=d)[None, :] for d in mesh.devices]
+    lc = _local_cfg(cfg, r)
+    attn_p = _mesh_layers(params, "layers/attn", cfg.n_layers)
+    ff_p = _mesh_layers(params, "layers/moe" if cfg.is_moe else "layers/mlp",
+                        cfg.n_layers)
+
+    def attn(k, x, ap):
+        with use_rules(None):
+            return _attn_apply(lc, _views(ap, k, gather), x, pos[k])
+
+    def mlp(k, x, fp):
+        with use_rules(None):
+            return _mlp_apply(lc, _views(fp, k, gather), x)
+
+    def moe(k, x, fp):
+        with use_rules(None):
+            return _moe_apply(lc, _views(fp, k, gather), x,
+                              experts=_experts(fp, k), stats=True)
+
+    def remat(fn, k, *args):
+        """``fn`` on device ``k``'s share under ``torch.utils.checkpoint``
+        when ``cfg.remat`` and grad are on: one frame a device and
+        sub-block, since the backward runs a thread a device and one
+        frame recomputed from two threads would race."""
+        if cfg.remat and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(
+                fn, k, *args, use_reentrant=False, preserve_rng_state=False)
+        return fn(k, *args)
+
+    auxs = []
+    for ap, fp in zip(attn_p, ff_p):
+        outs = [remat(attn, k, xs[k], ap) for k in range(n)]
+        red = C.all_reduce(outs, mesh, _ax(ap["wo"].sharding.spec[0]))
+        xs = [x + o for x, o in zip(xs, red)]
+        if cfg.is_moe:
+            outs, stats = zip(*[remat(moe, k, xs[k], fp) for k in range(n)])
+            auxs.append(moe_aux(_batch_mean([s[0] for s in stats], r),
+                                _batch_mean([s[1] for s in stats], r),
+                                cfg.top_k))
+        else:
+            outs = [remat(mlp, k, xs[k], fp) for k in range(n)]
+            auxs.append(zero)
+        red = C.all_reduce(list(outs), mesh,
+                           _ax(fp["w2"].sharding.spec[0]))
+        xs = [x + o for x, o in zip(xs, red)]
+    if last_only:
+        xs = [x[:, -1:] for x in xs]
+    parts = _lm_heads(cfg, params, xs, gather)
+    parts = constrain(parts, *(("act_batch",) + (None,) * (parts[0].dim() - 2)
+                               + ("act_vocab",)))
+    return parts, torch.stack(auxs).sum()
+
+
+def _mesh_decode(cfg: ModelConfig, params: dict, cache: dict,
+                 tokens: torch.Tensor, pos, r) -> torch.Tensor:
+    """One decode step under mesh rules: every device's share (see the
+    module docstring); the logits whole on the mesh's first device."""
+    _mesh_family(cfg, r)
+    mesh, n = r.mesh, r.mesh.size
+    gather = _fsdp(r)
+    dtype = dtype_of(cfg)
+    B = tokens.shape[0]
+    pos = torch.as_tensor(pos, device=tokens.device).long().expand(B)
+    cb = (None,) if cfg.family == "audio" else ()
+    toks = constrain(tokens, "act_batch", *cb)
+    poss = constrain(pos.contiguous(), "act_batch")
+    seq_ax = _ax(r.table.get("cache_seq"))
+    if cfg.family not in _ATTN_FAMILIES:
+        if "k" in cache and mesh.shape_of(seq_ax) > 1:
+            raise NotImplementedError(
+                f"the {cfg.family} family's cache split over its sequence "
+                f"({seq_ax}): ROADMAP Queue 1 item 12e")
+        outs = []
+        for k in range(n):
+            with use_rules(None):
+                outs.append(decode_step(
+                    cfg, _views(params, k, gather), {
+                        name: parts[k] for name, parts in cache.items()},
+                    toks[k], poss[k])[0])
+        return gather_logits(outs, r)
+    xs = _mesh_embed(cfg, params, toks, r, dtype, gather)
+    xs = constrain(xs, "act_batch", "act_embed")
+    lc = _local_cfg(cfg, r)
+    head_ax = _ax(r.table["p_heads"])
+    local_heads = r.table.get("act_kv") is not None \
+        or mesh.shape_of(head_ax) == 1
+    n_seq = mesh.shape_of(seq_ax)
+    attn_p = _mesh_layers(params, "layers/attn", cfg.n_layers)
+    ff_p = _mesh_layers(params, "layers/moe" if cfg.is_moe else "layers/mlp",
+                        cfg.n_layers)
+    for i, (ap, fp) in enumerate(zip(attn_p, ff_p)):
+        with use_rules(None):
+            qkv = [_qkv_decode(lc, _views(ap, k, gather), xs[k], poss[k])
+                   for k in range(n)]
+        if not local_heads:                   # every head on every device
+            qkv = list(zip(*(C.all_gather(list(t), mesh, head_ax, dim=1)
+                             for t in zip(*qkv))))
+        outs = []
+        with use_rules(None):
+            for k in range(n):
+                q, kk, v = qkv[k]
+                kc, vc = cache["k"][k][i], cache["v"][k][i]
+                off = _chunk(mesh, k, seq_ax) * kc.shape[1]
+                _cache_write(kc, vc, kk, v, poss[k], off,
+                             kc.shape[1] * n_seq)
+                outs.append(decode_attention(q, kc, vc, poss[k])
+                            if n_seq == 1 else
+                            decode_partial(q, kc, vc, poss[k], off))
+        if n_seq > 1:                         # flash-decode's combine
+            outs = [combine_partials([tuple(t.to(mesh.devices[k])
+                                            for t in outs[j])
+                                      for j in mesh.group(k, seq_ax)],
+                                     qkv[k][0].dtype) for k in range(n)]
+        with use_rules(None):
+            for k in range(n):
+                o = outs[k].reshape(outs[k].shape[0], -1)
+                wo = ap["wo"].local(k, gather)
+                if not local_heads:           # this device's rows of wo
+                    r0 = _offset(ap["wo"], 0, k)
+                    o = o[:, r0:r0 + wo.shape[0]]
+                outs[k] = o @ wo.to(o.dtype)
+        red = C.all_reduce(outs, mesh, _ax(ap["wo"].sharding.spec[0]))
+        xs = [x + o for x, o in zip(xs, red)]
+        with use_rules(None):
+            outs = [_ffn_decode(lc, _views(fp, k, gather), xs[k],
+                                **(dict(experts=_experts(fp, k))
+                                   if cfg.is_moe else {}))
+                    for k in range(n)]
+        red = C.all_reduce(outs, mesh, _ax(fp["w2"].sharding.spec[0]))
+        xs = [x + o for x, o in zip(xs, red)]
+    return gather_logits(_lm_heads(cfg, params, xs, gather), r)

@@ -13,11 +13,21 @@ A decode step routes its (B, 1) tokens as one group of B
 (``decode_step``, as the reference's does); the served loop gives each
 slot a group of its own (``launch/serve.py``), which is what the
 reference's vmapped one-slot decode computes.
+
+On a mesh each device holds ``E / m`` experts (``p_expert`` over the
+model axis): it routes its tokens over every expert (the router is
+replicated), runs only its own (``experts=(e0, e1)``) and returns its
+share of the combine, which the caller sums over the model axis; with
+``stats=True`` it returns the load-balance statistics (the token
+fraction and mean probability per expert) for the caller to average over
+the batch shards before forming the aux loss (``moe_aux``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding.axes import constrain
 
 
 def top_k_lower_first(x: torch.Tensor, k: int
@@ -31,10 +41,11 @@ def top_k_lower_first(x: torch.Tensor, k: int
 
 def moe_ffn(x: torch.Tensor, wg: torch.Tensor, w1: torch.Tensor,
             w3: torch.Tensor, w2: torch.Tensor, *, top_k: int,
-            capacity_factor: float, group: int
-            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d); wg (d, E), w1 / w3 (E, d, f), w2 (E, f, d).
-    Returns (out (B, S, d), aux_loss 0-d fp32)."""
+            capacity_factor: float, group: int, experts=None,
+            stats: bool = False):
+    """x: (B, S, d); wg (d, E), w1 / w3 (E, d, f), w2 (E, f, d) (with
+    ``experts=(e0, e1)``: only experts e0..e1-1).  Returns (out (B, S,
+    d), aux_loss 0-d fp32), or (out, (frac, imp)) with ``stats``."""
     B, S, d = x.shape
     E = wg.shape[1]
     T = B * S
@@ -46,6 +57,7 @@ def moe_ffn(x: torch.Tensor, wg: torch.Tensor, w1: torch.Tensor,
     C = min(C, g * k)
 
     xg = x.reshape(G, g, d)
+    xg = constrain(xg, "act_group", None, "act_embed")
     logits = torch.einsum("Gtd,de->Gte", xg.float(), wg.float())
     probs = torch.softmax(logits, dim=-1)                 # (G, g, E)
     gate_v, gate_i = top_k_lower_first(probs, k)          # (G, g, k)
@@ -57,12 +69,16 @@ def moe_ffn(x: torch.Tensor, wg: torch.Tensor, w1: torch.Tensor,
     keep = (pos < C) & (oh > 0)
     posC = pos[..., None] == torch.arange(C, device=x.device)  # (G,gk,E,C)
     disp = keep[..., None] & posC
+    if experts is not None:                               # this device's
+        disp = disp[:, :, experts[0]:experts[1]]
 
     x_slot = torch.repeat_interleave(xg, k, dim=1)        # (G, gk, d)
     xd = torch.einsum("GtEC,Gtd->GECd", disp.to(x.dtype), x_slot)
+    xd = constrain(xd, "act_group", "act_expert", None, "act_embed")
     h = torch.einsum("GECd,Edf->GECf", xd, w1.to(x.dtype))
     gate = torch.einsum("GECd,Edf->GECf", xd, w3.to(x.dtype))
     h = F.silu(gate) * h
+    h = constrain(h, "act_group", "act_expert", None, "act_ff")
     y = torch.einsum("GECf,Efd->GECd", h, w2.to(x.dtype))
 
     comb = disp.float() * gate_v.reshape(G, g * k)[..., None, None]
@@ -73,5 +89,13 @@ def moe_ffn(x: torch.Tensor, wg: torch.Tensor, w1: torch.Tensor,
     # Switch-style load-balance aux loss
     frac = oh.reshape(G, g, k, E).sum(2).float().mean(dim=(0, 1))
     imp = probs.mean(dim=(0, 1))
-    aux = E * torch.sum(frac * imp) / k
-    return out, aux
+    if stats:
+        return out, (frac, imp)
+    return out, moe_aux(frac, imp, k)
+
+
+def moe_aux(frac: torch.Tensor, imp: torch.Tensor, top_k: int
+            ) -> torch.Tensor:
+    """The Switch load-balance loss from the per-expert token fraction and
+    mean router probability."""
+    return frac.shape[-1] * torch.sum(frac * imp) / top_k

@@ -1,12 +1,37 @@
-"""Mesh axis names of the port.
+"""Logical-axis sharding rules, and the port's sharded leaves.
 
-Twin of ``src/repro/sharding/axes.py``, its MBE part: the serving mesh
-axis and ``mbe_serve_mesh``.  The logical-axis rules of the LM layouts
-(``Rules``, ``train_rules``, ``serve_rules``) wait for ROADMAP Queue 1
-item 12c.
+Twin of ``src/repro/sharding/axes.py``.  Every tensor dimension in the
+model stack carries a *logical* name (``act_batch``, ``p_ff``,
+``cache_seq``, ...).  A ``Rules`` table maps logical names to mesh axes
+for the current execution mode (``train_rules`` / ``serve_rules``, the
+reference's tables letter for letter); ``use_rules`` makes a table
+current for a thread, and models never name mesh axes directly.
+
+The port has no GSPMD.  One process drives every device (as the MBE mesh
+does, ``core/distributed.py``), and a tensor split over a mesh is one
+tensor a shard, each on its own device:
+
+* ``NamedSharding(mesh, spec)`` names that split (``spec``: per dim the
+  mesh axes it is split over, or None); ``shard`` cuts a whole tensor
+  into its ``Shards``.
+* ``Shards`` holds a leaf's distinct shards, each once, on its *home*
+  device (index 0 of every mesh axis the leaf is replicated over).  A
+  device computes on ``local(k)``: its shard copied to it (a copy that
+  autograd carries back, so a replicated leaf's grads from every device
+  sum into its one home shard), with the dims split over ``gather`` axes
+  gathered whole (the FSDP all-gather; its backward is the
+  reduce-scatter of the grads).
+* ``constrain(x, *logical)`` lays a whole tensor out over the mesh: one
+  part a device, its slice under the current rules; a list of parts (one
+  a device) is already laid out and passes as it is.  The port keeps the
+  ``act_seq`` dim whole where the table shards it (ROADMAP Queue 3).
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import math
+import threading
 from typing import Optional
 
 import torch
@@ -14,6 +39,9 @@ import torch
 from repro_torch.kernels.dispatch import check_device
 from repro_torch.launch.mesh import Mesh, local_devices
 
+# ---------------------------------------------------------------------------
+# MBE serving mesh axis
+# ---------------------------------------------------------------------------
 # The serving executors (repro_torch.serving.executor) place graph lanes
 # on a 1-D mesh of their own: ``ShardedExecutor`` shards a bucket's lane
 # pool over it and the big-graph lane spreads ONE graph's root tasks over
@@ -39,3 +67,342 @@ def mbe_serve_mesh(n_devices: Optional[int] = None,
                 f"{len(devs)} are visible")
         devs = devs[:n_devices]
     return Mesh(devs, (axis,))
+
+
+# ---------------------------------------------------------------------------
+# rules
+# ---------------------------------------------------------------------------
+
+# logical activation axes the port keeps whole where a table shards them:
+# the reference's Megatron sequence parallelism (ROADMAP Queue 3)
+KEPT_WHOLE = ("act_seq",)
+
+
+@dataclasses.dataclass(frozen=True)
+class Rules:
+    table: dict[str, tuple[str, ...] | None]
+    mesh: Optional[Mesh] = None
+
+    def axes(self, name: str | None):
+        if name is None:
+            return None
+        if name not in self.table:
+            raise KeyError(f"unknown logical axis {name!r}")
+        return self.table[name]
+
+
+_STATE = threading.local()
+
+
+def current_rules() -> Optional[Rules]:
+    return getattr(_STATE, "rules", None)
+
+
+@contextlib.contextmanager
+def use_rules(rules: Optional[Rules]):
+    prev = current_rules()
+    _STATE.rules = rules
+    try:
+        yield rules
+    finally:
+        _STATE.rules = prev
+
+
+def spec_for(logical: tuple[str | None, ...],
+             rules: Optional[Rules] = None) -> tuple:
+    """Per dim, the mesh axes the rules split it over (None: whole); the
+    reference's ``PartitionSpec`` as a tuple."""
+    r = rules or current_rules()
+    if r is None:
+        return ()
+    return tuple(r.axes(n) for n in logical)
+
+
+def mesh_rules() -> Optional[Rules]:
+    """The current rules when they name a mesh of more than one device
+    (a one-device mesh runs the plain one-device path), else None."""
+    r = current_rules()
+    return r if r is not None and r.mesh is not None \
+        and r.mesh.size > 1 else None
+
+
+def _axes_of(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A split of a tensor over ``mesh``: ``spec`` gives per dim the mesh
+    axes it is split over (several axes: row-major over them), or None."""
+    mesh: Mesh
+    spec: tuple
+
+    def __post_init__(self):
+        used = [a for e in self.spec for a in _axes_of(e)]
+        if len(used) != len(set(used)):
+            raise ValueError(f"mesh axis used twice in spec {self.spec}")
+
+    @property
+    def split_axes(self) -> tuple[str, ...]:
+        """The mesh axes some dim is split over, in mesh order."""
+        used = {a for e in self.spec for a in _axes_of(e)}
+        return tuple(a for a in self.mesh.axis_names if a in used)
+
+    def n_shards(self) -> int:
+        return math.prod(self.mesh.shape[a] for a in self.split_axes)
+
+    def shard_index(self, coords: dict[str, int]) -> int:
+        """Row-major index of the shard at mesh ``coords``."""
+        i = 0
+        for a in self.split_axes:
+            i = i * self.mesh.shape[a] + coords[a]
+        return i
+
+    def home(self, i: int) -> int:
+        """The device that holds shard ``i``: its coordinates on the split
+        axes, 0 on the others."""
+        c = {a: 0 for a in self.mesh.axis_names}
+        for a in reversed(self.split_axes):
+            i, c[a] = divmod(i, self.mesh.shape[a])
+        return self.mesh.index(c)
+
+    def slices(self, shape, coords: dict[str, int]) -> tuple[slice, ...]:
+        """The index of the shard at mesh ``coords`` in a whole tensor of
+        ``shape`` (a dim that its axes do not divide raises)."""
+        out = []
+        for d, n in enumerate(shape):
+            axes = _axes_of(self.spec[d]) if d < len(self.spec) else ()
+            m, j = 1, 0
+            for a in axes:
+                m, j = m * self.mesh.shape[a], j * self.mesh.shape[a] \
+                    + coords[a]
+            if n % m:
+                raise ValueError(f"dim {d} of {tuple(shape)} does not split "
+                                 f"over {axes} ({m} ways)")
+            out.append(slice(j * (n // m), (j + 1) * (n // m)))
+        return tuple(out)
+
+    def shard(self, x: torch.Tensor) -> "Shards":
+        """``x`` cut into its shards, each copied to its home device (a
+        copy even on ``x``'s own device: the optimizer updates shards in
+        place)."""
+        parts = []
+        for i in range(self.n_shards()):
+            k = self.home(i)
+            piece = x[self.slices(x.shape, self.mesh.coords(k))]
+            parts.append(torch.empty(piece.shape, dtype=x.dtype,
+                                     device=self.mesh.devices[k])
+                         .copy_(piece))
+        return Shards(parts, self, tuple(x.shape))
+
+
+def named_sharding(logical: tuple[str | None, ...],
+                   rules: Optional[Rules] = None) -> NamedSharding:
+    r = rules or current_rules()
+    assert r is not None and r.mesh is not None
+    return NamedSharding(r.mesh, spec_for(logical, r))
+
+
+class Shards:
+    """One leaf split over a mesh: ``parts`` its distinct shards (row-major
+    over ``sharding.split_axes``), each on its home device; ``shape`` the
+    whole leaf's."""
+
+    __slots__ = ("parts", "sharding", "shape", "views")
+
+    def __init__(self, parts, sharding: NamedSharding, shape, views=None):
+        self.parts = list(parts)
+        self.sharding = sharding
+        self.shape = tuple(shape)
+        # {gather axes: every device's ``local`` view}, copied by ``place``
+        self.views = views or {}
+
+    @property
+    def dtype(self):
+        return self.parts[0].dtype
+
+    def dim(self) -> int:
+        return len(self.shape)
+
+    def like(self, parts) -> "Shards":
+        """The same split over new ``parts`` (e.g. grads or moments)."""
+        return Shards(parts, self.sharding, self.shape)
+
+    def unbind0(self) -> list["Shards"]:
+        """The leaf's slices along dim 0 (a layer each), dim 0 whole:
+        one ``unbind`` a shard (its backward stacks the grads once)."""
+        sh = NamedSharding(self.sharding.mesh, self.sharding.spec[1:])
+        rows = [p.unbind(0) for p in self.parts]
+        views = {g: [p.unbind(0) for p in v] for g, v in self.views.items()}
+        return [Shards([r[i] for r in rows], sh, self.shape[1:],
+                       {g: [r[i] for r in v] for g, v in views.items()})
+                for i in range(self.shape[0])]
+
+    def place(self, gather=()) -> "Shards":
+        """The same leaf with every device's ``local(k, gather)`` view
+        copied to it once, for a loop that reads the same weights every
+        step; a device's replicas of one shard share the tensor."""
+        mesh, g = self.sharding.mesh, tuple(gather)
+        memo, views = {}, []
+        for d in range(mesh.size):
+            c = mesh.coords(d)
+            key = (mesh.devices[d],) + tuple(
+                c[a] for a in self.sharding.split_axes if a not in g)
+            if key not in memo:
+                memo[key] = self.local(d, g)
+            views.append(memo[key])
+        return Shards(self.parts, self.sharding, self.shape, {g: views})
+
+    def local(self, k: int, gather=()) -> torch.Tensor:
+        """What device ``k`` computes with: its shard, on its device, with
+        every dim split over an axis of ``gather`` gathered whole (the
+        copy ``place`` made, where it made one)."""
+        placed = self.views.get(tuple(gather))
+        if placed is not None:
+            return placed[k]
+        sh, mesh = self.sharding, self.sharding.mesh
+        dev = mesh.devices[k]
+        gdims = []
+        for d, e in enumerate(sh.spec):
+            ax = _axes_of(e)
+            if any(a in gather for a in ax):
+                if not all(a in gather for a in ax):
+                    raise ValueError(f"dim {d} is split over {ax}: "
+                                     f"gathering part of it is not "
+                                     f"supported")
+                gdims.append((d, ax))
+
+        def build(i, cc):
+            if i == len(gdims):
+                return self.parts[sh.shard_index(cc)].to(dev)
+            d, ax = gdims[i]
+            pieces = [build(i + 1, dict(cc, **dict(zip(ax, ix))))
+                      for ix in _iter_coords(mesh, ax)]
+            return pieces[0] if len(pieces) == 1 else torch.cat(pieces, d)
+        return build(0, mesh.coords(k))
+
+    def full(self, device=None) -> torch.Tensor:
+        """The whole leaf, assembled on ``device`` (default: the first
+        shard's)."""
+        dev = self.parts[0].device if device is None else device
+        out = torch.empty(self.shape, dtype=self.dtype, device=dev)
+        mesh = self.sharding.mesh
+        for i, p in enumerate(self.parts):
+            c = mesh.coords(self.sharding.home(i))
+            out[self.sharding.slices(self.shape, c)] = p.to(dev)
+        return out
+
+
+def leaf_parts(x) -> list[torch.Tensor]:
+    """A leaf's tensors: a sharded leaf's shards, or the tensor itself."""
+    return x.parts if isinstance(x, Shards) else [x]
+
+
+def leaf_like(x, parts):
+    """``parts`` (one a tensor of ``leaf_parts(x)``) in the form of leaf
+    ``x``: a ``Shards`` of the same split, or the one tensor."""
+    return x.like(parts) if isinstance(x, Shards) else parts[0]
+
+
+def _iter_coords(mesh: Mesh, axes):
+    """Row-major index tuples over ``axes``."""
+    out = [()]
+    for a in axes:
+        out = [x + (i,) for x in out for i in range(mesh.shape[a])]
+    return out
+
+
+def constrain(x, *logical: str | None):
+    """Lay ``x`` out by logical dim names under the current rules (a
+    no-op without a mesh of several devices).  A whole tensor becomes one
+    part a device of the mesh, its device's slice on that device; a list
+    (one part a device) is already laid out and is returned as it is.
+    Dims named in ``KEPT_WHOLE`` stay whole."""
+    r = mesh_rules()
+    if r is None or not isinstance(x, torch.Tensor):
+        return x
+    assert len(logical) == x.dim(), (logical, tuple(x.shape))
+    sh = NamedSharding(r.mesh, spec_for(
+        tuple(None if n in KEPT_WHOLE else n for n in logical), r))
+    mesh = r.mesh
+    return [x[sh.slices(x.shape, mesh.coords(k))].to(mesh.devices[k])
+            for k in range(mesh.size)]
+
+
+# ---------------------------------------------------------------------------
+# rule tables
+# ---------------------------------------------------------------------------
+
+def _batch_axes(multi_pod: bool) -> tuple[str, ...]:
+    return ("pod", "data") if multi_pod else ("data",)
+
+
+def train_rules(mesh: Mesh, multi_pod: bool = False,
+                fsdp: bool = True) -> Rules:
+    b = _batch_axes(multi_pod)
+    return Rules(mesh=mesh, table={
+        # activations
+        "act_batch": b,
+        # Megatron-style sequence parallelism in the reference (the port
+        # keeps this dim whole: KEPT_WHOLE)
+        "act_seq": ("model",),
+        "act_embed": None,
+        "act_heads": ("model",),
+        "act_kv": ("model",),
+        "act_ff": ("model",),
+        "act_vocab": ("model",),
+        "act_expert": ("model",),
+        "act_group": b,          # MoE dispatch groups follow the batch
+        "act_inner": ("model",),  # ssm / mlstm inner width
+        # params
+        "p_embed": ("data",) if fsdp else None,
+        "p_vocab": ("model",),
+        "p_heads": ("model",),
+        "p_kv": ("model",),
+        "p_ff": ("model",),
+        "p_expert": ("model",),
+        "p_inner": ("model",),
+        "p_none": None,
+        # caches unused in training
+        "cache_seq": None,
+        "cache_batch": b,
+    })
+
+
+def serve_rules(mesh: Mesh, multi_pod: bool = False,
+                batch_shardable: bool = True) -> Rules:
+    b = _batch_axes(multi_pod)
+    # long-context single-sequence decode: the cache's sequence dim takes
+    # every axis the batch cannot use
+    if batch_shardable:
+        cache_seq = ("model",)
+        batch = b
+    else:
+        cache_seq = (_batch_axes(multi_pod) + ("model",))
+        batch = None
+    return Rules(mesh=mesh, table={
+        "act_batch": batch,
+        # prefill: the residual stream shards over (model x seq) in the
+        # reference; decode has no seq dim so the entry is inert there
+        "act_seq": ("model",),
+        "act_embed": None,
+        "act_heads": ("model",),
+        "act_kv": ("model",),
+        "act_ff": ("model",),
+        "act_vocab": ("model",),
+        "act_expert": ("model",),
+        "act_group": batch,
+        "act_inner": ("model",),
+        "p_embed": None,          # TP-only: no per-step weight gathers
+        "p_vocab": ("model",),
+        "p_heads": ("model",),
+        "p_kv": ("model",),
+        "p_ff": ("model",),
+        "p_expert": ("model",),
+        "p_inner": ("model",),
+        "p_none": None,
+        "cache_seq": cache_seq,
+        "cache_batch": batch,
+    })

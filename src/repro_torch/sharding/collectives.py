@@ -1,0 +1,79 @@
+"""Collectives over a named mesh axis, as copies between devices.
+
+The reference has none of its own: GSPMD inserts them.  The port drives
+every device from one process, so a value laid out over a mesh is a
+list with one part a device (``mesh.devices`` order), and a collective
+over an axis is explicit: each device's result is built from the parts
+of its group (the devices that differ from it only along that axis)
+copied to it with ``.to(device)``, then added or concatenated in group
+order, so every member computes the same numbers.  Autograd carries the
+copies backward, so each collective's backward is its transpose with no
+code of its own: the grads of an all-gather are reduce-scattered back to
+their shards, those of an all-reduce summed over the group.
+
+Members of a group on one device (the CPU's shards, or a rehearsal of
+several cards on one) share one result tensor instead of computing it
+again.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.launch.mesh import Mesh
+
+
+def _per_device(xs: list, mesh: Mesh, axis, build) -> list:
+    """``build(group, device)`` for each device's group over ``axis``,
+    computed once per (group, physical device)."""
+    out, memo = [], {}
+    for k in range(mesh.size):
+        g = tuple(mesh.group(k, axis))
+        key = (g, mesh.devices[k])
+        if key not in memo:
+            memo[key] = build(g, mesh.devices[k])
+        out.append(memo[key])
+    return out
+
+
+def all_reduce(xs: list, mesh: Mesh, axis) -> list:
+    """Each device: the sum of its group's parts."""
+    if mesh.shape_of(axis) == 1:
+        return list(xs)
+
+    def build(g, dev):
+        acc = xs[g[0]].to(dev)
+        for j in g[1:]:
+            acc = acc + xs[j].to(dev)
+        return acc
+    return _per_device(xs, mesh, axis, build)
+
+
+def all_gather(xs: list, mesh: Mesh, axis, dim: int) -> list:
+    """Each device: its group's parts concatenated along ``dim``."""
+    if mesh.shape_of(axis) == 1:
+        return list(xs)
+    return _per_device(xs, mesh, axis, lambda g, dev: torch.cat(
+        [xs[j].to(dev) for j in g], dim=dim))
+
+
+def reduce_scatter(xs: list, mesh: Mesh, axis, dim: int) -> list:
+    """Each device: its own chunk (by its index in the group) along
+    ``dim`` of the sum of its group's parts.  No model path calls it yet:
+    it is the row-parallel output's layout where ``act_seq`` shards
+    (Megatron sequence parallelism), and the port keeps ``act_seq``
+    whole (``axes.KEPT_WHOLE``)."""
+    n = mesh.shape_of(axis)
+    if n == 1:
+        return list(xs)
+    out = []
+    for k in range(mesh.size):
+        g = mesh.group(k, axis)
+        i = g.index(k)
+        dev = mesh.devices[k]
+        acc = None
+        for j in g:
+            c = xs[j].chunk(n, dim=dim)[i].to(dev)
+            acc = c if acc is None else acc + c
+        out.append(acc)
+    return out
+

@@ -21,6 +21,12 @@ place to keep the fp32 transients of a 2 B-parameter model (8 GB for each
 full set) off the card: the grads it is given are clipped in place and
 then overwritten by the updates it returns, and the moments of ``state``
 are updated in place (the returned state shares them).
+
+On a mesh the leaves are ``sharding.axes.Shards`` (each distinct shard
+once, on its home device): every function here runs a shard on its own
+device, and ``global_norm`` sums each element once (every shard's sum of
+squares, brought to the first shard's device; a replicated leaf is one
+shard, so it counts once, not once a copy).
 """
 from __future__ import annotations
 
@@ -29,6 +35,9 @@ import math
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+from repro_torch.sharding.axes import leaf_like as _same
+from repro_torch.sharding.axes import leaf_parts as _parts
 
 
 class AdamWState(NamedTuple):
@@ -60,9 +69,11 @@ def cosine_schedule(peak_lr: float, warmup: int, total: int,
 
 def global_norm(tree: dict) -> torch.Tensor:
     """sqrt of the sum of squares, summed over the leaves in sorted key
-    order (the reference's pytree order), whatever the dict's order."""
-    return torch.sqrt(sum(torch.sum(torch.square(tree[k].float()))
-                          for k in sorted(tree)))
+    order (the reference's pytree order), whatever the dict's order; a
+    sharded leaf's shards each once, on the first leaf's device."""
+    dev = _parts(tree[min(tree)])[0].device
+    return torch.sqrt(sum(torch.sum(torch.square(p.float())).to(dev)
+                          for k in sorted(tree) for p in _parts(tree[k])))
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -73,7 +84,8 @@ def clip_by_global_norm(tree: dict, max_norm: float
                         ) -> tuple[dict, torch.Tensor]:
     norm = global_norm(tree)
     scale = _clip_scale(norm, max_norm)
-    return {k: x * scale for k, x in tree.items()}, norm
+    return {k: _same(x, [p * scale.to(p.device) for p in _parts(x)])
+            for k, x in tree.items()}, norm
 
 
 def adamw(peak_lr: float = 3e-4, *, b1: float = 0.9, b2: float = 0.95,
@@ -85,39 +97,53 @@ def adamw(peak_lr: float = 3e-4, *, b1: float = 0.9, b2: float = 0.95,
     matrices — 1-D scales/norm params are exempt, the usual LM recipe)."""
     sched = cosine_schedule(peak_lr, warmup, total_steps)
 
+    def zeros(x):
+        return _same(x, [torch.zeros(p.shape, dtype=torch.float32,
+                                     device=p.device) for p in _parts(x)])
+
     def init(params: dict) -> AdamWState:
-        dev = next(iter(params.values())).device
+        dev = _parts(next(iter(params.values())))[0].device
         return AdamWState(
             step=torch.zeros((), dtype=torch.int32, device=dev),
-            mu={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                for k, p in params.items()},
-            nu={k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                for k, p in params.items()})
+            mu={k: zeros(p) for k, p in params.items()},
+            nu={k: zeros(p) for k, p in params.items()})
 
     def update(grads: dict, state: AdamWState, params: dict
                ) -> tuple[dict, AdamWState, dict]:
         step = state.step + 1
-        grads = {k: g.float() for k, g in grads.items()}
+        grads = {k: _same(g, [p.float() for p in _parts(g)])
+                 for k, g in grads.items()}
         gnorm = global_norm(grads)
         scale = _clip_scale(gnorm, max_grad_norm)
         lr = sched(step)
         t = step.float()
         c1 = 1.0 - torch.pow(torch.tensor(b1, device=t.device), t)
         c2 = 1.0 - torch.pow(torch.tensor(b2, device=t.device), t)
+        on = {}                     # the step's scalars on each device
+
+        def scalars(dev):
+            if dev not in on:
+                on[dev] = tuple(x.to(dev) for x in (scale, c1, c2, lr))
+            return on[dev]
+
         names = _leaf_names(params)
-        for k, g in grads.items():
-            g.mul_(scale)                                   # clip
-            m = state.mu[k].mul_(b1).add_((1 - b1) * g)
-            v = state.nu[k].mul_(b2).add_((1 - b2) * g * g)
-            p = params[k]
-            u = torch.div(m / c1, torch.sqrt(v / c2) + eps, out=g)
+        for k, gl in grads.items():
             decay = (decay_mask(names[k]) if decay_mask is not None
-                     else p.dim() >= 2)
-            if decay:
-                u.add_(weight_decay * p.float())
-            u.mul_(-lr)
+                     else params[k].dim() >= 2)
+            for g, m, v, p in zip(_parts(gl), _parts(state.mu[k]),
+                                  _parts(state.nu[k]), _parts(params[k])):
+                sc, c1_, c2_, lr_ = scalars(g.device)
+                g.mul_(sc)                                  # clip
+                m = m.mul_(b1).add_((1 - b1) * g)
+                v = v.mul_(b2).add_((1 - b2) * g * g)
+                u = torch.div(m / c1_, torch.sqrt(v / c2_) + eps, out=g)
+                if decay:
+                    u.add_(weight_decay * p.float())
+                u.mul_(-lr_)
         new_state = AdamWState(step=step, mu=state.mu, nu=state.nu)
-        return ({k: g.to(params[k].dtype) for k, g in grads.items()},
+        return ({k: _same(g, [u.to(p.dtype) for u, p in
+                              zip(_parts(g), _parts(params[k]))])
+                 for k, g in grads.items()},
                 new_state, dict(lr=lr, grad_norm=gnorm))
 
     return Optimizer(init=init, update=update)
@@ -130,4 +156,6 @@ def _leaf_names(tree: dict) -> dict:
 
 
 def apply_updates(params: dict, updates: dict) -> dict:
-    return {k: p + updates[k].to(p.dtype) for k, p in params.items()}
+    return {k: _same(x, [p + u.to(p.dtype) for p, u in
+                         zip(_parts(x), _parts(updates[k]))])
+            for k, x in params.items()}

@@ -16,8 +16,21 @@ Twin of ``src/repro/training/step.py``.  ``make_train_step(cfg, opt,
   grads summing into the masters' fp32 ``.grad``; the sum is then divided
   by ``accum``.  Only one microbatch's activations and one fp32 grad set
   live at a time.
-* **compression** — ``compress_axis`` needs a collective axis across
-  devices; it raises until the multi-GPU item (ROADMAP Queue 1 item 8).
+* **on a mesh** — under ``use_rules`` with a mesh of several devices the
+  params (and the optimizer's moments) are ``shard_params``' leaves: the
+  forward runs every device's share (``models.model``), the loss is the
+  cross-entropy over the vocab-split logits (each device's log-sum-exp
+  and label logit combined over the model axis, the token mean over the
+  whole batch), and each shard's grad lands on its home device.
+* **compression** — with ``compress_axis`` the step runs once a
+  participant along that mesh axis (the reference's ``shard_map``
+  exposing it): ``params``, ``opt_state`` and ``err`` are lists, one a
+  participant, each laid out on its sub-mesh (``replicate``); the batch
+  is split over the participants; each computes its grads on its rows
+  under its sub-mesh's rules, and the grads cross the axis through
+  ``compress.quantized_psum`` (int8 + error feedback) instead of the
+  fp32 sum; each participant then updates its own copy.  Without rules
+  it is one participant.
 
 The metrics are ``loss``, ``aux_loss``, ``tokens``, ``lr`` and
 ``grad_norm``, as 0-d tensors.  Every step takes every family: the vlm
@@ -34,7 +47,10 @@ import torch
 
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import softmax_cross_entropy
+from repro_torch.models.layers import shard_params, softmax_cross_entropy
+from repro_torch.sharding.axes import (Rules, constrain, leaf_like,
+                                       leaf_parts, mesh_rules, use_rules)
+from repro_torch.training import compress
 from repro_torch.training.optimizer import Optimizer, apply_updates
 
 
@@ -42,7 +58,11 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict
             ) -> tuple[torch.Tensor, dict]:
     """Causal-LM loss. batch: tokens (B, S[, n_cb]) int, labels like
     tokens, ``patch_emb`` (B, n_patch, d) for vlm. Labels < 0 are masked
-    out."""
+    out.  Under mesh rules the loss is taken over the laid-out logits
+    (``mesh_loss``)."""
+    r = mesh_rules()
+    if r is not None:
+        return mesh_loss(cfg, params, batch, r)
     logits, aux = M.forward(cfg, params, batch["tokens"],
                             patch_emb=batch.get("patch_emb"))
     labels = batch["labels"]
@@ -56,6 +76,63 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict
     return total, dict(loss=loss, aux_loss=aux, tokens=n_tok)
 
 
+def mesh_loss(cfg: ModelConfig, params: dict, batch: dict, r
+              ) -> tuple[torch.Tensor, dict]:
+    """``loss_fn`` over a mesh: each device's logits hold its batch rows
+    and vocab columns; the log-sum-exp and the label's logit of a row are
+    combined over the vocab axes on the batch shard's first device, and
+    the masked token mean is taken over the whole batch on the mesh's
+    first device."""
+    mesh = r.mesh
+    parts, aux = M.forward_parts(cfg, params, batch["tokens"],
+                                 patch_emb=batch.get("patch_emb"))
+    labels = constrain(batch["labels"], "act_batch", "act_seq",
+                       *((None,) * (batch["labels"].dim() - 2)))
+    vax = M._ax(r.table["p_vocab"])
+    dev0 = mesh.devices[0]
+    nll = n = 0
+    for k in mesh.group(0, M._ax(r.table["act_batch"])):
+        dev = mesh.devices[k]
+        lab = labels[k]
+        lse, ll = [], 0
+        for j in mesh.group(k, vax):
+            lg = parts[j]
+            if cfg.family == "vlm":
+                lg = lg[:, -lab.shape[1]:]
+            lg = lg.float()
+            v0 = M._offset(params["lm_head/w"], -1, j)
+            t = lab.to(lg.device).clamp(min=0).long() - v0
+            hit = (t >= 0) & (t < lg.shape[-1])
+            got = torch.gather(lg, -1, t.clamp(0, lg.shape[-1] - 1)
+                               [..., None])[..., 0]
+            lse.append(torch.logsumexp(lg, dim=-1).to(dev))
+            ll = ll + torch.where(hit, got, 0.0).to(dev)
+        lse = torch.logsumexp(torch.stack(lse), dim=0)
+        mask = (lab >= 0).float()
+        nll = nll + torch.sum((lse - ll) * mask).to(dev0)
+        n = n + torch.sum(mask).to(dev0)
+    n = torch.clamp(n, min=1.0)
+    loss = nll / n
+    return loss + 0.01 * aux, dict(loss=loss, aux_loss=aux, tokens=n)
+
+
+def replicate(params: dict, specs: dict, rules: Rules, axis: str) -> list:
+    """One copy of whole ``params`` a participant along mesh ``axis``,
+    each laid out on its sub-mesh under ``rules``' table (plain tensors on
+    the participant's device when its sub-mesh is one device): the
+    ``params`` / ``opt_state`` form a ``compress_axis`` step takes."""
+    out = []
+    for i in range(rules.mesh.shape[axis]):
+        sub = rules.mesh.take(axis, i)
+        if sub.size == 1:
+            out.append({k: v.to(sub.devices[0], copy=True)
+                        for k, v in params.items()})
+        else:
+            out.append(shard_params(params, specs,
+                                    Rules(table=rules.table, mesh=sub)))
+    return out
+
+
 def train_cast(cfg: ModelConfig, params: dict) -> dict:
     """The train step's one cast of the fp32 masters to ``cfg.dtype``:
     every leaf of two or more dims (the reference's ``cast_params``
@@ -63,23 +140,28 @@ def train_cast(cfg: ModelConfig, params: dict) -> dict:
     dt = M.dtype_of(cfg)
     if dt == torch.float32:
         return params
-    return {k: (v.to(dt) if v.dim() >= 2 else v) for k, v in params.items()}
+    return {k: (M.cast_leaf(v, dt) if v.dim() >= 2 else v)
+            for k, v in params.items()}
+
+
+def _leaf(v):
+    """A fresh leaf of the autograd graph over ``v``'s values."""
+    return leaf_like(v, [p.detach().requires_grad_(True)
+                         for p in leaf_parts(v)])
+
+
+def _grad(v):
+    return leaf_like(v, [p.grad for p in leaf_parts(v)])
 
 
 def make_train_step(cfg: ModelConfig, opt: Optimizer, *, accum: int = 1,
                     compress_axis: str | None = None) -> Callable:
     """Build the train step (see module docstring)."""
-    if compress_axis is not None:
-        raise NotImplementedError(
-            "compress_axis: the int8 gradient all-reduce needs a collective "
-            "axis across devices, which waits for the multi-GPU item "
-            "(ROADMAP Queue 1 item 8)")
 
     def accumulate(params, batch):
         """fp32 grads of the masters, averaged over ``accum`` microbatches,
         and the step's loss metrics."""
-        leaves = {k: v.detach().requires_grad_(True)
-                  for k, v in params.items()}
+        leaves = {k: _leaf(v) for k, v in params.items()}
         B = batch["tokens"].shape[0]
         if B % accum:
             raise ValueError(f"batch {B} is not a multiple of accum={accum}")
@@ -94,10 +176,11 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, accum: int = 1,
                      aux_loss=m["aux_loss"] + metrics["aux_loss"] / accum,
                      tokens=m["tokens"] + metrics["tokens"])
             del tot, metrics
-        grads = {k: v.grad for k, v in leaves.items()}
+        grads = {k: _grad(v) for k, v in leaves.items()}
         if accum > 1:
             for g in grads.values():
-                g.div_(accum)
+                for p in leaf_parts(g):
+                    p.div_(accum)
         return grads, m
 
     def train_step(params, opt_state, batch):
@@ -106,7 +189,52 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, *, accum: int = 1,
         params = apply_updates(params, updates)
         return params, opt_state, dict(metrics, **opt_metrics)
 
-    return train_step
+    if compress_axis is None:
+        return train_step
+
+    def compressed_step(params, opt_state, batch, err):
+        r = mesh_rules()
+        one = isinstance(params, dict)
+        if one:                              # one participant, no mesh
+            params, opt_state, err = [params], [opt_state], [err]
+        n = len(params)
+        if r is not None and r.mesh.shape[compress_axis] != n:
+            raise ValueError(f"{n} participants for the {compress_axis!r} "
+                             f"axis of {r.mesh.shape[compress_axis]}")
+        subs = [None if r is None else
+                r.mesh.take(compress_axis, i) for i in range(n)]
+        B = batch["tokens"].shape[0]
+        if B % n:
+            raise ValueError(f"batch {B} does not split over {n} "
+                             f"participants")
+        grads, mets = [], []
+        for i in range(n):
+            rows = {k: v[i * B // n:(i + 1) * B // n]
+                    for k, v in batch.items()}
+            sub = subs[i]
+            dev = (sub.devices[0] if sub is not None
+                   else next(iter(params[i].values())).device)
+            rows = {k: v.to(dev) for k, v in rows.items()}
+            with use_rules(None if sub is None else
+                           Rules(table=r.table, mesh=sub)):
+                g, m = accumulate(params[i], rows)
+            grads.append(g)
+            mets.append(m)
+        red, err = compress.quantized_psum(grads, compress_axis, err)
+        out_p, out_o, out_m = [], [], []
+        for i in range(n):
+            updates, o, om = opt.update(red[i], opt_state[i], params[i])
+            out_p.append(apply_updates(params[i], updates))
+            out_o.append(o)
+            out_m.append(dict(mets[i], **om))
+        dev0 = out_m[0]["loss"].device
+        metrics = dict(out_m[0], loss=sum(m["loss"].to(dev0)
+                                          for m in out_m) / n)
+        if one:
+            return out_p[0], out_o[0], metrics, err[0]
+        return out_p, out_o, metrics, err
+
+    return compressed_step
 
 
 def make_eval_step(cfg: ModelConfig) -> Callable:

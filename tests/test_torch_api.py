@@ -113,34 +113,64 @@ def test_import_firewall():
         assert not bad.search(f.read_text()), f
 
 
-def _unported(case):
-    from repro_torch import configs
+def _unported(case, tmp):
     from repro_torch.launch.serve import serve
     from repro_torch.launch.train import train
-    from repro_torch.training.optimizer import adamw
-    from repro_torch.training.step import make_train_step
-    if case == "serve-model-parallel":
-        serve(["--arch", "qwen3-1.7b", "--model-parallel", "2"],
-              device="cpu")
-    elif case == "train-compress":
-        make_train_step(configs.get_smoke("granite-moe-1b-a400m"), adamw(),
-                        compress_axis="x")
-    elif case == "train-model-parallel":
-        train(["--arch", "xlstm-1.3b", "--smoke", "--steps", "1",
+    if case == "hybrid-model-parallel":
+        serve(["--arch", "zamba2-7b", "--smoke", "--requests", "1",
                "--model-parallel", "2"], device="cpu")
+    elif case == "ssm-model-parallel":
+        train(["--arch", "xlstm-1.3b", "--smoke", "--steps", "1",
+               "--model-parallel", "2", "--ckpt-dir", tmp], device="cpu")
 
 
 @pytest.mark.parametrize("case,item", [
-    ("serve-model-parallel", "item 12c"),
-    ("train-compress", "item 8"), ("train-model-parallel", "item 12c")])
-def test_unported_options_raise(case, item):
+    ("hybrid-model-parallel", "item 12e"),
+    ("ssm-model-parallel", "item 12e")])
+def test_unported_options_raise(case, item, tmp_path):
     """What the port still does not serve raises, naming its ROADMAP
-    Queue 1 item: the int8 gradient all-reduce (8's LM part) and
-    sharding (12c: a model-parallel train or serve mesh).  The MBE mesh
-    is served (``tests/test_torch_mesh.py``,
-    ``tests/test_torch_sharded_executor.py``)."""
+    Queue 1 item: the model axis of the hybrid and ssm families (12e).
+    The mesh options run (``test_mesh_options_run``)."""
     with pytest.raises(NotImplementedError, match=item):
-        _unported(case)
+        _unported(case, str(tmp_path))
+
+
+@pytest.mark.parametrize("case", ["serve-model-parallel", "train-compress",
+                                  "train-model-parallel"])
+def test_mesh_options_run(case, tmp_path):
+    """The options that raised before the LM mesh was ported (ROADMAP
+    Queue 1 items 8 and 12c) run on CPU shards."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import train
+    from repro_torch.models import model as TM
+    from repro_torch.models.layers import init_params
+    from repro_torch.training.compress import init_error_state
+    from repro_torch.training.optimizer import adamw
+    from repro_torch.training.step import make_train_step
+    if case == "serve-model-parallel":
+        out = serve(["--arch", "qwen3-1.7b", "--smoke", "--model-parallel",
+                     "2", "--requests", "2", "--prompt-len", "3",
+                     "--max-new", "2"], device="cpu")
+        assert out["tokens"] == 4 and out["mesh"] == {"data": 1, "model": 2}
+    elif case == "train-compress":
+        cfg = configs.get_smoke("granite-moe-1b-a400m")
+        opt = adamw()
+        step = make_train_step(cfg, opt, compress_axis="x")
+        p = init_params(TM.param_specs(cfg), 0, device="cpu")
+        toks = torch.randint(0, cfg.vocab, (2, 32),
+                             generator=torch.Generator().manual_seed(0))
+        p2, _, m, err = step(p, opt.init(p), dict(tokens=toks, labels=toks),
+                             init_error_state(p))
+        assert bool(torch.isfinite(m["loss"])) and set(err) == set(p)
+    else:
+        out = train(["--arch", "qwen3-1.7b", "--smoke", "--steps", "1",
+                     "--batch", "2", "--seq", "16", "--model-parallel", "2",
+                     "--ckpt-dir", str(tmp_path)], device="cpu")
+        assert out["mesh"] == {"data": 1, "model": 2}
+        assert out["loss"] is not None
 
 
 def _served_option(pkg, name, path):

@@ -149,7 +149,18 @@ def test_launcher_restart_is_bit_identical_on_the_cpu(tmp_path):
         assert torch.equal(a["opt"].nu[k], b["opt"].nu[k]), k
 
 
-def test_launcher_flags():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        train(["--arch", "qwen3-1.7b", "--smoke", "--model-parallel", "2"],
-              device="cpu")
+def test_launcher_flags(tmp_path):
+    """``--model-parallel 2`` on two CPU shards: the run fails after step
+    6, restarts from the step-5 checkpoint (saved whole, restored into
+    the mesh's layout), resumes at data step 5 and gives the uninterrupted
+    run's loss history bit for bit."""
+    base = ["--arch", "qwen3-1.7b", "--smoke", "--steps", "12",
+            "--ckpt-every", "5", "--model-parallel", "2", "--batch", "4",
+            "--seq", "32"]
+    r_fail = train(base + ["--ckpt-dir", str(tmp_path / "a"), "--fail-at",
+                           "6"], device="cpu")
+    r_ok = train(base + ["--ckpt-dir", str(tmp_path / "b")], device="cpu")
+    assert r_fail["mesh"] == {"data": 1, "model": 2}
+    assert r_fail["restarts"] == 1 and r_fail["starts"] == [0, 5]
+    assert r_fail["history"] == r_ok["history"]
+    assert len(r_ok["history"]) == 3

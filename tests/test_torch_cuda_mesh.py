@@ -5,9 +5,14 @@ test skips, decided inside the ``card`` fixture).
   graphs) through ``ShardedExecutor`` on a mesh of every visible card,
   against ``LocalExecutor`` on card 0: the same (n_max, cs) and decoded
   bicliques, the heavy graph's workers busy on every card.
-* With two or more cards: one K1, K3 and K4 launch on ``cuda:1``
-  while ``cuda:0`` is the current device, each equal to its plain
-  version, and the current device unchanged after it (the launchers
+* With two or more cards: on every card but the first (``cuda:1`` ..),
+  while ``cuda:0`` is the current device, K1, K3 and K4 launches equal
+  to their plain versions; K2 (a lane run to its end) and K5 equal to
+  theirs; K7's forward (bf16 and fp32), its fused bf16 backward and its
+  fp32 dq / dkv against ``flash_fwd_ref`` / ``flash_bwd_ref`` at the
+  port's K7 tolerances (element-wise 3e-2 / 1e-4 and per row 1e-2 /
+  1e-5 forward, per row and scaled 1e-2 / 1e-5 backward), each output
+  on its card, and the current device unchanged after it (the launchers
   enter their tensors' device; skips with one card).
 
 This file imports no JAX: the machine with the card has none."""
@@ -22,10 +27,17 @@ from repro_torch.core.engine import DENSE
 from repro_torch.data.generators import (dense_small, random_bipartite,
                                          random_graph_stream)
 from repro_torch.kernels import fused_select as fs
+from repro_torch.kernels.flash_attention import (flash_bwd, flash_bwd_ref,
+                                                 flash_fwd, flash_fwd_ref)
+from repro_torch.kernels.flash_attention.ops import _pack
+from repro_torch.kernels.intersect_count import intersect_count
+from repro_torch.kernels.intersect_count.ref import intersect_count_ref
 from repro_torch.kernels.fused_check import (fused_check_packed,
                                              fused_check_packed_ref)
 from repro_torch.kernels.resident_pool import (resident_pool_segment,
                                                resident_pool_segment_ref)
+from repro_torch.kernels.resident_step import (resident_segment,
+                                               resident_segment_ref)
 from repro_torch.serving import (BucketPolicy, LocalExecutor, MBEServer,
                                  ShardedExecutor)
 from repro_torch.serving.executor import _stack
@@ -77,9 +89,53 @@ def test_stream_on_every_card_against_local(card):
     assert runs[0] == runs[1]
 
 
+def _k7_on(dev, dtype):
+    """K7 fwd and bwd on ``dev`` against their plain versions: (1, 1000)
+    tokens, 8 heads over 4 kv heads, hd 128, causal."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, do = (torch.randn(1, 1000, 8, 128, generator=g, device=dev)
+             .to(dtype) for _ in range(2))
+    k, v = (torch.randn(1, 1000, 4, 128, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    qp, kp, vp = (x.contiguous() for x in _pack(q, k, v))
+    dop = _pack(do, k, v)[0].contiguous()
+    kw = dict(causal=True, scale=128 ** -0.5, sq=1000, sk=1000)
+    n = flash_fwd.launches
+    o, lse = flash_fwd(qp, kp, vp, **kw)
+    assert flash_fwd.launches == n + 1 and o.device == dev
+    ro, rl = flash_fwd_ref(qp, kp, vp, **kw)
+    tol, row_tol = (3e-2, 1e-2) if dtype == torch.bfloat16 else (1e-4, 1e-5)
+    torch.testing.assert_close(o.float(), ro.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, rl, rtol=1e-4, atol=1e-4)
+    dD = (dop.float() * ro.float()).sum(-1)
+    before = (flash_bwd.fused_launches, flash_bwd.dq_launches,
+              flash_bwd.dkv_launches)
+    got = flash_bwd(qp, kp, vp, dop, rl, dD, **kw)
+    want = flash_bwd_ref(qp, kp, vp, dop, rl, dD, **kw)
+    after = (flash_bwd.fused_launches, flash_bwd.dq_launches,
+             flash_bwd.dkv_launches)
+    assert [a - b for a, b in zip(after, before)] == (
+        [1, 0, 0] if dtype == torch.bfloat16 else [0, 1, 1])
+    for name, x, ref in zip(("dq", "dk", "dv"), got, want):
+        assert x.device == dev and torch.isfinite(x).all(), name
+        x, ref = x.float(), ref.float()
+        rn = ref.norm(dim=-1)
+        keep = rn >= 1e-2 * rn.median()
+        row = float(((x - ref).norm(dim=-1)[keep] / rn[keep]).max())
+        assert row <= row_tol, (name, row)
+        assert float((x - ref).abs().max() / ref.abs().max()) <= row_tol
+    o_rows = (o.float() - ro.float()).norm(dim=-1) / ro.float().norm(dim=-1)
+    assert float(o_rows.max()) <= row_tol
+
+
 def test_launches_on_the_second_card(second_card):
-    dev = second_card
     torch.cuda.set_device(0)
+    for i in range(1, torch.cuda.device_count()):
+        _launches_on(torch.device("cuda", i))
+    assert torch.cuda.current_device() == 0
+
+
+def _launches_on(dev):
     rng = np.random.default_rng(5)
     n, w = 512, 64
     adj = rng.integers(0, 1 << 32, size=(n, w), dtype=np.uint64) \
@@ -102,6 +158,11 @@ def test_launches_on_the_second_card(second_card):
     got = fs.fused_select_packed(a, m, q, impl="pallas")
     want = fs.fused_select_packed(a.cpu(), m.cpu(), q.cpu())
     assert all(torch.equal(x.cpu(), y) for x, y in zip(got, want))
+    # K5
+    before = intersect_count.launches
+    got = intersect_count(a, m, impl="pallas")
+    assert intersect_count.launches == before + 1 and got.device == dev
+    assert torch.equal(got, intersect_count_ref(a, m))
     # K3: a pool of 8 lanes, run to the end in segments of 4 steps
     gs = [g.canonical() for g in random_graph_stream(8, seed=1)
           if g.canonical().n_u <= 16 and g.canonical().n_v <= 64]
@@ -123,5 +184,20 @@ def test_launches_on_the_second_card(second_card):
             assert torch.equal(x, y), name
         assert torch.equal(bk, br)
     assert resident_pool_segment.launches > before
+    # K2: the pool's first lane alone, run to its end
+    lane, lctx = ed._lane(s, 0), ed._lane(ctx, 0)
+    lstart = lane.steps.clone()
+    lk = lr = lane
+    before = resident_segment.launches
+    while bool(ed._active(lk, lstart, 1 << 30)):
+        lk = resident_segment(lctx, cfg, lk, start=lstart, budget=1 << 30,
+                              steps_per_call=4)
+        lr = resident_segment_ref(lctx, cfg, lr, start=lstart,
+                                  budget=1 << 30, steps_per_call=4)
+        for name, x, y in zip(lk._fields, lk, lr):
+            assert torch.equal(x, y), name
+    assert resident_segment.launches > before
+    # K7 forward, fused bf16 backward, fp32 dq / dkv
+    for dtype in (torch.bfloat16, torch.float32):
+        _k7_on(dev, dtype)
     torch.cuda.synchronize(dev)
-    assert torch.cuda.current_device() == 0

@@ -267,9 +267,11 @@ def test_served_streams_equal_jax_serve(weights, monkeypatch):
 def test_serve_flags():
     mbe = serve(["--mbe", "--mesh", "2", "--requests", "2"], device="cpu")
     assert mbe["executor"] == "sharded" and mbe["metric"] > 0
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        serve(["--arch", ARCH, "--smoke", "--model-parallel", "2"],
-              device="cpu")
+    mp = serve(["--arch", ARCH, "--smoke", "--model-parallel", "2",
+                "--requests", "2", "--slots", "2", "--prompt-len", "3",
+                "--max-new", "2"], device="cpu")
+    assert mp["mesh"] == {"data": 1, "model": 2}
+    assert mp["tokens"] == 4 and sorted(mp["outputs"]) == [0, 1]
     out = serve(["--arch", ARCH, "--smoke", "--requests", "2", "--slots",
                  "2", "--prompt-len", "3", "--max-new", "2"], device="cpu")
     assert out["tokens"] == 4 and sorted(out["outputs"]) == [0, 1]

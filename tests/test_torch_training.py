@@ -25,6 +25,7 @@ from repro.training import optimizer as j_opt
 from repro.training.step import loss_fn as j_loss_fn
 from repro_torch import configs as t_configs
 from repro_torch.models import layers as t_layers
+from repro_torch.models import model as TM
 from repro_torch.models.weights import params_from_jax
 from repro_torch.training import compress as t_compress
 from repro_torch.training import optimizer as t_opt
@@ -151,10 +152,22 @@ def test_quantize_matches_and_psum_waits_for_multi_gpu():
             np.asarray(j_compress._dequantize(jc, js)))
     err = t_compress.init_error_state({"a": torch.ones(2, 3)})
     assert err["a"].dtype == torch.float32 and not err["a"].any()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_compress.quantized_psum({}, "pod", {})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_train_step(_tcfg(), _grad_probe(), compress_axis="pod")
+    # quantized_psum over one participant, and the step that takes it
+    # (the multi-participant checks: tests/test_torch_compress.py)
+    g = {"a": torch.from_numpy(rng.normal(size=(2, 3)).astype(np.float32))}
+    red, new = t_compress.quantized_psum([g], "pod", [err])
+    codes, scale = t_compress._quantize(g["a"])
+    assert torch.equal(red[0]["a"], t_compress._dequantize(codes, scale))
+    assert torch.equal(new[0]["a"], g["a"] - red[0]["a"])
+    step = make_train_step(_tcfg(), _grad_probe(), compress_axis="pod")
+    cfg = _tcfg()
+    params = t_layers.init_params(TM.param_specs(cfg), 0, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 8),
+                         generator=torch.Generator().manual_seed(0))
+    out = step(params, torch.zeros((), dtype=torch.int32),
+               dict(tokens=toks, labels=toks),
+               t_compress.init_error_state(params))
+    assert len(out) == 4 and set(out[3]) == set(params)
 
 
 # ---------------------------------------------------------------------------
