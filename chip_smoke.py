@@ -133,7 +133,8 @@ makes the script exit non-zero):
               decode == prefill in fp32; the LM ``serve`` loop; then
               the other model families at full width, each model freed
               before the next (granite-moe-1b-a400m, internvl2-2b with
-              its 256 patch rows, musicgen-medium, zamba2-7b, xlstm-1.3b):
+              its 256 patch rows, musicgen-medium, zamba2-7b, xlstm-1.3b
+              at 16 of its 48 layers but in its served loop):
               ``make_prefill_step`` at (1, 4096) with attn_impl='pallas'
               (exactly 24 / 24 / 48 / 13 / 0 K7 launches), logits against
               'xla' at every position with every K7 call held against its
@@ -153,7 +154,8 @@ makes the script exit non-zero):
               step; then the other families' training at full width
               (``families_train_path``; granite-moe-1b-a400m,
               internvl2-2b, musicgen-medium, zamba2-7b at 24 of its 81
-              layers, xlstm-1.3b at (2, 1024)), one model at a time: the
+              layers, xlstm-1.3b at 16 of its 48 layers and (2, 1024)),
+              one model at a time: the
               train step's grads on a (2, 4096) microbatch from the
               SyntheticSource (codebooks, patch rows) with
               attn_impl='pallas' against 'xla' (24 / 24 / 48 / 4 / 0 K7
@@ -177,7 +179,21 @@ makes the script exit non-zero):
               logits and picks, grads at max(TRAIN_GRAD_RTOL, 2 x the
               floor), finite losses), every K7 fwd and bwd call of the
               held drives against its plain version, with K7 launches
-              and peak memory by card;
+              and peak memory by card; then the hybrid and ssm families
+              on a mesh (``hybrid_ssm_mesh_path``; every visible card, or
+              4 shards of one): zamba2-7b at 12 of its 81 layers (two
+              applications of its shared block, K7 at hd 112 on 8 of its
+              32 heads a device), prefill (1, 4096) at model=4, the
+              served loop at data=2 x model=2 with 3 slots (the shared
+              block's KV caches split over their sequence), the bf16
+              grads at (2, 4096) at model=4, one AdamW step with accum=2
+              on (4, 4096) at data=2 x model=2; xlstm-1.3b at 8 of its 48
+              layers (7 mLSTM, 1 sLSTM), prefill (1, 1024) and grads
+              (2, 1024) at model=4, and its prefill in fp32 at 1e-4
+              (a planted head-slice fault flagged); each held against
+              one device, every K7 call of the held drives against its
+              plain version, with wall time, K7 launches and peak memory
+              by card;
 5. times    — per-kernel CUDA-event, profiler and queued times at each
               kernel's own path's shapes beside the plain version and the
               bound (K1 / K4 also under a sweep of launch plans, and past
@@ -2852,6 +2868,10 @@ def k7_calls(cfg) -> int:
 
 # the prefill: 4096 tokens (internvl2: after its 256 patch rows)
 FAMILY_PREFILL = (1, 4_096)
+# depth cut of the prefill and decode == prefill drives (the served loop
+# runs the CLI's full config): xlstm-1.3b at 16 of its 48 layers (its
+# sLSTM loops took ~35 s of the 48 layers' three prefill calls)
+FAMILY_LAYERS = {"xlstm-1.3b": 16}
 # decode == prefill in fp32: (B, positions)
 FAMILY_DECODE = (2, 32)
 FAMILY_SERVE = ["--slots", "4", "--requests", "4", "--prompt-len", "16",
@@ -2953,12 +2973,14 @@ def families_path(dev, by_path):
     t_phase = time.perf_counter()
     for arch in FAMILIES:
         cfg = configs.get_config(arch)
+        cfg = dataclasses.replace(cfg, n_layers=FAMILY_LAYERS.get(
+            arch, cfg.n_layers))
         n_k7 = k7_calls(cfg)
         t0 = time.perf_counter()
         master = init_params(M.param_specs(cfg), 0, device=dev)
         params = M.cast_params(cfg, master)
         torch.cuda.synchronize()
-        r = info[arch] = dict(params=cfg.n_params(),
+        r = info[arch] = dict(params=cfg.n_params(), layers=cfg.n_layers,
                               init_s=time.perf_counter() - t0)
         log(f"  {arch} ({cfg.family}): {cfg.n_params():,} params, init "
             f"{r['init_s']:.1f} s")
@@ -3368,13 +3390,16 @@ def launcher_restart(dev, argv, label, by_path, **kw) -> dict:
 # on fp32 masters, microbatch TRAIN_MICRO rows: zamba2-7b cut to 24 of its
 # 81 layers (4 applications of the shared block; 2.31 B params, whose
 # fp32 masters, grads, AdamW moments and bf16 cast take ~42 GB: all 81
-# would take ~120 GB), xlstm-1.3b at 1,024 tokens (its sLSTM loops run a
-# step a token, under autograd too); None: the published depth
+# would take ~120 GB; hybrid_ssm_mesh_path trains all 81 over four cards
+# in chip_hybrid_full_depth.py), xlstm-1.3b at 16 of its 48 layers (14
+# mLSTM, 2 sLSTM; the 48 took ~110 s of the script's 1,200) and 1,024
+# tokens (its sLSTM loops run a step a token, under autograd too); None:
+# the published depth
 FAMILY_TRAIN = (("granite-moe-1b-a400m", None, TRAIN_SEQ),
                 ("internvl2-2b", None, TRAIN_SEQ),
                 ("musicgen-medium", None, TRAIN_SEQ),
                 ("zamba2-7b", 24, TRAIN_SEQ),
-                ("xlstm-1.3b", None, 1_024))
+                ("xlstm-1.3b", 16, 1_024))
 # zamba2-7b in fp32 at full width: its grads through K7 dq / dkv at hd 112
 # (one application of the shared block, after layer 6)
 ZAMBA_FP32_LAYERS = 6
@@ -3484,9 +3509,10 @@ LM_MESH_STEP_LAYOUTS = (4, 2)             # model axis of each AdamW drive
 LM_MESH_STEPS = 2
 LM_MESH_LAUNCH = TRAIN_LAUNCH + ["--model-parallel", "2"]
 # the served loop on the mesh and on one device for its yardstick: 4
-# slots, 8 requests, shorter prompts and streams than LM_SERVE (the mesh's
-# decode is host-bound: ~4x the one-device loop's calls' ops)
-LM_MESH_SERVE = ["--arch", LM_ARCH, "--slots", "4", "--requests", "8",
+# slots, 4 requests (8 until the hybrid / ssm mesh phase took its time),
+# shorter prompts and streams than LM_SERVE (the mesh's decode is
+# host-bound: ~4x the one-device loop's calls' ops)
+LM_MESH_SERVE = ["--arch", LM_ARCH, "--slots", "4", "--requests", "4",
                  "--prompt-len", "8", "--max-new", "8", "--max-seq", "64"]
 # each AdamW step on the mesh against train_path's one-device step on the
 # same weights and batches: the loss within this relative limit (the
@@ -3604,6 +3630,24 @@ def k7_verdict(label, fwd, bwd=()) -> dict:
     return out
 
 
+def reordered(cfg):
+    """The one-device torch-op path summed in another order, whose
+    distance from itself is a drive's floor: its key tile halved, and for
+    a family with no attention its mLSTM / SSD chunks halved.  The
+    families' paths halve the key tile only: there they hold K7 against
+    the torch-op path, which reorders attention's sums alone, and a
+    family with no attention runs the same code both ways (so it is not
+    compared there).  A mesh reorders other sums too (the partial
+    products over a split dim); for xlstm-1.3b, which has no attention,
+    its chunked scans are the sums one device can reorder, and its head
+    split is held tight in fp32 (``xlstm_fp32_mesh``)."""
+    out = dataclasses.replace(cfg, attn_impl="xla",
+                              attn_chunk_k=cfg.attn_chunk_k // 2)
+    if not k7_calls(cfg):
+        out = dataclasses.replace(out, ssd_chunk=cfg.ssd_chunk // 2)
+    return out
+
+
 def mesh_prefill(cfg, params, mesh, B, S, label, by_path, seed,
                  floor=False) -> dict:
     """``make_prefill_step`` at (B, S) on ``mesh`` (timed after a warm-up
@@ -3615,7 +3659,7 @@ def mesh_prefill(cfg, params, mesh, B, S, label, by_path, seed,
     (``family_logits``): the larger of those and twice the floor, the
     one-device torch-op path against itself at half its key tile (a
     moe router's near-tie moves a position's logits when the sums round
-    in another order, as the mesh's partial sums do)."""
+    in another order, as the mesh's partial sums do; ``reordered``)."""
     import torch
     from repro_torch.models import model as M
     from repro_torch.models.config import ShapeSpec
@@ -3657,10 +3701,10 @@ def mesh_prefill(cfg, params, mesh, B, S, label, by_path, seed,
     rtol, atol, fl = LM_LOGIT_RTOL, LM_LOGIT_TOL, None
     if floor:
         xla = dataclasses.replace(cfg, attn_impl="xla")
-        half = dataclasses.replace(xla, attn_chunk_k=xla.attn_chunk_k // 2)
         with torch.no_grad():
             lx_full = M.forward(xla, params, toks)[0]
-            fl = logit_errors(M.forward(half, params, toks)[0], lx_full)
+            fl = logit_errors(M.forward(reordered(cfg), params, toks)[0],
+                              lx_full)
         del lx_full
         rtol = max(rtol, 2 * fl["rel"])
         atol = max(atol, 2 * fl["last_abs"])
@@ -3714,21 +3758,25 @@ def decode_logits():
         M.decode_step = real
 
 
-def served_against(one, mesh) -> dict:
+def served_against(one, mesh, resets=True) -> dict:
     """The served loop's decode calls on a mesh against one device's
-    (the same schedule): for each slot, while its inputs since its last
-    admission are equal, every call's ||dlogit|| / ||logit|| (limit
-    LM_LOGIT_RTOL) and, where the two runs pick different tokens, each
-    run's logit gap between the two picks (one device's logits and the
-    mesh's, limit LM_LOGIT_TOL: a near-tie); past that the slot's stream
-    differs and is not compared until its next request."""
+    (the same schedule): for each slot, while its inputs are equal, every
+    call's ||dlogit|| / ||logit|| (limit LM_LOGIT_RTOL) and, where the two
+    runs pick different tokens, each run's logit gap between the two
+    picks (one device's logits and the mesh's, limit LM_LOGIT_TOL: a
+    near-tie; a pick that becomes the slot's next input parts its inputs
+    at the next call); past that the slot's stream differs and is not
+    compared until its next request, where a request starts a slot's
+    state afresh (``resets``: attention caches; a recurrent state carries
+    the slot's whole history, so the hybrid and ssm families pass False
+    and a parted slot is not compared again)."""
     rel, gaps, equal_calls = 0.0, [], 0
     diverged = None
     for i, ((l1, t1, p1), (lm, tm, pm)) in enumerate(zip(one, mesh)):
         if diverged is None:
             diverged = [False] * l1.shape[0]
         for b in range(l1.shape[0]):
-            if int(p1[b]) == 0:
+            if resets and int(p1[b]) == 0:
                 diverged[b] = False            # a new request's replay
             if diverged[b] or not (bool((t1[b] == tm[b]).all())
                                    and int(p1[b]) == int(pm[b])):
@@ -3742,7 +3790,6 @@ def served_against(one, mesh) -> dict:
                 gaps.append(dict(call=i, slot=b,
                                  one=float(y[a1] - y[am]),
                                  mesh=float(x[am] - x[a1])))
-                diverged[b] = True
     return dict(calls=len(one), compared=equal_calls, rel=rel,
                 picks_differ=gaps)
 
@@ -3781,12 +3828,15 @@ def mesh_serve(dev, kw, by_path) -> dict:
     return info
 
 
-def mesh_grads(cfg, master, mesh, by_path) -> dict:
+def mesh_grads(cfg, master, mesh, by_path, seq=TRAIN_SEQ,
+               label=f"train grads ({TRAIN_MICRO}, {TRAIN_SEQ}) bf16 mesh"
+               ) -> dict:
     """The train step's bf16 grads through the grad probe at (TRAIN_MICRO,
-    TRAIN_SEQ) on ``mesh`` against one device, both on the K7 path, at
+    ``seq``) on ``mesh`` against one device, both on the K7 path, at
     the families' limit max(TRAIN_GRAD_RTOL, 2 x the torch-op path's
     floor at half its key tile); every K7 fwd and bwd call of the mesh's
-    step held against its plain version."""
+    step held against its plain version (a second run; with no K7 call
+    the first run's grads are held)."""
     import torch
     from repro_torch.models import model as M
     from repro_torch.models.config import ShapeSpec
@@ -3794,17 +3844,20 @@ def mesh_grads(cfg, master, mesh, by_path) -> dict:
     from repro_torch.sharding.auto import make_rules
     from repro_torch.sharding.axes import use_rules
     dev = mesh.devices[0]
-    label = f"train grads ({TRAIN_MICRO}, {TRAIN_SEQ}) bf16 mesh"
     pal = dataclasses.replace(cfg, attn_impl="pallas", dtype="bfloat16")
     xla = dataclasses.replace(pal, attn_impl="xla")
-    half = dataclasses.replace(xla, attn_chunk_k=xla.attn_chunk_k // 2)
-    micro = train_batch(cfg, TRAIN_MICRO, 0, dev)
+    micro = train_batch(cfg, TRAIN_MICRO, 0, dev, seq)
     gx, _ = probe_grads(xla, master, micro)
-    gf, _ = probe_grads(half, master, micro)
+    gf, _ = probe_grads(reordered(pal), master, micro)
     floor = grad_errors(gf, gx)
-    del gf, gx
-    g1, _ = probe_grads(pal, master, micro)
-    rules = make_rules(pal, mesh, ShapeSpec("train", TRAIN_SEQ, TRAIN_MICRO,
+    del gf
+    L = k7_calls(cfg) * mesh.size
+    if L:
+        del gx
+        g1, _ = probe_grads(pal, master, micro)
+    else:                        # no attention: "pallas" runs xla's code
+        g1 = gx
+    rules = make_rules(pal, mesh, ShapeSpec("train", seq, TRAIN_MICRO,
                                             "train"))
     sm = shard_params(master, M.param_specs(cfg), rules)
     peaks_gb(mesh, reset=True)
@@ -3816,21 +3869,22 @@ def mesh_grads(cfg, master, mesh, by_path) -> dict:
         wall = time.perf_counter() - t
         by_path[label] = c
         peak = peaks_gb(mesh)
-        del gm
-        with k7_held() as fwd, k7_bwd_held() as bwd:   # the same step again
-            gm, _ = probe_grads(pal, sm, micro)
+        fwd = bwd = ()
+        if L:
+            del gm
+            with k7_held() as fwd, k7_bwd_held() as bwd:   # the step again
+                gm, _ = probe_grads(pal, sm, micro)
     del sm
     gm = gather_params(gm, dev)
     sound = grad_errors(gm, g1)
     del gm, g1
     torch.cuda.empty_cache()
     limit = max(TRAIN_GRAD_RTOL["bfloat16"], 2 * floor["max"])
-    L = k7_calls(cfg) * mesh.size
     k7 = k7_verdict(label, fwd, bwd)
     info = dict(wall_s=wall, grads=sound, floor=floor, limit=limit,
                 launches=nonzero(c), k7=k7, peak_gb=peak)
-    log(f"  {label} on {mesh}: {wall:.3f} s, grads (a second run, every "
-        f"K7 call held) vs one device " + json.dumps(sound) + f" (limit "
+    log(f"  {label} on {mesh}: {wall:.3f} s, grads (every K7 call held) "
+        f"vs one device " + json.dumps(sound) + f" (limit "
         f"{limit:.3g}, floor " + json.dumps(floor) + "), launches "
         f"{nonzero(c)}, K7 " + json.dumps(k7) + ", peak GB by card "
         + json.dumps(peak))
@@ -3975,6 +4029,303 @@ def lm_mesh_path(dev, by_path, train):
     torch.cuda.empty_cache()
     info["wall_s"] = time.perf_counter() - t_phase
     log(f"  [lm mesh] {info['wall_s']:.1f} s on {mesh}")
+    return info
+
+
+# ---------------------------------------------------------------------------
+# phase 4 (the hybrid and ssm families on a mesh): zamba2-7b and xlstm-1.3b
+# split over ``model`` (a device its SSM / xLSTM heads, the shared block's
+# attention heads), every visible card or REHEARSAL_SHARDS shards of one,
+# each drive held against the same call on one device
+# ---------------------------------------------------------------------------
+
+HYBRID_MESH_MODEL = 4
+# zamba2-7b at 12 of its 81 layers: two applications of the shared block
+# (K7 at hd 112, 8 of its 32 heads a device at model=4)
+ZAMBA_MESH_LAYERS = 12
+ZAMBA_MESH_PREFILL = (1, 4_096)
+# the served loop: 3 slots do not divide data=2, so the shared block's KV
+# caches split over their sequence on every axis (flash-decode); data > 1
+# needs model=2 on four devices
+ZAMBA_MESH_SERVE_MODEL = 2
+ZAMBA_MESH_SERVE = dict(slots=3, requests=4, prompt_len=8, max_new=8,
+                        max_seq=64)
+# the AdamW step's layout: data=2 x model=2
+ZAMBA_MESH_STEP_MODEL = 2
+# xlstm-1.3b at 8 of its 48 layers: 7 mLSTM blocks and 1 sLSTM block
+XLSTM_MESH_LAYERS = 8
+XLSTM_MESH_SEQ = 1_024
+
+
+def hybrid_serve(cfg, params, dev, by_path) -> dict:
+    """``serve_lm`` (ZAMBA_MESH_SERVE, prompts from seed 0) on a mesh with
+    ZAMBA_MESH_SERVE_MODEL on its model axis, under the served shape's
+    ``make_rules`` (the cache's sequence split), against the same loop
+    on one device, every decode call's logits recorded:
+    ``served_against``."""
+    import numpy as np
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.layers import shard_params
+    from repro_torch.sharding.auto import make_rules
+    from repro_torch.sharding.axes import use_rules
+    a = ZAMBA_MESH_SERVE
+    mesh, _ = lm_mesh(dev, ZAMBA_MESH_SERVE_MODEL)
+    rules = make_rules(cfg, mesh, ShapeSpec("serve", a["max_seq"],
+                                            a["slots"], "decode"))
+    require(rules.table["cache_seq"] == ("data", "model"),
+            f"zamba2-7b serve mesh: cache_seq {rules.table['cache_seq']}")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, (a["prompt_len"],))
+               .astype(np.int32) for _ in range(a["requests"])]
+    kw = dict(slots=a["slots"], max_new=a["max_new"], max_seq=a["max_seq"])
+    label = f"zamba2-7b serve mesh {mesh.shape}"
+    sp = shard_params(params, M.param_specs(cfg), rules)
+    peaks_gb(mesh, reset=True)
+    reset_counters()
+    with decode_logits() as calls_m, use_rules(rules):
+        out = serve_lm(cfg, sp, prompts, **kw)
+    by_path[label] = c = counters()
+    peak = peaks_gb(mesh)
+    del sp
+    with decode_logits() as calls_1:
+        one = serve_lm(cfg, params, prompts, **kw)
+    cmp = served_against(calls_1, calls_m, resets=False)
+    info = {k: out[k] for k in ("tokens", "steps", "decode_calls", "wall_s",
+                                "tok_per_s")}
+    info.update(mesh=mesh.shape, one_device_wall_s=one["wall_s"],
+                streams_equal=sum(out["outputs"][r] == one["outputs"][r]
+                                  for r in one["outputs"]),
+                against_one_device=cmp, peak_gb=peak)
+    log(f"  {label}: " + json.dumps(info) + f", launches {nonzero(c)} "
+        f"(limits: rel {LM_LOGIT_RTOL}, a pick's gap {LM_LOGIT_TOL})")
+    require(out["tokens"] == one["tokens"] and len(calls_m) == len(calls_1)
+            and all(len(out["outputs"][r]) == len(v)
+                    for r, v in one["outputs"].items()),
+            f"{label}: {out['tokens']} tokens, {len(calls_m)} calls "
+            f"against {one['tokens']}, {len(calls_1)}")
+    require(not any(c.values()), f"{label}: launches {nonzero(c)}")
+    require(cmp["rel"] <= LM_LOGIT_RTOL and all(
+        g["one"] <= LM_LOGIT_TOL and g["mesh"] <= LM_LOGIT_TOL
+        for g in cmp["picks_differ"]),
+            f"{label}: decode logits differ from one device: {cmp}")
+    return info
+
+
+def hybrid_adamw(cfg, dev, by_path) -> dict:
+    """One AdamW step, ``accum=TRAIN_ACCUM`` on (TRAIN_MICRO x TRAIN_ACCUM,
+    TRAIN_SEQ), on one device and on a mesh with ZAMBA_MESH_STEP_MODEL on
+    its model axis (data=2 x model=2 on four devices), the same weights
+    (seed 0) and batch: the mesh step's K7 calls each held against their
+    plain versions, its loss within LM_MESH_LOSS_RTOL and its grad norm
+    within TRAIN_GRAD_RTOL of one device's (relative); walls, K7 launches
+    and peak memory by card."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.layers import init_params, shard_params
+    from repro_torch.sharding.auto import make_rules
+    from repro_torch.sharding.axes import use_rules
+    from repro_torch.training.optimizer import adamw
+    from repro_torch.training.step import make_train_step
+    B = TRAIN_MICRO * TRAIN_ACCUM
+    specs = M.param_specs(cfg)
+    batch = train_batch(cfg, B, 0, dev)
+    opt = adamw(peak_lr=3e-4, warmup=1, total_steps=2)
+    step = make_train_step(cfg, opt, accum=TRAIN_ACCUM)
+
+    def run(params, rules, held):
+        state = opt.init(params)
+        torch.cuda.empty_cache()
+        sync_cards(mesh)
+        reset_counters()
+        t = time.perf_counter()
+        with use_rules(rules), \
+                (k7_held() if held else contextlib.nullcontext()) as fwd, \
+                (k7_bwd_held() if held else contextlib.nullcontext()) as bwd:
+            _, _, m = step(params, state, batch)
+        sync_cards(mesh)
+        return (dict(wall_s=time.perf_counter() - t, loss=float(m["loss"]),
+                     grad_norm=float(m["grad_norm"])), counters(), fwd, bwd)
+
+    mesh, _ = lm_mesh(dev, ZAMBA_MESH_STEP_MODEL)
+    peaks_gb(mesh, reset=True)
+    one, c1, _, _ = run(init_params(specs, 0, device=dev), None, False)
+    one["peak_gb"] = peaks_gb(mesh, reset=True)
+    label = f"zamba2-7b train ({B}, {TRAIN_SEQ}) accum={TRAIN_ACCUM} mesh " \
+            f"{mesh.shape}"
+    rules = make_rules(cfg, mesh, ShapeSpec("train", TRAIN_SEQ, B, "train"))
+    got, c, fwd, bwd = run(shard_params(init_params(specs, 0, device=dev),
+                                        specs, rules), rules, True)
+    by_path[label] = c
+    got["peak_gb"] = peaks_gb(mesh)
+    L = k7_calls(cfg) * mesh.size
+    want = (2 * L * TRAIN_ACCUM, L * TRAIN_ACCUM)
+    k7 = k7_verdict(label, fwd, bwd)
+    got["loss_rel"] = abs(got["loss"] - one["loss"]) / abs(one["loss"])
+    got["grad_norm_rel"] = (abs(got["grad_norm"] - one["grad_norm"])
+                            / one["grad_norm"])
+    info = dict(mesh=got, one_device=one, k7=k7, launches=nonzero(c),
+                one_device_launches=nonzero(c1))
+    log(f"  {label}: one AdamW step, every K7 call held, "
+        + json.dumps(info) + f" (limits: loss {LM_MESH_LOSS_RTOL}, grad "
+        f"norm {TRAIN_GRAD_RTOL['bfloat16']}, relative)")
+    require((c["flash_fwd"], c["flash_bwd_fused"]) == want
+            and sum(c.values()) == sum(want),
+            f"{label}: launches {nonzero(c)}, expected (fwd, fused) = "
+            f"{want}")
+    require(all(x == x and abs(x) != float("inf")
+                for x in (got["loss"], got["grad_norm"])), f"{label}: {got}")
+    require(got["loss_rel"] <= LM_MESH_LOSS_RTOL
+            and got["grad_norm_rel"] <= TRAIN_GRAD_RTOL["bfloat16"],
+            f"{label}: against one device {info}")
+    torch.cuda.empty_cache()
+    return info
+
+
+XLSTM_FP32_RTOL = 1e-4
+
+
+def xlstm_fp32_mesh(xcfg, mesh) -> dict:
+    """xlstm-1.3b's prefill (1, XLSTM_MESH_SEQ) in fp32 on ``mesh``
+    against the same forward on one device: ``logit_errors``' rel (the
+    max over positions of ||dlogit|| / ||logit||) within XLSTM_FP32_RTOL,
+    which holds the head split (each device's heads' ``up_proj``, conv,
+    ``wq`` / ``wk`` / ``wv`` and gate columns, the gates' and
+    ``down_proj``'s partial sums, the inner norm's sum of squares, the
+    sLSTM's heads) with no bf16 rounding in the way (beside it, logged,
+    the fp32 floor: one device against itself with its chunks halved,
+    ``reordered``); then a control,
+    the mesh's device 1 reading its neighbour head's input gate in every
+    mLSTM layer (a wrong head slice planted in ``_sum_fp32``'s result),
+    which the limit must flag (logged beside the bf16 prefill's
+    limit)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.layers import init_params, shard_params
+    from repro_torch.sharding.auto import make_rules
+    from repro_torch.sharding.axes import use_rules
+    cfg = dataclasses.replace(xcfg, dtype="float32", remat=False)
+    dev, S, H = mesh.devices[0], XLSTM_MESH_SEQ, cfg.n_heads
+    label = f"xlstm-1.3b prefill (1, {S}) fp32 mesh"
+    specs = M.param_specs(cfg)
+    params = init_params(specs, 0, device=dev)
+    toks = torch.randint(0, cfg.vocab, (1, S), device=dev,
+                         generator=torch.Generator(device=dev)
+                         .manual_seed(S + 2))
+    rules = make_rules(cfg, mesh, ShapeSpec("prefill", S, 1, "prefill"))
+    sp = shard_params(params, specs, rules)
+    real = M._sum_fp32
+
+    def planted(parts, r, axes, dtype):
+        out = real(parts, r, axes, dtype)
+        if out[1].shape[-1] == 2 * H:            # the gate pre-activations
+            out[1] = torch.cat([out[1][..., :H].roll(1, -1),
+                                out[1][..., H:]], dim=-1)
+        return out
+
+    t = time.perf_counter()
+    with torch.no_grad():
+        want = M.forward(cfg, params, toks)[0]
+        floor = logit_errors(M.forward(reordered(cfg), params, toks)[0],
+                             want)
+        with use_rules(rules):
+            sound = logit_errors(M.forward(cfg, sp, toks)[0], want)
+            M._sum_fp32 = planted
+            try:
+                control = logit_errors(M.forward(cfg, sp, toks)[0], want)
+            finally:
+                M._sum_fp32 = real
+    del params, sp, want
+    torch.cuda.empty_cache()
+    out = dict(sound=sound, floor=floor, control=control,
+               rtol=XLSTM_FP32_RTOL, wall_s=time.perf_counter() - t)
+    log(f"  {label} on {mesh}: against one device " + json.dumps(sound)
+        + f" (tol {XLSTM_FP32_RTOL}; the fp32 floor " + json.dumps(floor)
+        + "); control (device 1 reads its "
+        f"neighbour head's input gate): " + json.dumps(control)
+        + f", flagged {control['rel'] > XLSTM_FP32_RTOL}; {out['wall_s']:.1f}"
+        f" s")
+    require(sound["rel"] <= XLSTM_FP32_RTOL,
+            f"{label}: logits differ from one device: {sound} (tol "
+            f"{XLSTM_FP32_RTOL})")
+    require(control["rel"] > XLSTM_FP32_RTOL,
+            f"{label}: the planted head-slice fault passed: {control}")
+    return out
+
+
+def hybrid_ssm_mesh_path(dev, by_path):
+    """zamba2-7b at ZAMBA_MESH_LAYERS layers and xlstm-1.3b at
+    XLSTM_MESH_LAYERS, full width, random weights (seed 0), on a mesh of
+    every visible card or REHEARSAL_SHARDS shards of one: zamba2-7b's
+    prefill ZAMBA_MESH_PREFILL with K7 (``mesh_prefill``, the families'
+    limits: twice the floor where larger), the served loop with the KV
+    caches' sequence split (``hybrid_serve``), the bf16 grads
+    (``mesh_grads``) at model=HYBRID_MESH_MODEL and one AdamW step at
+    data=2 x model=2 (``hybrid_adamw``); xlstm-1.3b's prefill (1,
+    XLSTM_MESH_SEQ) and grads (TRAIN_MICRO, XLSTM_MESH_SEQ) at
+    model=HYBRID_MESH_MODEL, and its prefill in fp32
+    (``xlstm_fp32_mesh``).  Each drive is held against the same call
+    on one device, every K7 call of the held drives against its plain
+    version by card; walls, K7 launches and peak memory by card."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import init_params
+    t_phase = time.perf_counter()
+    mesh, _ = lm_mesh(dev, HYBRID_MESH_MODEL)
+    info = {"mesh": str(mesh)}
+    zcfg = dataclasses.replace(configs.get_config("zamba2-7b"), remat=True,
+                               attn_impl="pallas",
+                               n_layers=ZAMBA_MESH_LAYERS)
+    log(f"  hybrid / ssm mesh {mesh} ({len(cards(mesh))} card(s)); "
+        f"zamba2-7b at {zcfg.n_layers} layers, {zcfg.n_params():,} params")
+    t = time.perf_counter()
+    master = init_params(M.param_specs(zcfg), 0, device=dev)
+    params = M.cast_params(zcfg, master)
+    B, S = ZAMBA_MESH_PREFILL
+    info["zamba_prefill"] = mesh_prefill(
+        zcfg, params, mesh, B, S, f"zamba2-7b prefill ({B}, {S}) pallas mesh",
+        by_path, seed=S + B, floor=True)
+    torch.cuda.empty_cache()
+    info["zamba_serve"] = hybrid_serve(zcfg, params, dev, by_path)
+    del params
+    torch.cuda.empty_cache()
+    info["zamba_grads"] = mesh_grads(
+        zcfg, master, mesh, by_path,
+        label=f"zamba2-7b train grads ({TRAIN_MICRO}, {TRAIN_SEQ}) bf16 "
+              f"mesh")
+    del master
+    torch.cuda.empty_cache()
+    info["zamba_step"] = hybrid_adamw(zcfg, dev, by_path)
+    info["zamba_wall_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    xcfg = dataclasses.replace(configs.get_config("xlstm-1.3b"), remat=True,
+                               n_layers=XLSTM_MESH_LAYERS)
+    log(f"  xlstm-1.3b at {xcfg.n_layers} layers, {xcfg.n_params():,} "
+        f"params")
+    master = init_params(M.param_specs(xcfg), 0, device=dev)
+    params = M.cast_params(xcfg, master)
+    info["xlstm_prefill"] = mesh_prefill(
+        xcfg, params, mesh, 1, XLSTM_MESH_SEQ,
+        f"xlstm-1.3b prefill (1, {XLSTM_MESH_SEQ}) mesh", by_path,
+        seed=XLSTM_MESH_SEQ + 1, floor=True)
+    del params
+    torch.cuda.empty_cache()
+    info["xlstm_grads"] = mesh_grads(
+        xcfg, master, mesh, by_path, seq=XLSTM_MESH_SEQ,
+        label=f"xlstm-1.3b train grads ({TRAIN_MICRO}, {XLSTM_MESH_SEQ}) "
+              f"bf16 mesh")
+    del master
+    torch.cuda.empty_cache()
+    info["xlstm_fp32_prefill"] = xlstm_fp32_mesh(xcfg, mesh)
+    info["xlstm_wall_s"] = time.perf_counter() - t
+    info["wall_s"] = time.perf_counter() - t_phase
+    log(f"  [hybrid ssm mesh] {info['wall_s']:.1f} s on {mesh} (zamba2-7b "
+        f"{info['zamba_wall_s']:.1f} s, xlstm-1.3b "
+        f"{info['xlstm_wall_s']:.1f} s)")
     return info
 
 
@@ -5031,6 +5382,7 @@ def main() -> int:
     train = train_path(dev, by_path)
     ftrain = families_train_path(dev, by_path)
     lm_mesh_path(dev, by_path, train)
+    hybrid_ssm_mesh_path(dev, by_path)
     log(f"[main] {time.perf_counter() - t0:.1f} s, launches by path "
         f"{json.dumps({k: nonzero(c) for k, c in by_path.items()})}")
     t0 = time.perf_counter()

@@ -21,15 +21,16 @@ loop:
   data-parallel FSDP over all of them; on one device the step runs as it
   always did.
 
-Every family trains: the data source's batches carry the audio family's
-codebook tokens and the vlm family's ``patch_emb`` rows to the device with
-the tokens and labels (the hybrid and ssm families on a data-only mesh:
-their model axis is ROADMAP Queue 1 item 12e).
+Every family trains, on one device or a mesh: the data source's batches
+carry the audio family's codebook tokens and the vlm family's
+``patch_emb`` rows to the device with the tokens and labels.
 
 Usage (on the card):
   python -m repro_torch.launch.train --arch qwen3-1.7b --smoke --steps 100
   python -m repro_torch.launch.train --arch zamba2-7b --smoke --steps 100
   python -m repro_torch.launch.train --arch qwen3-1.7b --smoke \
+      --model-parallel 2
+  python -m repro_torch.launch.train --arch zamba2-7b --smoke \
       --model-parallel 2
 """
 from __future__ import annotations
@@ -65,7 +66,6 @@ def build(cfg, mesh, shape, *, accum: int, lr: float, steps: int):
     rules = p_shard = None
     if mesh.size > 1:
         rules = make_rules(cfg, mesh, shape)
-        M._mesh_family(cfg, rules)          # raise before any restore
         p_shard = {k: named_sharding(s.logical, rules)
                    for k, s in specs.items()}
     opt = adamw(peak_lr=lr, total_steps=steps, warmup=max(steps // 20, 1))

@@ -90,6 +90,21 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
     return ((x32 * torch.rsqrt(var + eps)) * scale.float()).to(x.dtype)
 
 
+def rms_norm_split(x: torch.Tensor, ss: torch.Tensor, n: int,
+                   scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """``rms_norm`` of one device's part x (..., w) of a last dim of ``n``
+    split over devices: ``ss`` (..., 1) is the fp32 sum of squares over
+    every part (an all-reduce), ``scale`` this part's."""
+    return ((x.float() * torch.rsqrt(ss / n + eps)) * scale.float()
+            ).to(x.dtype)
+
+
+def sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """The fp32 sum of squares over the last dim, kept: (..., 1)."""
+    x32 = x.float()
+    return torch.sum(x32 * x32, dim=-1, keepdim=True)
+
+
 def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
            w2: torch.Tensor) -> torch.Tensor:
     """SwiGLU MLP. x (..., d); w1/w3 (d, f); w2 (f, d).  ``w3`` is the

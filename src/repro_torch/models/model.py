@@ -52,12 +52,27 @@ of ``sharding/collectives.py`` between them:
   the sequence for all heads (q, k, v gathered over ``model``) and the
   chunks merge by logsumexp.
 
+* hybrid and ssm: a device runs whole heads of every recurrent block,
+  ``p_inner`` / ``act_inner`` split over ``model`` (``_inner``): the
+  columns of a split projection its heads read are taken, a layer at a
+  time and inside the layer's remat frame, from the shards that hold
+  them (``Shards.take``: Mamba2's z / x / dt columns and the shared
+  B / C, which ``in_proj``'s flat split does not align with the heads;
+  the mLSTM's P x P blocks); a norm over the whole d_inner takes its
+  sum of squares all-reduced, the mLSTM's gate pre-activations (a sum
+  over d_inner) are all-reduced, the sLSTM's heads' outputs all-gathered
+  before its norm over d, and ``out_proj`` / ``down_proj`` sum their
+  partial products like ``wo`` (the xLSTM's sums in fp32, rounded once:
+  ``_sum_fp32``); the hybrid's shared block splits as the attention
+  families'.  At decode a device reads and writes its heads'
+  state; the Mamba2 conv cache stays split over d_inner + 2N as the
+  reference's (each device takes its channels and puts them back), the
+  xLSTM's state is laid out over its heads (``mesh_cache_axes``;
+  ROADMAP Queue 3).
+
 The ``act_seq`` dim stays whole (the reference shards it, Megatron
 sequence parallelism; ROADMAP Queue 3), so the :234 ``q`` site and the
-activations inside a device's share need no layout change.  The hybrid
-and ssm families run on a mesh with ``model`` of 1 only (each device
-its batch rows with the weights gathered whole); their model axis is
-ROADMAP Queue 1 item 12e.
+activations inside a device's share need no layout change.
 
 Weights are cast to ``cfg.dtype`` at use, as in the reference
 (``w.astype(x.dtype)``); ``cast_params`` does that cast once for a caller
@@ -75,20 +90,23 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.kernels.dispatch import check_device
 from repro_torch.models.attention import (combine_partials, decode_attention,
                                           decode_partial, flash_attention)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import ParamSpec, apply_rope, rms_norm, swiglu
+from repro_torch.models.layers import (ParamSpec, apply_rope, rms_norm,
+                                       rms_norm_split, sum_squares, swiglu)
 from repro_torch.models.moe import moe_aux, moe_ffn
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding.axes import (NamedSharding, constrain, leaf_like,
                                        leaf_parts, mesh_rules, named_sharding,
                                        use_rules)
-from repro_torch.models.ssm import mamba2_block
-from repro_torch.models.xlstm import mlstm_block, slstm_block
+from repro_torch.models.ssm import mamba2_block, mamba2_cols, mamba2_mix
+from repro_torch.models.xlstm import (mlstm_block, mlstm_proj, mlstm_scan,
+                                      slstm_block, slstm_cells, slstm_up)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # the families of pre-norm attention blocks with a KV cache a layer
@@ -600,12 +618,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                device="cuda") -> dict:
     """The decode cache, all zeros, on ``device``.  Under mesh rules each
     leaf is a list with one part a device: its shard of the leaf under
-    ``cache_logical_axes``, zeros on that device."""
+    ``mesh_cache_axes``, zeros on that device."""
     r = mesh_rules()
     specs = cache_specs(cfg, batch, max_seq)
     if r is not None:
-        _mesh_family(cfg, r)
-        axes = cache_logical_axes(cfg)
+        if cfg.family in ("hybrid", "ssm"):
+            _inner(cfg, r)
+        axes = mesh_cache_axes(cfg)
         out = {}
         for name, (shape, dt) in specs.items():
             sh = named_sharding(axes[name], r)
@@ -718,15 +737,6 @@ def _ax(entry) -> tuple[str, ...]:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
-def _mesh_family(cfg: ModelConfig, r) -> None:
-    """Raise where the port does not run ``cfg`` on the rules' mesh."""
-    if cfg.family not in _ATTN_FAMILIES and r.mesh.shape["model"] > 1:
-        raise NotImplementedError(
-            f"the {cfg.family} family on a mesh with model="
-            f"{r.mesh.shape['model']}: its model axis is ROADMAP Queue 1 "
-            f"item 12e (a data-only mesh, model=1, runs)")
-
-
 def _local_shape(sh: NamedSharding, shape, k: int) -> tuple[int, ...]:
     return tuple(x.stop - x.start
                  for x in sh.slices(shape, sh.mesh.coords(k)))
@@ -774,6 +784,46 @@ def _local_cfg(cfg: ModelConfig, r) -> ModelConfig:
                                n_kv=cfg.n_kv // mk, head_dim=cfg.hd)
 
 
+def _inner(cfg: ModelConfig, r) -> tuple[tuple[str, ...], int]:
+    """(axes, heads a device) of the hybrid's SSM heads or the ssm
+    family's heads, split over ``p_inner``'s axes (``act_inner``'s, the
+    same in every table): a device runs whole heads.  Where the axes do
+    not divide the heads (xlstm-1.3b's 4 at model=8 or 16, which the
+    reference runs by splitting P) it raises: ROADMAP item 12f."""
+    heads = cfg.ssm_heads if cfg.family == "hybrid" else cfg.n_heads
+    ax = _ax(r.table.get("p_inner"))
+    n = r.mesh.shape_of(ax)
+    if _ax(r.table.get("act_inner")) != ax or heads % n:
+        raise NotImplementedError(
+            f"{cfg.name}: {heads} heads over p_inner {ax} ({n} ways), "
+            f"act_inner {r.table.get('act_inner')}: the port splits whole "
+            f"heads over one layout (ROADMAP item 12f)")
+    return ax, heads // n
+
+
+def _heads(mesh, k: int, ax, hl: int) -> tuple[int, int]:
+    """The heads [h0, h1) device ``k`` runs, ``hl`` a device over
+    ``ax``."""
+    h0 = _chunk(mesh, k, ax) * hl
+    return h0, h0 + hl
+
+
+def mesh_cache_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of every cache leaf on a mesh: the reference's
+    (``cache_logical_axes``) but the ssm family's recurrent state, laid
+    out over its heads (``act_inner``) where the reference splits the
+    mLSTM's P and replicates the rest (ROADMAP Queue 3): a device runs
+    whole heads and reads and writes only its own state."""
+    axes = cache_logical_axes(cfg)
+    if cfg.family == "ssm":
+        heads = (None, "cache_batch", "act_inner")
+        axes.update(mC=heads + (None, None), mn=heads + (None,), mm=heads)
+        if cfg.slstm_every:
+            for nm in ("sc", "sn", "sm", "sh"):
+                axes[nm] = heads + (None,)
+    return axes
+
+
 def _mesh_layers(params: dict, prefix: str, n: int) -> list[dict]:
     rows = {k: v.unbind0() for k, v in _subtree(params, prefix).items()}
     return [{k: r[i] for k, r in rows.items()} for i in range(n)]
@@ -781,6 +831,19 @@ def _mesh_layers(params: dict, prefix: str, n: int) -> list[dict]:
 
 def _views(p: dict, k: int, gather) -> dict:
     return {name: leaf.local(k, gather) for name, leaf in p.items()}
+
+
+def _remat(cfg: ModelConfig, fn, k: int, *args):
+    """``fn(k, *args)``, device ``k``'s share of a sub-block, under
+    ``torch.utils.checkpoint`` when ``cfg.remat`` and grad are on: one
+    frame a device and sub-block, since the backward runs a thread a
+    device and one frame recomputed from two threads would race.  The
+    weights ``fn`` gathers are gathered inside the frame, so they are
+    freed after use and gathered again in the backward."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(
+            fn, k, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(k, *args)
 
 
 def _mesh_embed(cfg: ModelConfig, params: dict, toks: list, r, dtype,
@@ -847,6 +910,349 @@ def _batch_mean(xs: list, r) -> torch.Tensor:
     return tot / len(reps)
 
 
+# ---- the sub-blocks, every device's share -------------------------------
+
+def _mesh_attn(cfg, lc, r, ap, xs, pos, gather) -> list:
+    """Prefill attention (pre-norm residual): a device runs its heads
+    (``lc``, its K7 calls on them) and ``wo``'s partial sums are
+    all-reduced."""
+    def attn(k, x):
+        with use_rules(None):
+            return _attn_apply(lc, _views(ap, k, gather), x, pos[k])
+    outs = [_remat(cfg, attn, k, x) for k, x in enumerate(xs)]
+    red = C.all_reduce(outs, r.mesh, _ax(ap["wo"].sharding.spec[0]))
+    return [x + o for x, o in zip(xs, red)]
+
+
+def _mesh_ffn(cfg, lc, r, fp, xs, gather) -> tuple[list, torch.Tensor]:
+    """The FFN sub-block (pre-norm residual): a device runs its ff
+    columns or its experts and the outputs are all-reduced; the moe
+    family's load-balance aux over the whole batch (else None)."""
+    def mlp(k, x):
+        with use_rules(None):
+            return _mlp_apply(lc, _views(fp, k, gather), x)
+
+    def moe(k, x):
+        with use_rules(None):
+            return _moe_apply(lc, _views(fp, k, gather), x,
+                              experts=_experts(fp, k), stats=True)
+    aux = None
+    if cfg.is_moe:
+        outs, stats = zip(*[_remat(cfg, moe, k, x)
+                            for k, x in enumerate(xs)])
+        aux = moe_aux(_batch_mean([s[0] for s in stats], r),
+                      _batch_mean([s[1] for s in stats], r), cfg.top_k)
+    else:
+        outs = [_remat(cfg, mlp, k, x) for k, x in enumerate(xs)]
+    red = C.all_reduce(list(outs), r.mesh, _ax(fp["w2"].sharding.spec[0]))
+    return [x + o for x, o in zip(xs, red)], aux
+
+
+def _mesh_attn_decode(r, lc, ap, xs, poss, kcs, vcs, gather) -> list:
+    """One-token attention (pre-norm residual) on every device; ``kcs`` /
+    ``vcs``: each device's part of this layer's KV cache, written in
+    place.  With ``act_kv`` split a device attends over its kv heads;
+    with ``cache_seq`` split every device attends over its chunk of the
+    sequence for all heads (q, k, v gathered over the head axes) and the
+    chunks merge by logsumexp (flash-decode)."""
+    mesh, n = r.mesh, r.mesh.size
+    seq_ax = _ax(r.table.get("cache_seq"))
+    head_ax = _ax(r.table["p_heads"])
+    local_heads = r.table.get("act_kv") is not None \
+        or mesh.shape_of(head_ax) == 1
+    n_seq = mesh.shape_of(seq_ax)
+    with use_rules(None):
+        qkv = [_qkv_decode(lc, _views(ap, k, gather), xs[k], poss[k])
+               for k in range(n)]
+    if not local_heads:                       # every head on every device
+        qkv = list(zip(*(C.all_gather(list(t), mesh, head_ax, dim=1)
+                         for t in zip(*qkv))))
+    outs = []
+    with use_rules(None):
+        for k in range(n):
+            q, kk, v = qkv[k]
+            kc, vc = kcs[k], vcs[k]
+            off = _chunk(mesh, k, seq_ax) * kc.shape[1]
+            _cache_write(kc, vc, kk, v, poss[k], off, kc.shape[1] * n_seq)
+            outs.append(decode_attention(q, kc, vc, poss[k])
+                        if n_seq == 1 else
+                        decode_partial(q, kc, vc, poss[k], off))
+    if n_seq > 1:                             # flash-decode's combine
+        outs = [combine_partials([tuple(t.to(mesh.devices[k])
+                                        for t in outs[j])
+                                  for j in mesh.group(k, seq_ax)],
+                                 qkv[k][0].dtype) for k in range(n)]
+    with use_rules(None):
+        for k in range(n):
+            o = outs[k].reshape(outs[k].shape[0], -1)
+            wo = ap["wo"].local(k, gather)
+            if not local_heads:               # this device's rows of wo
+                r0 = _offset(ap["wo"], 0, k)
+                o = o[:, r0:r0 + wo.shape[0]]
+            outs[k] = o @ wo.to(o.dtype)
+    red = C.all_reduce(outs, mesh, _ax(ap["wo"].sharding.spec[0]))
+    return [x + o for x, o in zip(xs, red)]
+
+
+def _mesh_ffn_decode(cfg, lc, r, fp, xs, gather) -> list:
+    """The FFN sub-block on one token a slot, every device's share."""
+    with use_rules(None):
+        outs = [_ffn_decode(lc, _views(fp, k, gather), x,
+                            **(dict(experts=_experts(fp, k))
+                               if cfg.is_moe else {}))
+                for k, x in enumerate(xs)]
+    red = C.all_reduce(outs, r.mesh, _ax(fp["w2"].sharding.spec[0]))
+    return [x + o for x, o in zip(xs, red)]
+
+
+def _mesh_mamba(cfg, r, lp, xs, gather, cache=None, i=None) -> list:
+    """One Mamba2 layer (pre-norm residual) on every device: a device
+    runs its SSM heads (``_inner``): the columns of ``in_proj`` and
+    ``conv_w`` they read (their z, x and dt, the shared B / C whole;
+    ``ssm.mamba2_cols``) taken from the shards that hold them, their
+    conv channels, chunked SSD and state; the gated RMSNorm over the
+    whole d_inner takes its sum of squares all-reduced over the heads'
+    axes, and ``out_proj``'s partial sums are all-reduced.  With
+    ``cache`` (decode) layer ``i``'s state is read and written in place:
+    ``ssm_h`` a device's own heads, the conv cache (split over d_inner +
+    2N as the reference's, not by heads) its columns taken from the
+    devices that hold them and put back after every device has read."""
+    mesh, n = r.mesh, r.mesh.size
+    ax, hl = _inner(cfg, r)
+    cols = [mamba2_cols(cfg, *_heads(mesh, k, ax, hl)) for k in range(n)]
+    decode = cache is not None
+    convs = [c[i] for c in cache["conv"]] if decode else None
+
+    def mix(k, x):
+        h0, h1 = _heads(mesh, k, ax, hl)
+        with use_rules(None):
+            p = {"in_proj": lp["in_proj"].take(k, 1, cols[k]["in_proj"],
+                                               gather),
+                 "conv_w": lp["conv_w"].take(k, 1, cols[k]["conv_w"],
+                                             gather)}
+            for nm in ("a_log", "dt_bias", "d_skip"):
+                p[nm] = lp[nm].take(k, 0, [(h0, h1)], gather)
+            st = None
+            if decode:
+                st = (cache["ssm_h"][k][i],
+                      C.take(convs, mesh, k, ax, 2, cols[k]["conv_w"]))
+            y, st = mamba2_mix(
+                rms_norm(x, lp["norm"].local(k, gather), cfg.norm_eps), p,
+                cfg, state=st, decode=decode)
+        return (y, sum_squares(y)) + ((st,) if decode else ())
+
+    def out(k, y, ss):
+        with use_rules(None):
+            s = lp["norm_inner"].take(k, 0, cols[k]["inner"], gather)
+            w = lp["out_proj"].take(k, 0, cols[k]["inner"], gather)
+            y = rms_norm_split(y, ss, cfg.d_inner, s, cfg.norm_eps)
+            return y @ w.to(y.dtype)
+
+    mixed = [_remat(cfg, mix, k, x) for k, x in enumerate(xs)]
+    if decode:                         # every device has read: write back
+        for k, (_, _, (sh, cv)) in enumerate(mixed):
+            cache["ssm_h"][k][i].copy_(sh)
+            own = cols[k]["conv_w"]          # its x channels, then B / C
+            if mesh.group(k, ax)[0] != k:    # B / C: the group's first
+                own = own[:1]
+            C.put(convs, mesh, k, ax, 2, own,
+                  cv[..., :sum(b - a for a, b in own)])
+    tot = C.all_reduce([m[1] for m in mixed], mesh, ax)
+    outs = [_remat(cfg, out, k, m[0], t)
+            for k, (m, t) in enumerate(zip(mixed, tot))]
+    red = C.all_reduce(outs, mesh, ax)
+    return [x + o for x, o in zip(xs, red)]
+
+
+def _fp32_partial(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One device's part of a product over a split dim, ``h @ w`` with
+    ``w`` in h's dtype, computed and kept in fp32 (``_sum_fp32``)."""
+    return h.float() @ w.to(h.dtype).float()
+
+
+def _sum_fp32(parts: list, r, axes, dtype) -> list:
+    """Parts of a product summed over ``axes`` in fp32 and rounded to
+    ``dtype`` once, as one device's product rounds its fp32 accumulation
+    once.  The xLSTM blocks sum their partial products so: their
+    exponential gates amplify the rounding of every bf16 part (PERF.md
+    §6 has the logits on the card both ways)."""
+    return [x.to(dtype) for x in C.all_reduce(parts, r.mesh, axes)]
+
+
+def _mesh_mlstm(cfg, r, lp, xs, gather, state=None) -> tuple[list, list]:
+    """One mLSTM layer (pre-norm residual) on every device: a device runs
+    its heads (``_inner``): its ``xm`` and ``z`` columns of ``up_proj``,
+    its conv channels, its heads' ``wq`` / ``wk`` / ``wv`` blocks (P
+    whole, where the reference splits it: ROADMAP Queue 3) taken from
+    the shards that hold them; the gate pre-activations ``c @ wi`` /
+    ``c @ wf`` sum over all of d_inner, so each device's partial sums
+    are summed over the heads' axes, as ``down_proj``'s are
+    (``_sum_fp32``); ``norm_inner`` takes its sum of squares
+    all-reduced.  ``state``: each device's ((C, n, m), conv) for decode.
+    Returns (xs, new states)."""
+    mesh, n = r.mesh, r.mesh.size
+    ax, hl = _inner(cfg, r)
+    H = cfg.n_heads
+    di = cfg.mlstm_proj * cfg.d_model
+    P = di // H
+    decode = state is not None
+    hs = [_heads(mesh, k, ax, hl) for k in range(n)]
+    inner = [[(h0 * P, h1 * P)] for h0, h1 in hs]
+
+    def proj(k, x):
+        (h0, h1), ch = hs[k], inner[k]
+        with use_rules(None):
+            p = {"up_proj": lp["up_proj"].take(
+                     k, 1, ch + [(di + h0 * P, di + h1 * P)], gather),
+                 "conv_w": lp["conv_w"].take(k, 1, ch, gather),
+                 "wi": lp["wi"].take(k, 0, ch, gather),
+                 "wf": lp["wf"].take(k, 0, ch, gather)}
+            for nm in ("wq", "wk", "wv"):
+                p[nm] = lp[nm].take(k, 1, [(0, P)], gather,
+                                    index={0: slice(h0, h1)})
+            q, kk, v, i_pre, f_pre, z, cv = mlstm_proj(
+                rms_norm(x, lp["norm"].local(k, gather), cfg.norm_eps), p,
+                conv_cache=state[k][1] if decode else None, decode=decode,
+                gate_dtype=torch.float32)
+        return (q, kk, v, torch.cat([i_pre, f_pre], dim=-1), z) + (
+            (cv,) if decode else ())
+
+    def scan(k, q, kk, v, g):
+        h0, h1 = hs[k]
+        h, ms = mlstm_scan(q, kk, v, g[..., h0:h1], g[..., H + h0:H + h1],
+                           cfg, state=state[k][0] if decode else None,
+                           decode=decode)
+        return (h, sum_squares(h)) + ((ms,) if decode else ())
+
+    def out(k, h, ss, z):
+        with use_rules(None):
+            s = lp["norm_inner"].take(k, 0, inner[k], gather)
+            w = lp["down_proj"].take(k, 0, inner[k], gather)
+            h = rms_norm_split(h, ss, di, s, cfg.norm_eps) * F.silu(z)
+            return _fp32_partial(h, w)
+
+    pr = [_remat(cfg, proj, k, x) for k, x in enumerate(xs)]
+    gates = _sum_fp32([t[3] for t in pr], r, ax, xs[0].dtype)
+    sc = [_remat(cfg, scan, k, *t[:3], g)
+          for k, (t, g) in enumerate(zip(pr, gates))]
+    tot = C.all_reduce([t[1] for t in sc], mesh, ax)
+    outs = [_remat(cfg, out, k, t[0], ss, p[4])
+            for k, (t, ss, p) in enumerate(zip(sc, tot, pr))]
+    red = _sum_fp32(outs, r, ax, xs[0].dtype)
+    new = [(t[2], p[5]) for t, p in zip(sc, pr)] if decode else None
+    return [x + o for x, o in zip(xs, red)], new
+
+
+def _mesh_slstm(cfg, r, lp, xs, gather, state=None) -> tuple[list, list]:
+    """One sLSTM layer (pre-norm residual) on every device: a device runs
+    its heads' recurrence (their ``w_gates`` columns, head-major, and
+    ``r_gates`` blocks) with no collective inside the time loop; ``y`` is
+    all-gathered over the heads before the RMSNorm over d, and ``up`` /
+    ``down`` split as ``p_ff`` (their partial sums ``_sum_fp32``).
+    ``state``: each device's (c, n, m, h) for decode.  Returns (xs, new
+    states)."""
+    mesh, n = r.mesh, r.mesh.size
+    ax, hl = _inner(cfg, r)
+    dh = cfg.d_model // cfg.n_heads
+    decode = state is not None
+    hs = [_heads(mesh, k, ax, hl) for k in range(n)]
+
+    def cells(k, x):
+        h0, h1 = hs[k]
+        with use_rules(None):
+            p = {"w_gates": lp["w_gates"].take(
+                     k, 1, [(h0 * dh * 4, h1 * dh * 4)], gather),
+                 "r_gates": lp["r_gates"].take(k, 0, [(h0, h1)], gather)}
+            return slstm_cells(
+                rms_norm(x, lp["norm"].local(k, gather), cfg.norm_eps), p,
+                state=state[k] if decode else None, decode=decode)
+
+    def ffn(k, y):
+        with use_rules(None):
+            p = _views({nm: lp[nm] for nm in ("ln", "up", "down")}, k,
+                       gather)
+            return _fp32_partial(slstm_up(y, p, cfg), p["down"])
+
+    ys, new = zip(*[_remat(cfg, cells, k, x) for k, x in enumerate(xs)])
+    ys = C.all_gather(list(ys), mesh, ax, dim=-1)
+    outs = [_remat(cfg, ffn, k, y) for k, y in enumerate(ys)]
+    red = _sum_fp32(outs, r, _ax(lp["down"].sharding.spec[0]), xs[0].dtype)
+    return [x + o for x, o in zip(xs, red)], (list(new) if decode
+                                              else None)
+
+
+def _mesh_zamba(cfg, r, params, xs, gather, *, pos=None, cache=None,
+                poss=None) -> list:
+    """The hybrid's layers on every device (``_zamba_forward``'s order):
+    the Mamba2 layers (``_mesh_mamba``) and the shared attention + MLP
+    block, whose heads and ff columns split as the attention families'
+    (K7 on a device's heads with ``attn_impl="pallas"``).  Prefill with
+    ``pos``; decode with ``cache`` / ``poss``, the shared block's
+    application ``a`` attending over its KV cache ``a``."""
+    lc = _local_cfg(cfg, r)
+    ap = _subtree(params, "shared/attn")
+    mlp = _subtree(params, "shared/mlp")
+    every = cfg.attn_every
+    for i, lp in enumerate(_mesh_layers(params, "layers/mamba",
+                                        cfg.n_layers)):
+        xs = _mesh_mamba(cfg, r, lp, xs, gather, cache=cache, i=i)
+        if (i + 1) % every:
+            continue
+        if cache is None:
+            xs = _mesh_attn(cfg, lc, r, ap, xs, pos, gather)
+            xs = _mesh_ffn(cfg, lc, r, mlp, xs, gather)[0]
+        else:
+            a = (i + 1) // every - 1           # the shared block's a-th use
+            xs = _mesh_attn_decode(r, lc, ap, xs, poss,
+                                   [c[a] for c in cache["k"]],
+                                   [c[a] for c in cache["v"]], gather)
+            xs = _mesh_ffn_decode(cfg, lc, r, mlp, xs, gather)
+    return xs
+
+
+def _mesh_xlstm(cfg, r, params, xs, gather, cache=None) -> list:
+    """The ssm family's blocks on every device in ``_xlstm_forward``'s
+    order (``_mesh_mlstm`` / ``_mesh_slstm``); with ``cache`` (decode)
+    each block's state read from and written into its rows, a device's
+    own heads."""
+    n_s = _n_slstm(cfg)
+    n = r.mesh.size
+    mp = _mesh_layers(params, "mblocks", cfg.n_layers - n_s)
+    sp = _mesh_layers(params, "sblocks", n_s) if n_s else []
+    per = cfg.slstm_every - 1 if n_s else 0
+
+    def m_step(xs, j):
+        st = None
+        if cache is not None:
+            st = [((cache["mC"][k][j], cache["mn"][k][j],
+                    cache["mm"][k][j]), cache["mconv"][k][j])
+                  for k in range(n)]
+        xs, new = _mesh_mlstm(cfg, r, mp[j], xs, gather, st)
+        for k, ((Cm, nm, mm), cv) in enumerate(new or ()):
+            for name, t in (("mC", Cm), ("mn", nm), ("mm", mm),
+                            ("mconv", cv)):
+                cache[name][k][j].copy_(t)
+        return xs
+
+    def s_step(xs, g):
+        names = ("sc", "sn", "sm", "sh")
+        st = None if cache is None else [
+            tuple(cache[nm][k][g] for nm in names) for k in range(n)]
+        xs, new = _mesh_slstm(cfg, r, sp[g], xs, gather, st)
+        for k, ts in enumerate(new or ()):
+            for nm, t in zip(names, ts):
+                cache[nm][k][g].copy_(t)
+        return xs
+
+    for g in range(n_s):
+        for j in range(g * per, (g + 1) * per):
+            xs = m_step(xs, j)
+        xs = s_step(xs, g)
+    for j in range(n_s * per, len(mp)):
+        xs = m_step(xs, j)
+    return xs
+
+
 def forward_parts(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                   patch_emb: torch.Tensor | None = None,
                   last_only: bool = False) -> tuple[list, torch.Tensor]:
@@ -854,20 +1260,12 @@ def forward_parts(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     device, that device's batch rows and vocab columns.  aux (0-d, on the
     mesh's first device) is taken over the whole batch."""
     r = mesh_rules()
-    _mesh_family(cfg, r)
-    mesh, n = r.mesh, r.mesh.size
+    mesh = r.mesh
     gather = _fsdp(r)
     dtype = dtype_of(cfg)
     cb = (None,) if cfg.family == "audio" else ()
     toks = constrain(tokens, "act_batch", "act_seq", *cb)
     zero = torch.zeros((), device=mesh.devices[0])
-    if cfg.family not in _ATTN_FAMILIES:
-        outs = []
-        for k in range(n):
-            with use_rules(None):
-                outs.append(forward(cfg, _views(params, k, gather), toks[k],
-                                    last_only=last_only)[0])
-        return outs, zero
     xs = _mesh_embed(cfg, params, toks, r, dtype, gather)
     if cfg.family == "vlm":
         pe = constrain(patch_emb, "act_batch", "act_seq", "act_embed")
@@ -875,50 +1273,21 @@ def forward_parts(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     xs = constrain(xs, "act_batch", "act_seq", "act_embed")
     S = xs[0].shape[1]
     pos = [torch.arange(S, device=d)[None, :] for d in mesh.devices]
-    lc = _local_cfg(cfg, r)
-    attn_p = _mesh_layers(params, "layers/attn", cfg.n_layers)
-    ff_p = _mesh_layers(params, "layers/moe" if cfg.is_moe else "layers/mlp",
-                        cfg.n_layers)
-
-    def attn(k, x, ap):
-        with use_rules(None):
-            return _attn_apply(lc, _views(ap, k, gather), x, pos[k])
-
-    def mlp(k, x, fp):
-        with use_rules(None):
-            return _mlp_apply(lc, _views(fp, k, gather), x)
-
-    def moe(k, x, fp):
-        with use_rules(None):
-            return _moe_apply(lc, _views(fp, k, gather), x,
-                              experts=_experts(fp, k), stats=True)
-
-    def remat(fn, k, *args):
-        """``fn`` on device ``k``'s share under ``torch.utils.checkpoint``
-        when ``cfg.remat`` and grad are on: one frame a device and
-        sub-block, since the backward runs a thread a device and one
-        frame recomputed from two threads would race."""
-        if cfg.remat and torch.is_grad_enabled():
-            return torch.utils.checkpoint.checkpoint(
-                fn, k, *args, use_reentrant=False, preserve_rng_state=False)
-        return fn(k, *args)
-
-    auxs = []
-    for ap, fp in zip(attn_p, ff_p):
-        outs = [remat(attn, k, xs[k], ap) for k in range(n)]
-        red = C.all_reduce(outs, mesh, _ax(ap["wo"].sharding.spec[0]))
-        xs = [x + o for x, o in zip(xs, red)]
-        if cfg.is_moe:
-            outs, stats = zip(*[remat(moe, k, xs[k], fp) for k in range(n)])
-            auxs.append(moe_aux(_batch_mean([s[0] for s in stats], r),
-                                _batch_mean([s[1] for s in stats], r),
-                                cfg.top_k))
-        else:
-            outs = [remat(mlp, k, xs[k], fp) for k in range(n)]
-            auxs.append(zero)
-        red = C.all_reduce(list(outs), mesh,
-                           _ax(fp["w2"].sharding.spec[0]))
-        xs = [x + o for x, o in zip(xs, red)]
+    auxs = [zero]
+    if cfg.family == "hybrid":
+        xs = _mesh_zamba(cfg, r, params, xs, gather, pos=pos)
+    elif cfg.family == "ssm":
+        xs = _mesh_xlstm(cfg, r, params, xs, gather)
+    else:
+        lc = _local_cfg(cfg, r)
+        attn_p = _mesh_layers(params, "layers/attn", cfg.n_layers)
+        ff_p = _mesh_layers(params, "layers/moe" if cfg.is_moe
+                            else "layers/mlp", cfg.n_layers)
+        auxs = []
+        for ap, fp in zip(attn_p, ff_p):
+            xs = _mesh_attn(cfg, lc, r, ap, xs, pos, gather)
+            xs, aux = _mesh_ffn(cfg, lc, r, fp, xs, gather)
+            auxs.append(zero if aux is None else aux)
     if last_only:
         xs = [x[:, -1:] for x in xs]
     parts = _lm_heads(cfg, params, xs, gather)
@@ -931,8 +1300,6 @@ def _mesh_decode(cfg: ModelConfig, params: dict, cache: dict,
                  tokens: torch.Tensor, pos, r) -> torch.Tensor:
     """One decode step under mesh rules: every device's share (see the
     module docstring); the logits whole on the mesh's first device."""
-    _mesh_family(cfg, r)
-    mesh, n = r.mesh, r.mesh.size
     gather = _fsdp(r)
     dtype = dtype_of(cfg)
     B = tokens.shape[0]
@@ -940,68 +1307,20 @@ def _mesh_decode(cfg: ModelConfig, params: dict, cache: dict,
     cb = (None,) if cfg.family == "audio" else ()
     toks = constrain(tokens, "act_batch", *cb)
     poss = constrain(pos.contiguous(), "act_batch")
-    seq_ax = _ax(r.table.get("cache_seq"))
-    if cfg.family not in _ATTN_FAMILIES:
-        if "k" in cache and mesh.shape_of(seq_ax) > 1:
-            raise NotImplementedError(
-                f"the {cfg.family} family's cache split over its sequence "
-                f"({seq_ax}): ROADMAP Queue 1 item 12e")
-        outs = []
-        for k in range(n):
-            with use_rules(None):
-                outs.append(decode_step(
-                    cfg, _views(params, k, gather), {
-                        name: parts[k] for name, parts in cache.items()},
-                    toks[k], poss[k])[0])
-        return gather_logits(outs, r)
     xs = _mesh_embed(cfg, params, toks, r, dtype, gather)
     xs = constrain(xs, "act_batch", "act_embed")
-    lc = _local_cfg(cfg, r)
-    head_ax = _ax(r.table["p_heads"])
-    local_heads = r.table.get("act_kv") is not None \
-        or mesh.shape_of(head_ax) == 1
-    n_seq = mesh.shape_of(seq_ax)
-    attn_p = _mesh_layers(params, "layers/attn", cfg.n_layers)
-    ff_p = _mesh_layers(params, "layers/moe" if cfg.is_moe else "layers/mlp",
-                        cfg.n_layers)
-    for i, (ap, fp) in enumerate(zip(attn_p, ff_p)):
-        with use_rules(None):
-            qkv = [_qkv_decode(lc, _views(ap, k, gather), xs[k], poss[k])
-                   for k in range(n)]
-        if not local_heads:                   # every head on every device
-            qkv = list(zip(*(C.all_gather(list(t), mesh, head_ax, dim=1)
-                             for t in zip(*qkv))))
-        outs = []
-        with use_rules(None):
-            for k in range(n):
-                q, kk, v = qkv[k]
-                kc, vc = cache["k"][k][i], cache["v"][k][i]
-                off = _chunk(mesh, k, seq_ax) * kc.shape[1]
-                _cache_write(kc, vc, kk, v, poss[k], off,
-                             kc.shape[1] * n_seq)
-                outs.append(decode_attention(q, kc, vc, poss[k])
-                            if n_seq == 1 else
-                            decode_partial(q, kc, vc, poss[k], off))
-        if n_seq > 1:                         # flash-decode's combine
-            outs = [combine_partials([tuple(t.to(mesh.devices[k])
-                                            for t in outs[j])
-                                      for j in mesh.group(k, seq_ax)],
-                                     qkv[k][0].dtype) for k in range(n)]
-        with use_rules(None):
-            for k in range(n):
-                o = outs[k].reshape(outs[k].shape[0], -1)
-                wo = ap["wo"].local(k, gather)
-                if not local_heads:           # this device's rows of wo
-                    r0 = _offset(ap["wo"], 0, k)
-                    o = o[:, r0:r0 + wo.shape[0]]
-                outs[k] = o @ wo.to(o.dtype)
-        red = C.all_reduce(outs, mesh, _ax(ap["wo"].sharding.spec[0]))
-        xs = [x + o for x, o in zip(xs, red)]
-        with use_rules(None):
-            outs = [_ffn_decode(lc, _views(fp, k, gather), xs[k],
-                                **(dict(experts=_experts(fp, k))
-                                   if cfg.is_moe else {}))
-                    for k in range(n)]
-        red = C.all_reduce(outs, mesh, _ax(fp["w2"].sharding.spec[0]))
-        xs = [x + o for x, o in zip(xs, red)]
+    if cfg.family == "hybrid":
+        xs = _mesh_zamba(cfg, r, params, xs, gather, cache=cache, poss=poss)
+    elif cfg.family == "ssm":
+        xs = _mesh_xlstm(cfg, r, params, xs, gather, cache=cache)
+    else:
+        lc = _local_cfg(cfg, r)
+        attn_p = _mesh_layers(params, "layers/attn", cfg.n_layers)
+        ff_p = _mesh_layers(params, "layers/moe" if cfg.is_moe
+                            else "layers/mlp", cfg.n_layers)
+        for i, (ap, fp) in enumerate(zip(attn_p, ff_p)):
+            xs = _mesh_attn_decode(r, lc, ap, xs, poss,
+                                   [c[i] for c in cache["k"]],
+                                   [c[i] for c in cache["v"]], gather)
+            xs = _mesh_ffn_decode(cfg, lc, r, fp, xs, gather)
     return gather_logits(_lm_heads(cfg, params, xs, gather), r)

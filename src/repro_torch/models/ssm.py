@@ -108,14 +108,28 @@ def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, B_: torch.Tensor,
 # the full Mamba2 block
 # ---------------------------------------------------------------------------
 
-def mamba2_block(x: torch.Tensor, p: dict, cfg, *, state: tuple | None = None,
-                 decode: bool = False):
-    """p keys: in_proj (d, 2 di + 2N + H), conv_w (K, di + 2N), a_log (H,),
-    d_skip (H,), dt_bias (H,), norm_inner (di,), out_proj (di, d).  x is
-    (B, d) with ``decode``, else (B, S, d).
-
-    Returns (y, new_state); state = (ssm_h (B, H, N, P), conv_cache)."""
+def mamba2_cols(cfg, h0: int, h1: int) -> dict[str, list[tuple[int, int]]]:
+    """The columns of the whole ``in_proj`` / ``conv_w`` that SSM heads
+    [h0, h1) read, as ``(start, stop)`` ranges in the order the block
+    splits them: their ``z``, ``x``, the shared ``B`` / ``C`` (one group,
+    whole) and their ``dt``; ``inner``: their channels of ``d_inner``
+    (``norm_inner``, ``out_proj``)."""
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    x = (h0 * P, h1 * P)
+    return dict(in_proj=[x, (di + x[0], di + x[1]), (2 * di, 2 * di + 2 * N),
+                         (2 * di + 2 * N + h0, 2 * di + 2 * N + h1)],
+                conv_w=[x, (di, di + 2 * N)], inner=[x])
+
+
+def mamba2_mix(x: torch.Tensor, p: dict, cfg, *, state: tuple | None = None,
+               decode: bool = False):
+    """The Mamba2 block up to its inner norm: ``y * silu(z)`` (..., di)
+    and the new state.  The heads are ``p``'s: ``a_log`` (H,) and the
+    columns of ``in_proj`` / ``conv_w`` laid out as ``mamba2_cols``
+    gives them for those heads (all of them: the whole leaves)."""
+    N, P = cfg.ssm_state, cfg.ssm_head_dim
+    H = p["a_log"].shape[-1]
+    di = H * P
     zxbcdt = x @ p["in_proj"].to(x.dtype)
     z, xin, BC, dt = torch.split(zxbcdt, [di, di, 2 * N, H], dim=-1)
     conv_in = torch.cat([xin, BC], dim=-1)                # (..., di + 2N)
@@ -140,7 +154,16 @@ def mamba2_block(x: torch.Tensor, p: dict, cfg, *, state: tuple | None = None,
             xs.reshape(B0, -1, H, P), dt, B_, C_, p["a_log"], p["d_skip"],
             cfg.ssd_chunk, None if state is None else state[0])
         y = y.reshape(B0, -1, di)
+    return y * F.silu(z), (ssm_h, conv_cache)
 
-    y = y * F.silu(z)
+
+def mamba2_block(x: torch.Tensor, p: dict, cfg, *, state: tuple | None = None,
+                 decode: bool = False):
+    """p keys: in_proj (d, 2 di + 2N + H), conv_w (K, di + 2N), a_log (H,),
+    d_skip (H,), dt_bias (H,), norm_inner (di,), out_proj (di, d).  x is
+    (B, d) with ``decode``, else (B, S, d).
+
+    Returns (y, new_state); state = (ssm_h (B, H, N, P), conv_cache)."""
+    y, state = mamba2_mix(x, p, cfg, state=state, decode=decode)
     y = rms_norm(y, p["norm_inner"], cfg.norm_eps)
-    return y @ p["out_proj"].to(x.dtype), (ssm_h, conv_cache)
+    return y @ p["out_proj"].to(x.dtype), state

@@ -131,55 +131,63 @@ def _mlstm_qkv(c, xm, p, dt):
     return q, k, v
 
 
+def mlstm_proj(x, p, *, conv_cache=None, decode=False, gate_dtype=None):
+    """The mLSTM block's input side for ``p``'s heads (``wq`` (H, P, P)):
+    ``up_proj`` (d, 2 H P: their ``xm`` columns, then their ``z``
+    columns), the causal conv, q / k / v (..., H, P) and the gate
+    pre-activations ``c @ wi``, ``c @ wf`` (..., H_all) over ``p``'s rows
+    of ``wi`` / ``wf`` (all of d_inner: the gates, in x's dtype; some
+    rows: a partial sum, which ``gate_dtype`` fp32 keeps unrounded until
+    the parts are summed).  Returns (q, k, v, i_pre, f_pre, z,
+    conv_cache)."""
+    H, P = p["wq"].shape[0], p["wq"].shape[1]
+    up = x @ p["up_proj"].to(x.dtype)
+    xm, z = torch.chunk(up, 2, dim=-1)
+    c, conv_cache = _causal_conv(xm[:, None] if decode else xm,
+                                 p["conv_w"].to(x.dtype), conv_cache)
+    if decode:
+        c = c[:, 0]
+    q, k, v = _mlstm_qkv(c.unflatten(-1, (H, P)), xm.unflatten(-1, (H, P)),
+                         p, x.dtype)
+    gd = gate_dtype or x.dtype
+    i_pre = c.to(gd) @ p["wi"].to(x.dtype).to(gd)
+    f_pre = c.to(gd) @ p["wf"].to(x.dtype).to(gd)
+    return q, k, v, i_pre, f_pre, z, conv_cache
+
+
+def mlstm_scan(q, k, v, i_pre, f_pre, cfg, *, state=None, decode=False):
+    """The mLSTM cell over q / k / v (..., H, P): h (..., H P) and the new
+    (C, n, m)."""
+    if decode:
+        h, mstate = mlstm_decode_step(q, k, v, i_pre, f_pre, state)
+    else:
+        h, mstate = mlstm_chunked(q, k, v, i_pre, f_pre, cfg.ssd_chunk,
+                                  state)
+    return h.flatten(-2), mstate
+
+
 def mlstm_block(x, p, cfg, *, state=None, decode=False):
     """p keys: up_proj (d, 2 di), conv_w (K, di), wq / wk / wv (H, P, P)
     block-diagonal per head, wi / wf (di, H), norm_inner (di,), down_proj
     (di, d).  Returns (out, (mstate, conv_cache))."""
-    di = cfg.mlstm_proj * cfg.d_model
-    H = cfg.n_heads
-    P = di // H
-    up = x @ p["up_proj"].to(x.dtype)
-    xm, z = torch.chunk(up, 2, dim=-1)
-    if decode:
-        mstate, conv_cache = state
-        c, conv_cache = _causal_conv(xm[:, None], p["conv_w"].to(x.dtype),
-                                     conv_cache)
-        c = c[:, 0]
-        B = x.shape[0]
-        q, k, v = _mlstm_qkv(c.reshape(B, H, P), xm.reshape(B, H, P), p,
-                             x.dtype)
-        i_pre = c @ p["wi"].to(x.dtype)
-        f_pre = c @ p["wf"].to(x.dtype)
-        h, mstate = mlstm_decode_step(q, k, v, i_pre, f_pre, mstate)
-        h = h.reshape(B, di)
-    else:
-        B, S = x.shape[0], x.shape[1]
-        c, conv_cache = _causal_conv(xm, p["conv_w"].to(x.dtype),
-                                     None if state is None else state[1])
-        q, k, v = _mlstm_qkv(c.reshape(B, S, H, P), xm.reshape(B, S, H, P),
-                             p, x.dtype)
-        i_pre = c @ p["wi"].to(x.dtype)
-        f_pre = c @ p["wf"].to(x.dtype)
-        h, mstate = mlstm_chunked(q, k, v, i_pre, f_pre, cfg.ssd_chunk,
-                                  None if state is None else state[0])
-        h = h.reshape(B, S, di)
+    q, k, v, i_pre, f_pre, z, conv_cache = mlstm_proj(
+        x, p, conv_cache=None if state is None else state[1], decode=decode)
+    h, mstate = mlstm_scan(q, k, v, i_pre, f_pre, cfg,
+                           state=None if state is None else state[0],
+                           decode=decode)
     h = rms_norm(h, p["norm_inner"], cfg.norm_eps)
     h = h * F.silu(z)
     return h @ p["down_proj"].to(x.dtype), (mstate, conv_cache)
 
 
-def slstm_block(x, p, cfg, *, state=None, decode=False):
-    """p keys: w_gates (d, H dh 4), r_gates (H, dh, 4 dh), ln (d,), up
-    (d, ff), down (ff, d).  x is (B, d) with ``decode``, else (B, S, d).
-
-    Heads H = cfg.n_heads, dh = d / H; the recurrent matrix R is per-head
-    block-diagonal.  The prefill path is a loop over time (sLSTM does not
-    parallelise in time), the input projection taken for every step in
-    one product before it; decode is one step of the same cell.  Returns
-    (out, (c, n, m, h)), the state in fp32."""
-    d = p["w_gates"].shape[0]
-    H = cfg.n_heads
-    dh = d // H
+def slstm_cells(x, p, *, state=None, decode=False):
+    """The sLSTM recurrence of ``p``'s heads (``r_gates`` (H, dh, 4 dh),
+    ``w_gates`` (d, H dh 4) their columns, head-major): y (..., H dh) in
+    x's dtype and the new (c, n, m, h) (B, H, dh) in fp32.  The prefill
+    path is a loop over time (sLSTM does not parallelise in time), the
+    input projection taken for every step in one product before it;
+    decode is one step of the same cell."""
+    H, dh = p["r_gates"].shape[0], p["r_gates"].shape[1]
     B = x.shape[0]
     if state is None:
         z = torch.zeros((B, H, dh), dtype=torch.float32, device=x.device)
@@ -205,14 +213,28 @@ def slstm_block(x, p, cfg, *, state=None, decode=False):
     gx = x @ p["w_gates"].to(x.dtype)
     if decode:
         state = step(state, gx)
-        y = state[3].reshape(B, d).to(x.dtype)
-    else:
-        hs = []
-        for t in range(x.shape[1]):
-            state = step(state, gx[:, t])
-            hs.append(state[3])
-        y = torch.stack(hs, dim=1).reshape(B, x.shape[1], d).to(x.dtype)
+        return state[3].reshape(B, H * dh).to(x.dtype), state
+    hs = []
+    for t in range(x.shape[1]):
+        state = step(state, gx[:, t])
+        hs.append(state[3])
+    return (torch.stack(hs, dim=1).reshape(B, x.shape[1], H * dh)
+            .to(x.dtype), state)
 
+
+def slstm_up(y, p, cfg):
+    """The sLSTM block's output side up to ``down``: RMSNorm over d, then
+    the GELU projection ``up``."""
     y = rms_norm(y, p["ln"], cfg.norm_eps)
-    ff = F.gelu(y @ p["up"].to(x.dtype), approximate="tanh")
-    return ff @ p["down"].to(x.dtype), state
+    return F.gelu(y @ p["up"].to(y.dtype), approximate="tanh")
+
+
+def slstm_block(x, p, cfg, *, state=None, decode=False):
+    """p keys: w_gates (d, H dh 4), r_gates (H, dh, 4 dh), ln (d,), up
+    (d, ff), down (ff, d).  x is (B, d) with ``decode``, else (B, S, d).
+
+    Heads H = cfg.n_heads, dh = d / H; the recurrent matrix R is per-head
+    block-diagonal (``slstm_cells``).  Returns (out, (c, n, m, h)), the
+    state in fp32."""
+    y, state = slstm_cells(x, p, state=state, decode=decode)
+    return slstm_up(y, p, cfg) @ p["down"].to(x.dtype), state

@@ -210,14 +210,18 @@ class Shards:
     over ``sharding.split_axes``), each on its home device; ``shape`` the
     whole leaf's."""
 
-    __slots__ = ("parts", "sharding", "shape", "views")
+    __slots__ = ("parts", "sharding", "shape", "views", "taken")
 
-    def __init__(self, parts, sharding: NamedSharding, shape, views=None):
+    def __init__(self, parts, sharding: NamedSharding, shape, views=None,
+                 taken=None):
         self.parts = list(parts)
         self.sharding = sharding
         self.shape = tuple(shape)
         # {gather axes: every device's ``local`` view}, copied by ``place``
         self.views = views or {}
+        # a placed leaf's memo of what ``take`` gave each device (None: not
+        # placed, nothing kept); a stacked leaf's, {layer: its layer's memo}
+        self.taken = taken
 
     @property
     def dtype(self):
@@ -232,18 +236,28 @@ class Shards:
 
     def unbind0(self) -> list["Shards"]:
         """The leaf's slices along dim 0 (a layer each), dim 0 whole:
-        one ``unbind`` a shard (its backward stacks the grads once)."""
+        one ``unbind`` a shard (its backward stacks the grads once).  A
+        placed leaf's layers keep their ``take`` results in its memo."""
         sh = NamedSharding(self.sharding.mesh, self.sharding.spec[1:])
         rows = [p.unbind(0) for p in self.parts]
         views = {g: [p.unbind(0) for p in v] for g, v in self.views.items()}
+        memo = self.taken
         return [Shards([r[i] for r in rows], sh, self.shape[1:],
-                       {g: [r[i] for r in v] for g, v in views.items()})
+                       {g: [r[i] for r in vs] for g, vs in views.items()},
+                       None if memo is None else memo.setdefault(i, {}))
                 for i in range(self.shape[0])]
 
     def place(self, gather=()) -> "Shards":
         """The same leaf with every device's ``local(k, gather)`` view
         copied to it once, for a loop that reads the same weights every
-        step; a device's replicas of one shard share the tensor."""
+        step; a device's replicas of one shard share the tensor.  What
+        ``take`` gives a device is kept too, on its first call: where
+        that is cut from one shard on the device's own card it is a view
+        of the shard, else a copy, held beside the device's shard for as
+        long as the placed leaf lives (serving zamba2's ``in_proj``: a
+        device's heads' z / x / dt columns and B / C, about as many
+        columns again as its shard; ``chip_smoke.py``'s served loop
+        logs the peak by card)."""
         mesh, g = self.sharding.mesh, tuple(gather)
         memo, views = {}, []
         for d in range(mesh.size):
@@ -253,7 +267,35 @@ class Shards:
             if key not in memo:
                 memo[key] = self.local(d, g)
             views.append(memo[key])
-        return Shards(self.parts, self.sharding, self.shape, {g: views})
+        return Shards(self.parts, self.sharding, self.shape, {g: views},
+                      {})
+
+    def _gathered(self, gather) -> list[tuple[int, tuple[str, ...]]]:
+        """The dims split over axes of ``gather`` and their axes."""
+        gdims = []
+        for d, e in enumerate(self.sharding.spec):
+            ax = _axes_of(e)
+            if any(a in gather for a in ax):
+                if not all(a in gather for a in ax):
+                    raise ValueError(f"dim {d} is split over {ax}: "
+                                     f"gathering part of it is not "
+                                     f"supported")
+                gdims.append((d, ax))
+        return gdims
+
+    def _build(self, gdims, i, cc, dev, cut) -> torch.Tensor:
+        """The shard at mesh coordinates ``cc``, cut by ``cut`` on its
+        home device and copied to ``dev``, the dims ``gdims[i:]``
+        gathered over their axes."""
+        if i == len(gdims):
+            part = self.parts[self.sharding.shard_index(cc)]
+            return (part[cut] if cut else part).to(dev)
+        d, ax = gdims[i]
+        mesh = self.sharding.mesh
+        pieces = [self._build(gdims, i + 1, dict(cc, **dict(zip(ax, ix))),
+                              dev, cut)
+                  for ix in _iter_coords(mesh, ax)]
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces, d)
 
     def local(self, k: int, gather=()) -> torch.Tensor:
         """What device ``k`` computes with: its shard, on its device, with
@@ -262,26 +304,47 @@ class Shards:
         placed = self.views.get(tuple(gather))
         if placed is not None:
             return placed[k]
-        sh, mesh = self.sharding, self.sharding.mesh
-        dev = mesh.devices[k]
-        gdims = []
-        for d, e in enumerate(sh.spec):
-            ax = _axes_of(e)
-            if any(a in gather for a in ax):
-                if not all(a in gather for a in ax):
-                    raise ValueError(f"dim {d} is split over {ax}: "
-                                     f"gathering part of it is not "
-                                     f"supported")
-                gdims.append((d, ax))
+        mesh = self.sharding.mesh
+        return self._build(self._gathered(gather), 0, mesh.coords(k),
+                           mesh.devices[k], ())
 
-        def build(i, cc):
-            if i == len(gdims):
-                return self.parts[sh.shard_index(cc)].to(dev)
-            d, ax = gdims[i]
-            pieces = [build(i + 1, dict(cc, **dict(zip(ax, ix))))
-                      for ix in _iter_coords(mesh, ax)]
-            return pieces[0] if len(pieces) == 1 else torch.cat(pieces, d)
-        return build(0, mesh.coords(k))
+    def take(self, k: int, dim: int, ranges, gather=(),
+             index: dict | None = None) -> torch.Tensor:
+        """Device ``k``'s view of the whole leaf's indices ``ranges``
+        (``(start, stop)`` pairs, concatenated in order) along ``dim``,
+        whatever axes that dim is split over; the other dims as
+        ``local(k, gather)`` gives them, after ``index`` ({dim: slice} of
+        dims kept whole).  Each piece is cut on the device that holds it
+        and only the piece is copied to ``k``: a device holds no more of
+        the leaf than it asks for (a layer's columns of a split
+        projection; the slices of its heads)."""
+        memo = self.taken
+        index = index or {}
+        key = (k, dim, tuple(map(tuple, ranges)), tuple(gather),
+               tuple(sorted((d, s.start, s.stop) for d, s in index.items())))
+        if memo is not None and key in memo:
+            return memo[key]
+        sh, mesh = self.sharding, self.sharding.mesh
+        ax = _axes_of(sh.spec[dim]) if dim < len(sh.spec) else ()
+        gdims = self._gathered(gather)
+        if any(d == dim for d, _ in gdims) or any(
+                d < len(sh.spec) and _axes_of(sh.spec[d]) for d in index):
+            raise ValueError(f"take: dim {dim} / index {index} of a leaf "
+                             f"split {sh.spec} over gather {gather}")
+        w = self.shape[dim] // mesh.shape_of(ax)
+        cut = [slice(None)] * len(self.shape)
+        for d, s in index.items():
+            cut[d] = s
+        pieces = []
+        for j, lo, n, _ in range_pieces(ranges, w):
+            cc = dict(mesh.coords(k), **_unravel(mesh, ax, j))
+            cut[dim] = slice(lo, lo + n)
+            pieces.append(self._build(gdims, 0, cc, mesh.devices[k],
+                                      tuple(cut)))
+        out = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)
+        if memo is not None:
+            memo[key] = out
+        return out
 
     def full(self, device=None) -> torch.Tensor:
         """The whole leaf, assembled on ``device`` (default: the first
@@ -293,6 +356,32 @@ class Shards:
             c = mesh.coords(self.sharding.home(i))
             out[self.sharding.slices(self.shape, c)] = p.to(dev)
         return out
+
+
+def range_pieces(ranges, w: int):
+    """The pieces of ``(start, stop)`` ranges (in order, adjacent ones
+    merged) of a dim laid out in equal chunks of ``w``: (chunk, start in
+    the chunk, length, offset in the concatenation of the ranges)."""
+    merged = []
+    for a, b in ranges:
+        if merged and merged[-1][1] == a:
+            merged[-1] = (merged[-1][0], b)
+        else:
+            merged.append((a, b))
+    off = 0
+    for a, b in merged:
+        for j in range(a // w, (b - 1) // w + 1):
+            lo, hi = max(a, j * w), min(b, (j + 1) * w)
+            yield j, lo - j * w, hi - lo, off
+            off += hi - lo
+
+
+def _unravel(mesh: Mesh, axes, j: int) -> dict[str, int]:
+    """Index ``j``, row-major over ``axes``, as coordinates."""
+    out = {}
+    for a in reversed(tuple(axes)):
+        j, out[a] = divmod(j, mesh.shape[a])
+    return out
 
 
 def leaf_parts(x) -> list[torch.Tensor]:

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.launch.mesh import Mesh
+from repro_torch.sharding.axes import range_pieces
 
 
 def _per_device(xs: list, mesh: Mesh, axis, build) -> list:
@@ -77,3 +78,32 @@ def reduce_scatter(xs: list, mesh: Mesh, axis, dim: int) -> list:
         out.append(acc)
     return out
 
+
+def _pieces(xs: list, mesh: Mesh, k: int, axis, dim: int, ranges):
+    """(member, start, length, offset) of each piece of ``ranges`` (of
+    the whole tensor laid out over device ``k``'s group along ``axis``,
+    member i holding its i-th equal chunk along ``dim``): where it lies
+    and where it starts in the concatenation of the ranges."""
+    g = mesh.group(k, axis)
+    for i, lo, n, off in range_pieces(ranges, xs[g[0]].shape[dim]):
+        yield g[i], lo, n, off
+
+
+def take(xs: list, mesh: Mesh, k: int, axis, dim: int, ranges
+         ) -> torch.Tensor:
+    """Device ``k``: indices ``ranges`` (``(start, stop)`` pairs,
+    concatenated in order) along ``dim`` of the tensor laid out over its
+    group along ``axis``, each piece cut where it lies and copied to
+    ``k``."""
+    dev = mesh.devices[k]
+    parts = [xs[j].narrow(dim, lo, n).to(dev)
+             for j, lo, n, _ in _pieces(xs, mesh, k, axis, dim, ranges)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+
+def put(xs: list, mesh: Mesh, k: int, axis, dim: int, ranges,
+        value: torch.Tensor) -> None:
+    """``take``'s inverse, in place: ``value``'s pieces written into the
+    parts of device ``k``'s group that hold ``ranges``."""
+    for j, lo, n, off in _pieces(xs, mesh, k, axis, dim, ranges):
+        xs[j].narrow(dim, lo, n).copy_(value.narrow(dim, off, n))

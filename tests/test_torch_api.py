@@ -113,33 +113,14 @@ def test_import_firewall():
         assert not bad.search(f.read_text()), f
 
 
-def _unported(case, tmp):
-    from repro_torch.launch.serve import serve
-    from repro_torch.launch.train import train
-    if case == "hybrid-model-parallel":
-        serve(["--arch", "zamba2-7b", "--smoke", "--requests", "1",
-               "--model-parallel", "2"], device="cpu")
-    elif case == "ssm-model-parallel":
-        train(["--arch", "xlstm-1.3b", "--smoke", "--steps", "1",
-               "--model-parallel", "2", "--ckpt-dir", tmp], device="cpu")
-
-
-@pytest.mark.parametrize("case,item", [
-    ("hybrid-model-parallel", "item 12e"),
-    ("ssm-model-parallel", "item 12e")])
-def test_unported_options_raise(case, item, tmp_path):
-    """What the port still does not serve raises, naming its ROADMAP
-    Queue 1 item: the model axis of the hybrid and ssm families (12e).
-    The mesh options run (``test_mesh_options_run``)."""
-    with pytest.raises(NotImplementedError, match=item):
-        _unported(case, str(tmp_path))
-
-
 @pytest.mark.parametrize("case", ["serve-model-parallel", "train-compress",
-                                  "train-model-parallel"])
+                                  "train-model-parallel",
+                                  "serve-hybrid-model-parallel",
+                                  "train-ssm-model-parallel"])
 def test_mesh_options_run(case, tmp_path):
-    """The options that raised before the LM mesh was ported (ROADMAP
-    Queue 1 items 8 and 12c) run on CPU shards."""
+    """The options that raised before the LM mesh and the model axis of
+    the hybrid and ssm families were ported (ROADMAP Queue 1 items 8,
+    12c and 12e) run on CPU shards."""
     import torch
 
     from repro_torch import configs
@@ -165,8 +146,15 @@ def test_mesh_options_run(case, tmp_path):
         p2, _, m, err = step(p, opt.init(p), dict(tokens=toks, labels=toks),
                              init_error_state(p))
         assert bool(torch.isfinite(m["loss"])) and set(err) == set(p)
+    elif case == "serve-hybrid-model-parallel":
+        out = serve(["--arch", "zamba2-7b", "--smoke", "--requests", "1",
+                     "--model-parallel", "2", "--prompt-len", "3",
+                     "--max-new", "2"], device="cpu")
+        assert out["tokens"] == 2 and out["mesh"] == {"data": 1, "model": 2}
     else:
-        out = train(["--arch", "qwen3-1.7b", "--smoke", "--steps", "1",
+        arch = "xlstm-1.3b" if case == "train-ssm-model-parallel" \
+            else "qwen3-1.7b"
+        out = train(["--arch", arch, "--smoke", "--steps", "1",
                      "--batch", "2", "--seq", "16", "--model-parallel", "2",
                      "--ckpt-dir", str(tmp_path)], device="cpu")
         assert out["mesh"] == {"data": 1, "model": 2}

@@ -16,7 +16,8 @@ converges``:
 * ``make_train_step(compress_axis="data")`` on a (2, 1) mesh: each
   participant keeps its own residual, the copies stay bit-identical, and
   the running sum of the compressed mean grads tracks the exact one
-  within the reference test's bound.
+  within the reference test's bound; the same on a (2, 2) mesh for the
+  hybrid and ssm families, each participant split over ``model``.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from jax.sharding import PartitionSpec as P
 
@@ -34,7 +36,7 @@ from repro_torch import configs
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import model as TM
 from repro_torch.models.config import ShapeSpec
-from repro_torch.models.layers import init_params
+from repro_torch.models.layers import gather_params, init_params
 from repro_torch.sharding.auto import make_rules
 from repro_torch.sharding.axes import use_rules
 from repro_torch.training import optimizer as t_opt
@@ -133,6 +135,47 @@ def test_compressed_train_step_on_a_data_mesh():
                 acc_t[k] += (q[k] - p[k]) / 2
     assert not all(torch.equal(e0, e1) for e0, e1 in zip(
         err[0].values(), err[1].values()))       # each its own residual
+    for k in p:
+        d = (acc_c[k] - acc_t[k]).abs().max()
+        assert d < 0.05 * acc_t[k].abs().max() + 0.2, k
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-1.3b"])
+def test_compressed_step_with_the_model_axis(arch):
+    """``compress_axis="data"`` on a 2 x 2 mesh for the hybrid and ssm
+    families: each participant a (1, 2) sub-mesh whose leaves split over
+    ``model`` (a device its SSM / xLSTM heads); the copies of every leaf
+    stay bit-identical and the running sum of the compressed mean grads
+    tracks the exact one within the bound of the data-mesh test."""
+    cfg = dataclasses.replace(configs.get_smoke(arch), dtype="float32")
+    specs = TM.param_specs(cfg)
+    p = init_params(specs, 0, device="cpu")
+    mesh = make_local_mesh(2, device="cpu", shards=4)
+    rules = make_rules(cfg, mesh, ShapeSpec("t", 16, 4, "train"))
+    opt = _probe()
+    step = make_train_step(cfg, opt, compress_axis="data")
+    plain = make_train_step(cfg, opt)
+    reps = replicate(p, specs, rules, "data")
+    err = [init_error_state(x) for x in reps]
+    gen = torch.Generator().manual_seed(0)
+    acc_c = {k: torch.zeros_like(v) for k, v in p.items()}
+    acc_t = {k: torch.zeros_like(v) for k, v in p.items()}
+    for _ in range(3):
+        toks = torch.randint(0, cfg.vocab, (4, 16), generator=gen)
+        batch = dict(tokens=toks, labels=toks)
+        with use_rules(rules):
+            out, _, m, err = step(reps, [opt.init(x) for x in reps], batch,
+                                  err)
+        assert bool(torch.isfinite(m["loss"]))
+        out = [gather_params(o) for o in out]
+        for k in p:
+            assert torch.equal(out[0][k], out[1][k]), k
+            acc_c[k] += out[0][k] - p[k]
+        for half in (slice(0, 2), slice(2, 4)):
+            q, _, _ = plain(dict(p), opt.init(p),
+                            {n: v[half] for n, v in batch.items()})
+            for k in p:
+                acc_t[k] += (q[k] - p[k]) / 2
     for k in p:
         d = (acc_c[k] - acc_t[k]).abs().max()
         assert d < 0.05 * acc_t[k].abs().max() + 0.2, k

@@ -14,6 +14,9 @@ test skips, decided inside the ``card`` fixture).
   1e-5 forward, per row and scaled 1e-2 / 1e-5 backward), each output
   on its card, and the current device unchanged after it (the launchers
   enter their tensors' device; skips with one card).
+* With two or more cards: the hybrid family (zamba2's smoke config)
+  prefilled at model=2 over ``cuda:0`` and ``cuda:1``, each K7 forward
+  call held on the card that ran it, the logits against one card.
 
 This file imports no JAX: the machine with the card has none."""
 import numpy as np
@@ -201,3 +204,56 @@ def _launches_on(dev):
     for dtype in (torch.bfloat16, torch.float32):
         _k7_on(dev, dtype)
     torch.cuda.synchronize(dev)
+
+
+def test_hybrid_prefill_with_k7_on_the_second_card(second_card,
+                                                    monkeypatch):
+    """zamba2's smoke config (bf16, hd 16) prefilled at model=2 over
+    ``cuda:0`` and ``cuda:1``: a card runs its SSM heads and its 2 of the
+    shared block's 4 heads, whose K7 forward calls (2 applications a
+    card) are each held against ``flash_fwd_ref`` on the card that ran
+    them (3e-2 element-wise, lse 1e-4); the logits against the same
+    forward on ``cuda:0`` alone within ||dlogit|| / ||logit|| 0.1 at
+    every position (``chip_smoke.py``'s LM_LOGIT_RTOL)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.layers import init_params, shard_params
+    from repro_torch.sharding.auto import make_rules
+    from repro_torch.sharding.axes import use_rules
+    cfg = dataclasses.replace(configs.get_smoke("zamba2-7b"),
+                              attn_impl="pallas")
+    specs = M.param_specs(cfg)
+    p = init_params(specs, 0, device="cuda:0")
+    mesh = Mesh(["cuda:0", "cuda:1"], ("data", "model"), (1, 2))
+    rules = make_rules(cfg, mesh, ShapeSpec("prefill", 64, 2, "prefill"))
+    toks = torch.randint(0, cfg.vocab, (2, 64), device="cuda:0",
+                         generator=torch.Generator(device="cuda:0")
+                         .manual_seed(3))
+    real, cards = ops._fwd, []
+
+    def held(q, k, v, causal, scale):
+        o, saved = real(q, k, v, causal, scale)
+        qp, kp, vp, op, lse = saved
+        ro, rl = flash_fwd_ref(qp, kp, vp, causal=causal,
+                               scale=q.shape[-1] ** -0.5 if scale is None
+                               else scale, sq=q.shape[1], sk=k.shape[1])
+        torch.testing.assert_close(op.float(), ro.float(), rtol=3e-2,
+                                   atol=3e-2)
+        torch.testing.assert_close(lse, rl, rtol=1e-4, atol=1e-4)
+        cards.append(q.device.index)
+        return o, saved
+    monkeypatch.setattr(ops, "_fwd", held)
+    n = flash_fwd.launches
+    with torch.no_grad(), use_rules(rules):
+        got = M.forward(cfg, shard_params(p, specs, rules), toks)[0]
+    assert sorted(cards) == [0, 0, 1, 1]
+    assert flash_fwd.launches - n == 4
+    with torch.no_grad():
+        want = M.forward(cfg, p, toks)[0].float()
+    rel = (got.float() - want).norm(dim=-1) / want.norm(dim=-1)
+    assert bool(torch.isfinite(got).all()) and float(rel.max()) <= 0.1

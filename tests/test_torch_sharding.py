@@ -9,15 +9,19 @@ Twin of ``tests/test_sharding.py``:
   ``mesh.shape``, so a stand-in object carries it); no spec breaks
   divisibility or names a mesh axis twice; ``spec_for`` raises on an
   unknown axis;
-* a train step on a 2 x 2 mesh of CPU shards (a (2, 1) ``data`` mesh for
-  the hybrid and ssm families), fp32, against the reference's
-  one-device step on the same weights (``params_from_jax``): the loss
-  within 1e-3 and, through the grad-probe optimizer, every grad and the
-  global grad norm within rtol 1e-3 / atol 1e-5; two AdamW steps the
-  same way (params, both moments and the clipped grad norm);
+* a train step on a 2 x 2 mesh of CPU shards (the hybrid and ssm
+  families also on (2, 1) and (1, 2), and with remat on (2, 2)), fp32,
+  against the reference's one-device step on the same weights
+  (``params_from_jax``): the loss within 1e-3 and, through the
+  grad-probe optimizer, every grad and the global grad norm within rtol
+  1e-3 / atol 1e-5; two AdamW steps the same way (params, both moments
+  and the clipped grad norm);
 * the collectives and their backward, the mesh helpers, decode with the
   KV cache's sequence split (3 slots on ``data=2``) against one device,
-  and the served loop on a mesh token for token.
+  prefill logits under both tables, and the served loop on a mesh token
+  for token;
+* the hybrid and ssm families' model axis: the shapes every device reads
+  from each split leaf (never a whole ``p_inner`` leaf).
 """
 from __future__ import annotations
 
@@ -194,7 +198,9 @@ STEP_CASES = [("qwen3-1.7b", (2, 2), False), ("qwen3-1.7b", (2, 2), True),
               ("granite-moe-1b-a400m", (2, 2), True),
               ("internvl2-2b", (2, 2), False),
               ("musicgen-medium", (2, 2), False),
-              ("zamba2-7b", (2, 1), False), ("xlstm-1.3b", (2, 1), False)]
+              ("zamba2-7b", (2, 1), False), ("xlstm-1.3b", (2, 1), False),
+              ("zamba2-7b", (1, 2), False), ("xlstm-1.3b", (1, 2), False),
+              ("zamba2-7b", (2, 2), True), ("xlstm-1.3b", (2, 2), True)]
 
 
 @pytest.mark.parametrize("arch,mesh_shape,remat", STEP_CASES)
@@ -240,7 +246,8 @@ def test_sharded_train_step_matches_the_reference(arch, mesh_shape, remat):
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-1b-a400m",
+                                  "zamba2-7b", "xlstm-1.3b"])
 def test_sharded_adamw_matches_the_reference(arch):
     """Two AdamW steps on a 2 x 2 mesh of CPU shards (global norm,
     clipping and the moments a shard on its device; FSDP over data and
@@ -290,18 +297,6 @@ def test_sharded_adamw_matches_the_reference(arch):
                 rtol=1e-3, atol=1e-5, err_msg=f"{name} {k}")
 
 
-@pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-7b"])
-def test_hybrid_and_ssm_raise_on_the_model_axis(arch):
-    cfg = t_configs.get_smoke(arch)
-    mesh = make_local_mesh(2, device="cpu")
-    rules = make_rules(cfg, mesh, ShapeSpec("t", 32, 4, "train"))
-    sp = shard_params(init_params(TM.param_specs(cfg), 0, device="cpu"),
-                      TM.param_specs(cfg), rules)
-    with A.use_rules(rules), pytest.raises(NotImplementedError,
-                                           match="item 12e"):
-        TM.forward(cfg, sp, torch.zeros((2, 8), dtype=torch.long))
-
-
 def _fp32(arch):
     return dataclasses.replace(t_configs.get_smoke(arch), dtype="float32")
 
@@ -336,7 +331,9 @@ def test_decode_with_the_cache_sequence_split():
 @pytest.mark.parametrize("arch,mesh_shape,slots", [
     ("qwen3-1.7b", (1, 2), 2), ("qwen3-1.7b", (2, 2), 3),
     ("granite-moe-1b-a400m", (1, 2), 2), ("musicgen-medium", (2, 2), 2),
-    ("xlstm-1.3b", (2, 1), 2)])
+    ("xlstm-1.3b", (2, 1), 2), ("zamba2-7b", (1, 2), 2),
+    ("zamba2-7b", (2, 2), 2), ("xlstm-1.3b", (1, 2), 2),
+    ("xlstm-1.3b", (2, 2), 2)])
 def test_served_loop_on_a_mesh_equals_one_device(arch, mesh_shape, slots):
     cfg = _fp32(arch)
     specs = TM.param_specs(cfg)
@@ -376,6 +373,206 @@ def test_forward_logits_on_a_mesh_equal_one_device():
                 got.numpy(), want[:, -got.shape[1]:].numpy(), rtol=1e-5,
                 atol=1e-5)
             np.testing.assert_allclose(float(ag), float(aw), rtol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["train", "serve"])
+@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-1.3b"])
+def test_hybrid_and_ssm_logits_on_a_mesh_equal_one_device(arch, kind):
+    """prefill logits on a 2 x 2 mesh (a device runs its SSM / xLSTM
+    heads; zamba2's shared block with ``attn_impl="pallas"``: K7's plain
+    version on the CPU) against the same forward on one device, on the
+    reference's weights (``params_from_jax``; the one-device forward is
+    held against the reference's by ``test_torch_families.py``)."""
+    cfg = dataclasses.replace(_fp32(arch), attn_impl="pallas")
+    jcfg = dataclasses.replace(j_configs.get_smoke(arch), dtype="float32")
+    np_p = {k: np.asarray(v) for k, v in j_layers.init_params(
+        JM.param_specs(jcfg), jax.random.key(0)).items()}
+    toks = torch.from_numpy(
+        np.random.default_rng(2).integers(0, cfg.vocab, (4, 32)))
+    want, _ = TM.forward(cfg, params_from_jax(np_p, device="cpu"), toks)
+    mesh = make_local_mesh(2, device="cpu", shards=4)
+    rules = make_rules(cfg, mesh, ShapeSpec("t", 32, 4, kind))
+    sp = params_from_jax(np_p, device="cpu", specs=TM.param_specs(cfg),
+                         rules=rules)
+    with A.use_rules(rules):
+        got, _ = TM.forward(cfg, sp, toks, last_only=kind == "serve")
+    np.testing.assert_allclose(got.numpy(), want[:, -got.shape[1]:].numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 1), (2, 2)])
+def test_hybrid_decode_with_the_cache_sequence_split(mesh_shape):
+    """zamba2: 3 slots do not divide data=2, so the shared block's 2 KV
+    caches split over their sequence on every axis (flash-decode) while
+    the Mamba2 layers run their heads over ``model``; 10 steps' logits
+    against one device."""
+    cfg = _fp32("zamba2-7b")
+    specs = TM.param_specs(cfg)
+    p = init_params(specs, 0, device="cpu")
+    mesh = make_local_mesh(mesh_shape[1], device="cpu",
+                           shards=mesh_shape[0] * mesh_shape[1])
+    rules = make_rules(cfg, mesh, ShapeSpec("serve", 12, 3, "decode"))
+    assert rules.table["cache_seq"] == ("data", "model")
+    sp = shard_params(p, specs, rules)
+    toks = torch.randint(0, cfg.vocab, (3, 10),
+                         generator=torch.Generator().manual_seed(1))
+    plain = TM.init_cache(cfg, 3, 12, device="cpu")
+    with A.use_rules(rules):
+        split = TM.init_cache(cfg, 3, 12, device="cpu")
+    assert split["k"][0].shape[2] == 12 // mesh.size
+    for i in range(10):
+        pos = torch.tensor([i, max(i - 1, 0), min(i + 2, 11)])
+        want, _ = TM.decode_step(cfg, p, plain, toks[:, i], pos)
+        with A.use_rules(rules):
+            got, _ = TM.decode_step(cfg, sp, split, toks[:, i], pos)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def _whole_cache(cfg, parts: list, name: str, shape, rules) -> np.ndarray:
+    """A cache leaf laid out a part a device (``mesh_cache_axes``),
+    assembled whole."""
+    sh = A.named_sharding(TM.mesh_cache_axes(cfg)[name], rules)
+    out = np.zeros(shape, dtype=np.float32)
+    for k, part in enumerate(parts):
+        out[sh.slices(shape, rules.mesh.coords(k))] = part.float().numpy()
+    return out
+
+
+@pytest.mark.parametrize("arch,mesh_shape,slots", [
+    ("zamba2-7b", (1, 2), 2), ("zamba2-7b", (2, 2), 3),
+    ("xlstm-1.3b", (1, 2), 2), ("xlstm-1.3b", (2, 2), 2)])
+def test_hybrid_and_ssm_decode_on_a_mesh_match_the_reference(
+        arch, mesh_shape, slots):
+    """Eight decode steps from a zero cache on a mesh against the
+    reference's ``decode_step`` on one device, fp32, the reference's
+    weights (``params_from_jax``): the logits and every cache leaf
+    assembled whole (zamba2's Mamba2 conv cache taken and put back over
+    its flat split; with 3 slots on data=2 its KV caches split over
+    their sequence, flash-decode; the xLSTM's state laid out over its
+    heads) within 1e-4, the one-device port's beside them."""
+    cfg = _fp32(arch)
+    jcfg = dataclasses.replace(j_configs.get_smoke(arch), dtype="float32")
+    np_p = {k: np.asarray(v) for k, v in j_layers.init_params(
+        JM.param_specs(jcfg), jax.random.key(0)).items()}
+    mesh = make_local_mesh(mesh_shape[1], device="cpu",
+                           shards=mesh_shape[0] * mesh_shape[1])
+    rules = make_rules(cfg, mesh, ShapeSpec("serve", 12, slots, "decode"))
+    assert "model" in _axes(rules.table["p_inner"])
+    if slots == 3:
+        assert rules.table["cache_seq"] == ("data", "model")
+    sp = params_from_jax(np_p, device="cpu", specs=TM.param_specs(cfg),
+                         rules=rules)
+    tp = params_from_jax(np_p, device="cpu")
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (slots, 8))
+    jc = JM.init_cache(jcfg, slots, 12)
+    plain = TM.init_cache(cfg, slots, 12, device="cpu")
+    with A.use_rules(rules):
+        split = TM.init_cache(cfg, slots, 12, device="cpu")
+    dec = jax.jit(lambda p, c, t, i: JM.decode_step(jcfg, p, c, t, i))
+    tol = dict(rtol=1e-4, atol=1e-4)
+    for i in range(8):
+        jl, jc = dec(np_p, jc, jnp.asarray(toks[:, i]), jnp.int32(i))
+        t = torch.from_numpy(toks[:, i])
+        one, plain = TM.decode_step(cfg, tp, plain, t, i)
+        with A.use_rules(rules):
+            got, split = TM.decode_step(cfg, sp, split, t, i)
+        want = np.asarray(jl, dtype=np.float32)
+        np.testing.assert_allclose(one.numpy(), want, **tol)
+        np.testing.assert_allclose(got.numpy(), want, **tol,
+                                   err_msg=f"logits at step {i}")
+        for name in jc:
+            np.testing.assert_allclose(
+                _whole_cache(cfg, split[name], name, jc[name].shape, rules),
+                np.asarray(jc[name], dtype=np.float32), **tol,
+                err_msg=f"{name} at step {i}")
+
+
+@pytest.mark.parametrize("arch,model,smoke", [("xlstm-1.3b", 8, False),
+                                              ("xlstm-1.3b", 4, True)])
+def test_xlstm_raises_where_the_model_axis_does_not_divide_its_heads(
+        arch, model, smoke):
+    """xlstm-1.3b's 4 heads at model=8 (its smoke config's 2 at model=4):
+    ``make_rules`` keeps ``p_inner`` on ``model`` and the reference runs
+    by splitting P; the port, which runs whole heads, raises naming
+    ROADMAP item 12f, in ``init_cache`` and in the forward."""
+    cfg = t_configs.get_smoke(arch) if smoke else t_configs.get_config(arch)
+    mesh = make_local_mesh(model, device="cpu")
+    rules = make_rules(cfg, mesh, ShapeSpec("t", 32, 4, "serve"))
+    assert "model" in _axes(rules.table["p_inner"])
+    assert cfg.n_heads % model
+    with A.use_rules(rules), pytest.raises(NotImplementedError,
+                                           match="item 12f"):
+        TM.init_cache(cfg, 4, 32, device="cpu")
+    if smoke:
+        specs = TM.param_specs(cfg)
+        sp = shard_params(init_params(specs, 0, device="cpu"), specs, rules)
+        with A.use_rules(rules), pytest.raises(NotImplementedError,
+                                               match="item 12f"):
+            TM.forward(cfg, sp, torch.zeros((4, 8), dtype=torch.long))
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-1.3b"])
+def test_no_device_reads_a_whole_split_leaf(arch, monkeypatch):
+    """Every read of a split leaf in a train step (remat on, its backward
+    included) and in the served loop on a 2 x 2 mesh, recorded as the
+    shape each device gets from ``Shards.local`` / ``Shards.take``: a
+    stacked leaf is read a layer at a time (the served loop's ``place``
+    copies each device its own shards once), and no device gets the whole
+    of a layer's leaf that is split over ``model`` (a ``p_inner``
+    projection gets its heads' columns, an mLSTM block its heads' P x P
+    blocks), while each ``p_inner`` leaf is read."""
+    from repro_torch.training.step import loss_fn
+    cfg = dataclasses.replace(_fp32(arch), remat=True)
+    specs = TM.param_specs(cfg)
+    p = init_params(specs, 0, device="cpu")
+    mesh = make_local_mesh(2, device="cpu", shards=4)
+    reads, owner, placing = [], {}, []
+
+    def recorder(real):
+        def rec(self, k, *a, **kw):
+            out = real(self, k, *a, **kw)
+            name = owner.get(self.parts[0].untyped_storage().data_ptr())
+            reads.append((name, self.shape, self.sharding.spec,
+                          tuple(out.shape), bool(placing)))
+            return out
+        return rec
+
+    def place(self, *a, **kw):      # the served loop's placement, once
+        placing.append(1)
+        try:
+            return real_place(self, *a, **kw)
+        finally:
+            placing.pop()
+    real_place = A.Shards.place
+    monkeypatch.setattr(A.Shards, "local", recorder(A.Shards.local))
+    monkeypatch.setattr(A.Shards, "take", recorder(A.Shards.take))
+    monkeypatch.setattr(A.Shards, "place", place)
+    toks = torch.randint(0, cfg.vocab, (4, 32),
+                         generator=torch.Generator().manual_seed(0))
+    prompts = [t.numpy().astype(np.int32) for t in toks[:, :4]]
+    for kind in ("train", "serve"):
+        rules = make_rules(cfg, mesh, ShapeSpec("t", 32, 4, kind))
+        sp = shard_params(p, specs, rules)
+        owner.update({q.untyped_storage().data_ptr(): name
+                      for name, leaf in sp.items() for q in leaf.parts})
+        with A.use_rules(rules):
+            if kind == "train":
+                loss_fn(cfg, {k: v.like([q.requires_grad_(True)
+                                         for q in v.parts])
+                              for k, v in sp.items()},
+                        dict(tokens=toks, labels=toks))[0].backward()
+            else:
+                serve_lm(cfg, sp, prompts, slots=2, max_new=3, max_seq=8)
+    inner = {k for k, s in specs.items() if "p_inner" in s.logical}
+    assert inner <= {r[0] for r in reads}
+    for name, shape, spec, got, placed in reads:
+        assert name is not None
+        whole = specs[name].shape
+        assert placed or len(shape) == len(whole) - (
+            name.split("/")[0] in ("layers", "mblocks", "sblocks")), name
+        if any("model" in _axes(e) for e in spec):
+            assert np.prod(got) < np.prod(shape), (name, spec, got)
 
 
 def test_mesh_of_one_device_is_the_plain_path():
