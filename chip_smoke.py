@@ -193,7 +193,20 @@ makes the script exit non-zero):
               (a planted head-slice fault flagged); each held against
               one device, every K7 call of the held drives against its
               plain version, with wall time, K7 launches and peak memory
-              by card;
+              by card; then the model axis wider than the heads
+              (``wide_model_path``; 16 shards of one card, the production
+              meshes' model axis): qwen3-1.7b at 4 layers (8 kv heads
+              over 16: K7 at (1, 4096, 1, 1, 128) a shard) prefill (1,
+              4096) and at 2 layers its bf16 grads, musicgen-medium at 4
+              layers (24 heads over 16: every shard all heads) prefill
+              (1, 4096), xlstm-1.3b at 4 layers (4 heads over 8 and 16:
+              P split) prefill (1, 1024) in bf16 and in fp32 at 1e-4
+              with a planted gate-slice control, each against one device
+              with every K7 fwd / bwd call held; the dry run's
+              qwen3-1.7b x prefill_32k x pod1 cell traced on ``meta``;
+              and its (1, 1) train cell against the same step on the
+              card: argument bytes equal to those placed, temp bytes
+              within 0.5-2x the rise of the card's peak memory;
 5. times    — per-kernel CUDA-event, profiler and queued times at each
               kernel's own path's shapes beside the plain version and the
               bound (K1 / K4 also under a sweep of launch plans, and past
@@ -221,6 +234,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -3671,8 +3685,9 @@ def mesh_prefill(cfg, params, mesh, B, S, label, by_path, seed,
     rules = make_rules(cfg, mesh, ShapeSpec("prefill", S, B, "prefill"))
     sp = shard_params(params, M.param_specs(cfg), rules)
     peaks_gb(mesh, reset=True)
-    toks = torch.randint(0, cfg.vocab, (B, S), device=dev,
-                         generator=torch.Generator(device=dev)
+    cb = cfg.n_codebooks or 1
+    toks = torch.randint(0, cfg.vocab, (B, S) + ((cb,) if cb > 1 else ()),
+                         device=dev, generator=torch.Generator(device=dev)
                          .manual_seed(seed))
     batch = dict(tokens=toks)
     prefill = make_prefill_step(cfg)
@@ -3695,22 +3710,26 @@ def mesh_prefill(cfg, params, mesh, B, S, label, by_path, seed,
     del sp
     with torch.no_grad():
         l1 = M.forward(cfg, params, toks)[0]
+    if cb > 1:                     # audio: a codebook's logits a position
+        lm, l1 = lm.flatten(1, 2), l1.flatten(1, 2)
     sound = logit_errors(lm, l1)
-    lp, lx = lm[:, -1].float(), l1[:, -1].float()
+    lp, lx = lm[:, -cb:].float(), l1[:, -cb:].float()
+    if cb == 1:
+        lp, lx = lp[:, 0], lx[:, 0]
     del lm
     rtol, atol, fl = LM_LOGIT_RTOL, LM_LOGIT_TOL, None
     if floor:
         xla = dataclasses.replace(cfg, attn_impl="xla")
         with torch.no_grad():
-            lx_full = M.forward(xla, params, toks)[0]
-            fl = logit_errors(M.forward(reordered(cfg), params, toks)[0],
-                              lx_full)
+            lx_full = M.forward(xla, params, toks)[0].flatten(1, -2)
+            fl = logit_errors(M.forward(reordered(cfg), params, toks)[0]
+                              .flatten(1, -2), lx_full)
         del lx_full
         rtol = max(rtol, 2 * fl["rel"])
         atol = max(atol, 2 * fl["last_abs"])
     del l1
     top2 = lx.topk(2, dim=-1).values
-    gap = top2[:, 0] - top2[:, 1]
+    gap = top2[..., 0] - top2[..., 1]
     same = (lp.argmax(-1) == lx.argmax(-1)) | (gap < atol)
     d = float((lp - lx).abs().max())
     k7 = k7_verdict(label, seen)
@@ -3721,7 +3740,8 @@ def mesh_prefill(cfg, params, mesh, B, S, label, by_path, seed,
     log(f"  {label} on {mesh}: {wall:.3f} s ({B * S / wall:,.0f} tok/s), "
         f"launches {nonzero(c)}; against one device: last position max "
         f"|dlogit| {d:.4g} (tol {atol:.3g}), argmax equal "
-        f"{out['argmax_equal']}/{B}, every position " + json.dumps(sound)
+        f"{out['argmax_equal']}/{lp.shape[0] * cb}, every position "
+        + json.dumps(sound)
         + f" (tol {rtol:.3g}" + ("" if fl is None else
                                  ": twice the floor " + json.dumps(fl))
         + "); K7 held " + json.dumps(k7) + ", peak GB by card "
@@ -4326,6 +4346,173 @@ def hybrid_ssm_mesh_path(dev, by_path):
     log(f"  [hybrid ssm mesh] {info['wall_s']:.1f} s on {mesh} (zamba2-7b "
         f"{info['zamba_wall_s']:.1f} s, xlstm-1.3b "
         f"{info['xlstm_wall_s']:.1f} s)")
+    return info
+
+
+WIDE_MODEL = 16            # the production meshes' model axis
+WIDE_LAYERS = 4
+WIDE_GRAD_LAYERS = 2
+WIDE_PREFILL = (1, 4_096)
+XLSTM_WIDE_MODELS = (8, 16)
+XLSTM_WIDE_SEQ = 1_024
+DRYRUN_CELL = ("qwen3-1.7b", "prefill_32k")
+# the dry run's train cell on one device against the same step on the card
+DRYRUN_CARD_LAYERS = 2
+DRYRUN_CARD_SHAPE = (2, 1_024)
+DRYRUN_TEMP_RATIO = (0.5, 2.0)
+
+
+def wide_mesh(dev, model):
+    """A (1, ``model``) rehearsal mesh: ``model`` shards of ``dev``."""
+    from repro_torch.launch.mesh import make_local_mesh
+    return make_local_mesh(model, device=str(dev), shards=model)
+
+
+def dryrun_on_card(dev) -> dict:
+    """The dry run's train cell for qwen3-1.7b at DRYRUN_CARD_LAYERS
+    layers and DRYRUN_CARD_SHAPE on a (1, 1) layout, traced on ``meta``,
+    against the same step on the card: the argument bytes it counts
+    equal the bytes of the params, AdamW state and batch placed on the
+    card; its temp bytes against the rise of
+    ``torch.cuda.max_memory_allocated`` over the step, their ratio within
+    DRYRUN_TEMP_RATIO."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.models.layers import init_params
+    from repro_torch.training.optimizer import adamw
+    from repro_torch.training.step import make_train_step
+    cfg = dataclasses.replace(configs.get_config("qwen3-1.7b"),
+                              n_layers=DRYRUN_CARD_LAYERS)
+    B, S = DRYRUN_CARD_SHAPE
+    shape = ShapeSpec("card", S, B, "train")
+    one = Mesh([torch.device("meta")], ("data", "model"), (1, 1))
+    fn, args, arg_bytes, rules, _, _ = dryrun.build_lm_cell(
+        "qwen3-1.7b", "train_4k", False, mesh=one, cfg=cfg, shape=shape)
+    stats, _, trace_s = dryrun.trace_cell(fn, args, rules)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    params = init_params(M.param_specs(cfg), 0, device=dev)
+    opt = adamw(total_steps=10_000)
+    state = opt.init(params)
+    batch = {k: torch.randint(0, cfg.vocab, v.shape, dtype=v.dtype,
+                              device=dev,
+                              generator=torch.Generator(device=dev)
+                              .manual_seed(7))
+             for k, v in configs.input_specs(cfg, shape).items()}
+    placed = sum(x.numel() * x.element_size() for x in (
+        list(params.values()) + list(state.mu.values())
+        + list(state.nu.values()) + [state.step] + list(batch.values())))
+    torch.cuda.synchronize(dev)
+    held = torch.cuda.memory_allocated(dev) - base
+    step = make_train_step(cfg, opt)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    out = step(params, state, batch)
+    torch.cuda.synchronize(dev)
+    rise = torch.cuda.max_memory_allocated(dev) - before
+    loss = float(out[2]["loss"])
+    del out, params, state, batch
+    torch.cuda.empty_cache()
+    ratio = stats["peak_bytes"] / rise
+    info = dict(arg_bytes=arg_bytes, placed=placed, allocated=held,
+                temp_bytes=stats["peak_bytes"], peak_rise=rise, ratio=ratio,
+                trace_s=trace_s, flops=stats["flops"], loss=loss)
+    log(f"  dry run on the card: qwen3-1.7b at {cfg.n_layers} layers, "
+        f"train ({B}, {S}) on (1, 1): argument bytes {arg_bytes:,} "
+        f"counted, {placed:,} placed ({held:,} allocated); temp "
+        f"{stats['peak_bytes']:,} counted against the step's peak rise "
+        f"{rise:,}: ratio {ratio:.3f} (limits {DRYRUN_TEMP_RATIO}); loss "
+        f"{loss:.4f}; traced in {trace_s:.2f} s")
+    require(arg_bytes == placed,
+            f"dry run: argument bytes {arg_bytes} != {placed} placed")
+    require(DRYRUN_TEMP_RATIO[0] <= ratio <= DRYRUN_TEMP_RATIO[1],
+            f"dry run: temp bytes / peak rise {ratio:.3f} outside "
+            f"{DRYRUN_TEMP_RATIO}")
+    require(math.isfinite(loss), f"dry run card step: loss {loss}")
+    return info
+
+
+def wide_model_path(dev, by_path):
+    """The model axis wider than the heads, on (1, WIDE_MODEL) and (1, 8)
+    rehearsal meshes of ``dev``'s shards, full widths, random weights
+    (seed 0): qwen3-1.7b at WIDE_LAYERS layers (8 kv heads over 16: a
+    device runs one q head and takes its kv head's columns; K7 at (1,
+    4096, 1, 1, 128) a card) prefill WIDE_PREFILL and, at
+    WIDE_GRAD_LAYERS layers, the bf16 grads; musicgen-medium at
+    WIDE_LAYERS layers (24 heads over 16: every device runs every head)
+    prefill WIDE_PREFILL; xlstm-1.3b at WIDE_LAYERS layers (4 heads over
+    8 and 16: a device runs rows of P in every head) prefill (1,
+    XLSTM_WIDE_SEQ) in bf16 and fp32 at XLSTM_FP32_RTOL (with the planted
+    gate-slice control).  Each against one device at its family's limit,
+    every K7 fwd / bwd call of the held drives against its plain version.
+    Then the dry run: DRYRUN_CELL traced on ``meta`` over the 16 x 16
+    production mesh, and ``dryrun_on_card``."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import init_params
+    t_phase = time.perf_counter()
+    mesh = wide_mesh(dev, WIDE_MODEL)
+    info = {"mesh": str(mesh.shape)}
+    B, S = WIDE_PREFILL
+    for arch, floor in (("qwen3-1.7b", False), ("musicgen-medium", True)):
+        t = time.perf_counter()
+        cfg = dataclasses.replace(configs.get_config(arch), remat=True,
+                                  attn_impl="pallas", n_layers=WIDE_LAYERS)
+        master = init_params(M.param_specs(cfg), 0, device=dev)
+        params = M.cast_params(cfg, master)
+        info[f"{arch}_prefill"] = mesh_prefill(
+            cfg, params, mesh, B, S, f"{arch} prefill ({B}, {S}) pallas "
+            f"wide mesh", by_path, seed=S + 3, floor=floor)
+        del params, master
+        torch.cuda.empty_cache()
+        info[f"{arch}_wall_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    cfg = dataclasses.replace(configs.get_config("qwen3-1.7b"), remat=True,
+                              attn_impl="pallas", n_layers=WIDE_GRAD_LAYERS)
+    master = init_params(M.param_specs(cfg), 0, device=dev)
+    info["qwen3_grads"] = mesh_grads(
+        cfg, master, mesh, by_path,
+        label=f"qwen3-1.7b train grads ({TRAIN_MICRO}, {TRAIN_SEQ}) bf16 "
+              f"wide mesh")
+    del master
+    torch.cuda.empty_cache()
+    info["qwen3_grads_wall_s"] = time.perf_counter() - t
+    xcfg = dataclasses.replace(configs.get_config("xlstm-1.3b"), remat=True,
+                               n_layers=WIDE_LAYERS)
+    master = init_params(M.param_specs(xcfg), 0, device=dev)
+    params = M.cast_params(xcfg, master)
+    del master
+    for model in XLSTM_WIDE_MODELS:
+        t = time.perf_counter()
+        xm = wide_mesh(dev, model)
+        info[f"xlstm_prefill_model{model}"] = mesh_prefill(
+            xcfg, params, xm, 1, XLSTM_WIDE_SEQ,
+            f"xlstm-1.3b prefill (1, {XLSTM_WIDE_SEQ}) wide mesh "
+            f"model={model}", by_path, seed=XLSTM_WIDE_SEQ + model,
+            floor=True)
+        info[f"xlstm_fp32_model{model}"] = xlstm_fp32_mesh(xcfg, xm)
+        info[f"xlstm_model{model}_wall_s"] = time.perf_counter() - t
+    del params
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    rec = dryrun.run_cell(DRYRUN_CELL[0], DRYRUN_CELL[1], False)
+    require(rec["status"] == "ok", f"dry run {DRYRUN_CELL}: {rec}")
+    log(f"  dry run {DRYRUN_CELL[0]} x {DRYRUN_CELL[1]} x pod1 on meta: "
+        + json.dumps({k: rec[k] for k in (
+            "n_devices", "trace_s", "n_ops", "hlo_flops", "hlo_bytes",
+            "memory", "collectives")}))
+    info["dryrun_cell"] = rec
+    info["dryrun_card"] = dryrun_on_card(dev)
+    info["dryrun_wall_s"] = time.perf_counter() - t
+    info["wall_s"] = time.perf_counter() - t_phase
+    log(f"  [wide model] {info['wall_s']:.1f} s: " + json.dumps(
+        {k: round(v, 1) for k, v in info.items() if k.endswith("wall_s")}))
     return info
 
 
@@ -5383,6 +5570,7 @@ def main() -> int:
     ftrain = families_train_path(dev, by_path)
     lm_mesh_path(dev, by_path, train)
     hybrid_ssm_mesh_path(dev, by_path)
+    wide_model_path(dev, by_path)
     log(f"[main] {time.perf_counter() - t0:.1f} s, launches by path "
         f"{json.dumps({k: nonzero(c) for k, c in by_path.items()})}")
     t0 = time.perf_counter()

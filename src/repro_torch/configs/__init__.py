@@ -4,13 +4,16 @@ Twin of ``src/repro/configs/__init__.py``.  Each module defines CONFIG
 (the exact published config) and SMOKE (a reduced same-family config for
 CPU tests); the modules are copies of the reference's, pure data.
 ``cumbe`` is the paper's own workload (an ``MBEWorkload``, not a
-``ModelConfig``).  ``input_specs`` (the dry-run's abstract inputs) and
-the cache sizing ``round_up`` / ``cache_len`` wait for the dry run
-(ROADMAP Queue 1 item 12d).
+``ModelConfig``).  ``input_specs`` builds the stand-ins for every model
+input of an (arch x shape) cell: tensors on the ``meta`` device (the
+reference's ``ShapeDtypeStruct``: a shape and a dtype, no storage), which
+the dry run (``launch/dryrun.py``) traces against.
 """
 from __future__ import annotations
 
 import importlib
+
+import torch
 
 from repro_torch.models.config import ModelConfig, ShapeSpec, SHAPES  # noqa: F401
 
@@ -44,3 +47,50 @@ def get_config(arch: str) -> ModelConfig:
 def get_smoke(arch: str) -> ModelConfig:
     return _mod(arch).SMOKE
 
+
+
+def round_up(x: int, mult: int) -> int:
+    return (x + mult - 1) // mult * mult
+
+
+def cache_len(cfg: ModelConfig, shape: ShapeSpec) -> int:
+    """Decode KV-cache capacity: seq (+ vlm patch prefix), padded so any
+    sequence sharding in the production meshes divides."""
+    return round_up(shape.seq_len + cfg.patch_tokens, 1024)
+
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """``meta`` tensors of the reference's shapes and dtypes for every
+    input of (arch x shape): tokens (and labels, patch embeddings) for
+    train / prefill; the cache, tokens and position for decode.  Nothing
+    is allocated."""
+    from repro_torch.models import model as M
+
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    tok_shape = (B, S, cfg.n_codebooks) if cfg.n_codebooks else (B, S)
+
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": _meta(tok_shape, i32)}
+        if shape.kind == "train":
+            specs["labels"] = _meta(tok_shape, i32)
+        if cfg.family == "vlm":
+            specs["patch_emb"] = _meta((B, cfg.patch_tokens, cfg.d_model),
+                                       _DTYPES[cfg.dtype])
+        return specs
+
+    assert shape.kind == "decode"
+    tok = (B, cfg.n_codebooks) if cfg.n_codebooks else (B,)
+    return {
+        "cache": {k: _meta(shp, dt) for k, (shp, dt) in
+                  M.cache_specs(cfg, B, cache_len(cfg, shape)).items()},
+        "tokens": _meta(tok, i32),
+        "pos": _meta((), i32),
+    }

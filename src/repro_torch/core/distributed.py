@@ -162,6 +162,31 @@ def _deal_strided(flat: torch.Tensor, total: torch.Tensor, n_workers: int,
     return tasks.to(_I32), take.sum(dim=1, dtype=_I32)
 
 
+def context_specs(cfg: ed.EngineConfig) -> ed.GraphContext:
+    """``meta`` stand-ins of the device-resident graph, the reference's
+    shapes and dtypes (packed words uint32): the dry run's arguments
+    (``launch/dryrun.py``).  Dense engine only, as the reference's."""
+    def m(shape, dt):
+        return torch.empty(shape, dtype=dt, device="meta")
+    return ed.GraphContext(
+        adj=m((cfg.n_u, cfg.wv), torch.uint32),
+        order=m((cfg.n_u,), _I32), rank=m((cfg.n_u,), _I32),
+        l_root=m((cfg.wv,), torch.uint32),
+        root_counts=m((cfg.n_u,), _I32))
+
+
+def state_specs(cfg: ed.EngineConfig, n_workers: int) -> ed.DenseState:
+    """``meta`` stand-ins of the stacked worker state (dim 0 the
+    workers): ``init_state``'s leaves, the reference's dtypes (packed
+    words uint32).  Dense engine only, like ``context_specs``."""
+    s = ed.init_state(cfg, np.zeros(cfg.m_real, np.int32), device="meta")
+    return ed.DenseState(*(
+        torch.empty((n_workers,) + tuple(x.shape), device="meta",
+                    dtype=torch.uint32 if name in ed.WORD_LEAVES
+                    else x.dtype)
+        for name, x in zip(ed.DenseState._fields, s)))
+
+
 def make_round_fn(cfg: ed.EngineConfig, mesh: Mesh,
                   axis_names: tuple[str, ...],
                   dist: DistConfig = DistConfig(),

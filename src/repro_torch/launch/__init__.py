@@ -1,2 +1,3 @@
 """Launchers of the port (twin of ``src/repro/launch``): the LM mode of
-``serve``, ``train`` and the work-stealing MBE launcher ``mbe_run``."""
+``serve``, ``train``, the work-stealing MBE launcher ``mbe_run``, and
+the dry run ``dryrun`` (with its operator counter ``hlo_stats``)."""

@@ -8,8 +8,10 @@ device when one is built.  ``make_local_mesh`` lays the LM's ``(data,
 model)`` mesh over every visible card, over N shards of the CPU device
 (the port's counterpart of the reference tests' forced host devices) or,
 with ``shards=``, over N shards of one card (a rehearsal of a
-several-card mesh on one card).  ``make_production_mesh`` (the 16 x 16
-pod layout) waits for the dry run (ROADMAP Queue 1 item 12d).
+several-card mesh on one card).  ``make_production_mesh`` is the
+reference's pod layout, 16 x 16 (two pods: 2 x 16 x 16), over entries of
+one device, by default ``meta``: the dry run (``launch/dryrun.py``)
+traces a cell on it, allocating nothing.
 """
 from __future__ import annotations
 
@@ -109,6 +111,15 @@ def local_devices(device="cuda") -> list[torch.device]:
         return [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
     return [torch.device("cpu")]
+
+
+def make_production_mesh(multi_pod: bool = False, device="meta") -> Mesh:
+    """16 x 16 = 256 chips a pod over ``("data", "model")``; ``multi_pod``
+    adds a leading 2-pod axis, ``("pod", "data", "model")``.  Every entry
+    is ``device`` (``meta``: shapes and dtypes, no storage)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh([torch.device(device)] * math.prod(shape), axes, shape)
 
 
 def make_local_mesh(model: int = 1, device="cuda",

@@ -58,6 +58,14 @@ def init_params(specs: dict[str, ParamSpec], seed: int = 0, *,
             for name, spec in sorted(specs.items())}
 
 
+def abstract_params(specs: dict[str, ParamSpec]) -> dict[str, torch.Tensor]:
+    """fp32 stand-ins of the parameters on the ``meta`` device (the
+    reference's ``ShapeDtypeStruct``s): shapes and dtypes, no storage and
+    no draw (``torch.Generator`` takes no ``meta`` device)."""
+    return {n: torch.empty(s.shape, dtype=torch.float32, device="meta")
+            for n, s in specs.items()}
+
+
 # ---------------------------------------------------------------------------
 # parameters over a mesh
 # ---------------------------------------------------------------------------

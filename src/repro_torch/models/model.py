@@ -34,7 +34,11 @@ of ``sharding/collectives.py`` between them:
 * ``wq`` / ``wk`` / ``wv`` and ``w1`` / ``w3`` are split by columns over
   ``model``, so a device runs its heads (and its K7 calls on them) and
   its ff columns; ``wo`` / ``w2`` are split by rows, and their partial
-  sums are all-reduced over ``model``;
+  sums are all-reduced over ``model``.  Where ``model`` does not divide
+  the kv heads (8 at model=16) a device takes the ``wk`` / ``wv``
+  columns of the kv heads its q heads read; where it does not divide
+  the q heads either (24 at model=16) every device runs every head, ``wq``
+  / ``wk`` / ``wv`` taken whole, and its rows of ``wo`` (``_attn_plan``);
 * moe: a device runs its ``E / m`` experts (``p_expert``) over its
   group's tokens, and the outputs are summed over ``model``;
 * the token embedding and the LM head are split over the vocab
@@ -68,7 +72,13 @@ of ``sharding/collectives.py`` between them:
   state; the Mamba2 conv cache stays split over d_inner + 2N as the
   reference's (each device takes its channels and puts them back), the
   xLSTM's state is laid out over its heads (``mesh_cache_axes``;
-  ROADMAP Queue 3).
+  ROADMAP Queue 3).  Where ``model`` does not divide the ssm family's
+  heads (xlstm-1.3b's 4 at model=8 or 16) a device runs its rows of P,
+  the head dim, in every head, the reference's split
+  (``_mesh_mlstm_rows``), and the sLSTM runs every head on every device.
+
+Under ``sharding.axes.lead()`` (the dry run, ``launch/dryrun.py``) every
+per-device computation is ``each(mesh, fn)``: device 0's share alone.
 
 The ``act_seq`` dim stays whole (the reference shards it, Megatron
 sequence parallelism; ROADMAP Queue 3), so the :234 ``q`` site and the
@@ -101,12 +111,15 @@ from repro_torch.models.layers import (ParamSpec, apply_rope, rms_norm,
                                        rms_norm_split, sum_squares, swiglu)
 from repro_torch.models.moe import moe_aux, moe_ffn
 from repro_torch.sharding import collectives as C
-from repro_torch.sharding.axes import (NamedSharding, constrain, leaf_like,
-                                       leaf_parts, mesh_rules, named_sharding,
-                                       use_rules)
+from repro_torch.sharding.axes import (NamedSharding, constrain, each,
+                                       leaf_like, leaf_parts, mesh_rules,
+                                       named_sharding, run_range, use_rules)
 from repro_torch.models.ssm import mamba2_block, mamba2_cols, mamba2_mix
-from repro_torch.models.xlstm import (mlstm_block, mlstm_proj, mlstm_scan,
-                                      slstm_block, slstm_cells, slstm_up)
+from repro_torch.models.xlstm import (mlstm_block, mlstm_chunk_read,
+                                      mlstm_chunk_sums, mlstm_proj,
+                                      mlstm_scan, mlstm_step_read,
+                                      mlstm_step_sums, slstm_block,
+                                      slstm_cells, slstm_up)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # the families of pre-norm attention blocks with a KV cache a layer
@@ -280,6 +293,10 @@ def param_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
     return specs
 
 
+def param_logical_axes(cfg: ModelConfig) -> dict[str, tuple]:
+    return {k: v.logical for k, v in param_specs(cfg).items()}
+
+
 def cast_params(cfg: ModelConfig, params: dict) -> dict:
     """The fp32 masters cast once to ``cfg.dtype`` (matrices only; the
     1-D scales, ``a_log`` and ``d_skip`` stay fp32).  Same numbers as the
@@ -327,9 +344,12 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
 
 
 def _attn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                pos: torch.Tensor) -> torch.Tensor:
+                pos: torch.Tensor, rows: tuple[int, int] | None = None
+                ) -> torch.Tensor:
     """Prefill attention sub-block (pre-norm residual inside).
-    x: (B, S, d) -> (B, S, d)."""
+    x: (B, S, d) -> (B, S, d).  ``rows``: the rows [r0, r1) of the whole
+    ``wo`` that ``p["wo"]`` holds, the heads' outputs cut to them (a
+    device that runs every head, ``wo`` split by rows)."""
     B, S, _ = x.shape
     q, k, v = _qkv(cfg, p, x)
     q = apply_rope(q, pos, cfg.rope_theta)
@@ -344,7 +364,10 @@ def _attn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     else:
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}; expected "
                          f"'xla' or 'pallas'")
-    return o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+    o = o.reshape(B, S, -1)
+    if rows is not None:
+        o = o[..., rows[0]:rows[1]]
+    return o @ p["wo"].to(x.dtype)
 
 
 def _qkv_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -369,7 +392,11 @@ def _cache_write(kc: torch.Tensor, vc: torch.Tensor, k: torch.Tensor,
     total = Sl if total is None else total
     slot = torch.arange(k.shape[0], device=k.device)
     at = torch.clamp(pos, max=total - 1)
-    if total != Sl:                       # one shard of the sequence
+    if total != Sl and kc.is_meta:
+        # the dry run: meta tensors hold no positions to select by, so
+        # every slot writes a row (the most the selected write moves)
+        at = torch.clamp(at - off, 0, Sl - 1)
+    elif total != Sl:                     # one shard of the sequence
         sel = (at >= off) & (at < off + Sl)
         slot, at, k, v = slot[sel], at[sel] - off, k[sel], v[sel]
     kc[slot, at] = k.to(kc.dtype)
@@ -624,13 +651,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     if r is not None:
         if cfg.family in ("hybrid", "ssm"):
             _inner(cfg, r)
-        axes = mesh_cache_axes(cfg)
+        axes = mesh_cache_axes(cfg, r)
         out = {}
         for name, (shape, dt) in specs.items():
             sh = named_sharding(axes[name], r)
-            out[name] = [torch.zeros(_local_shape(sh, shape, k), dtype=dt,
-                                     device=r.mesh.devices[k])
-                         for k in range(r.mesh.size)]
+            out[name] = each(r.mesh, lambda k: torch.zeros(
+                _local_shape(sh, shape, k), dtype=dt,
+                device=r.mesh.devices[k]))
         return out
     dev = check_device(device)
     return {name: torch.zeros(shape, dtype=dt, device=dev)
@@ -769,36 +796,118 @@ def _fsdp(r) -> tuple[str, ...]:
     return _ax(r.table.get("p_embed"))
 
 
-def _local_cfg(cfg: ModelConfig, r) -> ModelConfig:
-    """The config one device computes with: its share of the heads and
-    kv heads (``p_heads`` / ``p_kv`` split ``wq`` / ``wk`` / ``wv`` by
-    columns)."""
-    mh = r.mesh.shape_of(_ax(r.table["p_heads"]))
-    mk = r.mesh.shape_of(_ax(r.table["p_kv"]))
-    if cfg.n_heads % mh or cfg.n_kv % mk or mh != mk:
+@dataclasses.dataclass(frozen=True)
+class _AttnPlan:
+    """How the devices of a mesh split the attention heads
+    (``_attn_plan``): ``mode`` is
+
+    * ``"heads"``: the model axes ``ax`` (``m`` devices) divide the q and
+      the kv heads; a device runs its ``H / m`` q and ``KV / m`` kv
+      heads, its shards of ``wq`` / ``wk`` / ``wv`` (columns) and ``wo``
+      (rows);
+    * ``"kv"``: they divide the q heads but not the kv heads (8 kv heads
+      at model=16); a device runs its ``H / m`` q heads and the kv heads
+      they read, whose ``wk`` / ``wv`` columns it takes from the shards
+      that hold them (``Shards.take``; ``kv_of(c)``);
+    * ``"all"``: they do not divide the q heads (24 at model=16); every
+      device runs every head, ``wq`` / ``wk`` / ``wv`` taken whole a
+      layer at a time, and multiplies its rows of the heads' outputs by
+      its rows of ``wo``.
+
+    ``lc`` is the config one device computes with."""
+    mode: str
+    ax: tuple[str, ...]
+    m: int
+    lc: ModelConfig
+
+    def heads(self, c: int) -> tuple[int, int]:
+        """The q heads [h0, h1) of the device at index ``c`` over ``ax``."""
+        if self.mode == "all":
+            return 0, self.lc.n_heads
+        return c * self.lc.n_heads, (c + 1) * self.lc.n_heads
+
+    def kv_of(self, cfg: ModelConfig, c: int) -> list[int]:
+        """The kv heads, in ``lc``'s order, of the device at index ``c``:
+        the one kv head of all its q heads, or one a q head."""
+        h0, h1 = self.heads(c)
+        G = cfg.n_heads // cfg.n_kv
+        if self.mode == "heads":
+            return list(range(c * self.lc.n_kv, (c + 1) * self.lc.n_kv))
+        if self.mode == "all":
+            return list(range(cfg.n_kv))
+        kv = [h // G for h in range(h0, h1)]
+        return kv[:1] if self.lc.n_kv == 1 else kv
+
+
+def _attn_plan(cfg: ModelConfig, r) -> _AttnPlan:
+    """The attention heads' split over ``p_heads``' axes (``_AttnPlan``).
+    ``make_rules`` keeps ``p_heads`` / ``p_kv`` on ``model`` whatever the
+    heads, and drops ``act_heads`` / ``act_kv`` where the axis does not
+    divide them (the reference's GSPMD then gathers or replicates what
+    a device needs); the port runs every such table."""
+    ax = _ax(r.table["p_heads"])
+    if _ax(r.table["p_kv"]) != ax:
         raise NotImplementedError(
-            f"{cfg.name}: {cfg.n_heads} heads / {cfg.n_kv} kv heads do not "
-            f"split over the model axis ({mh} / {mk} ways); the port splits "
-            f"whole heads")
-    return dataclasses.replace(cfg, n_heads=cfg.n_heads // mh,
-                               n_kv=cfg.n_kv // mk, head_dim=cfg.hd)
+            f"{cfg.name}: p_heads {ax} and p_kv {r.table['p_kv']} differ")
+    m = r.mesh.shape_of(ax)
+    H, KV, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    if H % m:
+        return _AttnPlan("all", ax, m, dataclasses.replace(
+            cfg, head_dim=hd))
+    hl = H // m
+    if KV % m == 0:
+        return _AttnPlan("heads", ax, m, dataclasses.replace(
+            cfg, n_heads=hl, n_kv=KV // m, head_dim=hd))
+    G = H // KV
+    # one kv head serves all of a device's q heads when they lie inside
+    # one group (hl divides G); else each q head takes its own kv head
+    kvl = 1 if G % hl == 0 else hl
+    return _AttnPlan("kv", ax, m, dataclasses.replace(
+        cfg, n_heads=hl, n_kv=kvl, head_dim=hd))
+
+
+def _attn_views(cfg: ModelConfig, plan: _AttnPlan, ap: dict, k: int,
+                gather) -> dict:
+    """Device ``k``'s attention weights under ``plan``: its shards, with
+    ``wk`` / ``wv`` (``"kv"``: its kv heads' columns) or ``wq`` / ``wk`` /
+    ``wv`` (``"all"``: whole) taken from the shards that hold them."""
+    if plan.mode == "heads":
+        return _views(ap, k, gather)
+    hd = cfg.hd
+    mesh = ap["wq"].sharding.mesh
+    taken = ("wk", "wv") if plan.mode == "kv" else ("wq", "wk", "wv")
+    out = _views({n: w for n, w in ap.items() if n not in taken}, k, gather)
+    kv = plan.kv_of(cfg, _chunk(mesh, k, plan.ax))
+    for n in taken:
+        cols = ([(0, ap[n].shape[1])] if plan.mode == "all"
+                else [(j * hd, (j + 1) * hd) for j in kv])
+        out[n] = ap[n].take(k, 1, cols, gather)
+    return out
 
 
 def _inner(cfg: ModelConfig, r) -> tuple[tuple[str, ...], int]:
     """(axes, heads a device) of the hybrid's SSM heads or the ssm
     family's heads, split over ``p_inner``'s axes (``act_inner``'s, the
     same in every table): a device runs whole heads.  Where the axes do
-    not divide the heads (xlstm-1.3b's 4 at model=8 or 16, which the
-    reference runs by splitting P) it raises: ROADMAP item 12f."""
+    not divide the ssm family's heads (xlstm-1.3b's 4 at model=8 or 16)
+    the heads a device is 0: each device runs its rows of P, the head
+    dim, in every head (``_mesh_mlstm_rows``), as the reference splits
+    P.  (``make_rules`` keeps ``p_inner`` only on axes that divide the
+    hybrid's heads and the ssm family's P.)"""
     heads = cfg.ssm_heads if cfg.family == "hybrid" else cfg.n_heads
     ax = _ax(r.table.get("p_inner"))
     n = r.mesh.shape_of(ax)
-    if _ax(r.table.get("act_inner")) != ax or heads % n:
+    if _ax(r.table.get("act_inner")) != ax:
         raise NotImplementedError(
-            f"{cfg.name}: {heads} heads over p_inner {ax} ({n} ways), "
-            f"act_inner {r.table.get('act_inner')}: the port splits whole "
-            f"heads over one layout (ROADMAP item 12f)")
-    return ax, heads // n
+            f"{cfg.name}: p_inner {ax} and act_inner "
+            f"{r.table.get('act_inner')} differ")
+    if heads % n == 0:
+        return ax, heads // n
+    P = cfg.mlstm_proj * cfg.d_model // heads
+    if cfg.family == "ssm" and P % n == 0:
+        return ax, 0
+    raise NotImplementedError(
+        f"{cfg.name}: {heads} heads over p_inner {ax} ({n} ways)")
 
 
 def _heads(mesh, k: int, ax, hl: int) -> tuple[int, int]:
@@ -808,14 +917,18 @@ def _heads(mesh, k: int, ax, hl: int) -> tuple[int, int]:
     return h0, h0 + hl
 
 
-def mesh_cache_axes(cfg: ModelConfig) -> dict:
+def mesh_cache_axes(cfg: ModelConfig, r=None) -> dict:
     """The logical axes of every cache leaf on a mesh: the reference's
     (``cache_logical_axes``) but the ssm family's recurrent state, laid
     out over its heads (``act_inner``) where the reference splits the
     mLSTM's P and replicates the rest (ROADMAP Queue 3): a device runs
-    whole heads and reads and writes only its own state."""
+    whole heads and reads and writes only its own state.  Under rules
+    ``r`` whose axes do not divide the heads (``_inner``'s 0 heads a
+    device) a device runs rows of P, and the state is laid out as the
+    reference's: ``mC`` / ``mn`` their P rows a device, the rest
+    whole."""
     axes = cache_logical_axes(cfg)
-    if cfg.family == "ssm":
+    if cfg.family == "ssm" and (r is None or _inner(cfg, r)[1]):
         heads = (None, "cache_batch", "act_inner")
         axes.update(mC=heads + (None, None), mn=heads + (None,), mm=heads)
         if cfg.slstm_every:
@@ -857,34 +970,37 @@ def _mesh_embed(cfg: ModelConfig, params: dict, toks: list, r, dtype,
     vdim = 1 if cfg.family == "audio" else 0
     vax = _ax(emb.sharding.spec[vdim])
     n_cb = cfg.n_codebooks if cfg.family == "audio" else 1
-    rows = [[] for _ in range(n_cb)]
-    for k in range(mesh.size):
+
+    def lookup(k):
         e = emb.local(k, gather)
         v0, nv = _offset(emb, vdim, k), e.shape[vdim]
         t = toks[k].long() - v0
         hit = (t >= 0) & (t < nv)
         t = t.clamp(0, nv - 1)
+        out = []
         for i in range(n_cb):
             if cfg.family == "audio":
                 x = torch.where(hit[..., i, None], e[i][t[..., i]], 0)
             else:
                 x = torch.where(hit[..., None], e[t], 0)
-            rows[i].append(x.to(e.dtype))
-    looked = [C.all_reduce(x, mesh, vax) for x in rows]
-    return [sum(x[k] for x in looked).to(dtype) if n_cb > 1
-            else looked[0][k].to(dtype) for k in range(mesh.size)]
+            out.append(x.to(e.dtype))
+        return out
+    rows = each(mesh, lookup)
+    looked = [C.all_reduce([x[i] for x in rows], mesh, vax)
+              for i in range(n_cb)]
+    return each(mesh, lambda k: sum(x[k] for x in looked).to(dtype)
+                if n_cb > 1 else looked[0][k].to(dtype))
 
 
 def _lm_heads(cfg: ModelConfig, params: dict, xs: list, gather) -> list:
     """final norm + each device's vocab columns of the LM head."""
-    out = []
+    def head(k):
+        x = rms_norm(xs[k], params["final_norm/scale"].local(k, gather),
+                     cfg.norm_eps)
+        return _lm_head(cfg, {"lm_head/w": params["lm_head/w"]
+                              .local(k, gather)}, x)
     with use_rules(None):
-        for k, x in enumerate(xs):
-            x = rms_norm(x, params["final_norm/scale"].local(k, gather),
-                         cfg.norm_eps)
-            out.append(_lm_head(cfg, {"lm_head/w": params["lm_head/w"]
-                                      .local(k, gather)}, x))
-    return out
+        return each(params["lm_head/w"].sharding.mesh, head)
 
 
 def gather_logits(parts: list, r) -> torch.Tensor:
@@ -912,16 +1028,22 @@ def _batch_mean(xs: list, r) -> torch.Tensor:
 
 # ---- the sub-blocks, every device's share -------------------------------
 
-def _mesh_attn(cfg, lc, r, ap, xs, pos, gather) -> list:
+def _mesh_attn(cfg, plan, r, ap, xs, pos, gather) -> list:
     """Prefill attention (pre-norm residual): a device runs its heads
-    (``lc``, its K7 calls on them) and ``wo``'s partial sums are
+    under ``plan`` (``plan.lc``, its K7 calls on them; the weights it
+    takes inside its remat frame) and ``wo``'s partial sums are
     all-reduced."""
     def attn(k, x):
         with use_rules(None):
-            return _attn_apply(lc, _views(ap, k, gather), x, pos[k])
-    outs = [_remat(cfg, attn, k, x) for k, x in enumerate(xs)]
+            p = _attn_views(cfg, plan, ap, k, gather)
+            rows = None
+            if plan.mode == "all":              # this device's rows of wo
+                r0 = _offset(ap["wo"], 0, k)
+                rows = (r0, r0 + p["wo"].shape[0])
+            return _attn_apply(plan.lc, p, x, pos[k], rows)
+    outs = each(r.mesh, lambda k: _remat(cfg, attn, k, xs[k]))
     red = C.all_reduce(outs, r.mesh, _ax(ap["wo"].sharding.spec[0]))
-    return [x + o for x, o in zip(xs, red)]
+    return each(r.mesh, lambda k: xs[k] + red[k])
 
 
 def _mesh_ffn(cfg, lc, r, fp, xs, gather) -> tuple[list, torch.Tensor]:
@@ -938,71 +1060,81 @@ def _mesh_ffn(cfg, lc, r, fp, xs, gather) -> tuple[list, torch.Tensor]:
                               experts=_experts(fp, k), stats=True)
     aux = None
     if cfg.is_moe:
-        outs, stats = zip(*[_remat(cfg, moe, k, x)
-                            for k, x in enumerate(xs)])
+        outs, stats = zip(*each(r.mesh,
+                                lambda k: _remat(cfg, moe, k, xs[k])))
         aux = moe_aux(_batch_mean([s[0] for s in stats], r),
                       _batch_mean([s[1] for s in stats], r), cfg.top_k)
     else:
-        outs = [_remat(cfg, mlp, k, x) for k, x in enumerate(xs)]
+        outs = each(r.mesh, lambda k: _remat(cfg, mlp, k, xs[k]))
     red = C.all_reduce(list(outs), r.mesh, _ax(fp["w2"].sharding.spec[0]))
-    return [x + o for x, o in zip(xs, red)], aux
+    return each(r.mesh, lambda k: xs[k] + red[k]), aux
 
 
-def _mesh_attn_decode(r, lc, ap, xs, poss, kcs, vcs, gather) -> list:
+def _mesh_attn_decode(cfg, r, plan, ap, xs, poss, kcs, vcs, gather) -> list:
     """One-token attention (pre-norm residual) on every device; ``kcs`` /
     ``vcs``: each device's part of this layer's KV cache, written in
     place.  With ``act_kv`` split a device attends over its kv heads;
     with ``cache_seq`` split every device attends over its chunk of the
-    sequence for all heads (q, k, v gathered over the head axes) and the
-    chunks merge by logsumexp (flash-decode)."""
+    sequence for all heads (q, k, v gathered over the head axes, each kv
+    head once; under ``plan.mode == "all"`` every device has them all)
+    and the chunks merge by logsumexp (flash-decode)."""
     mesh, n = r.mesh, r.mesh.size
     seq_ax = _ax(r.table.get("cache_seq"))
-    head_ax = _ax(r.table["p_heads"])
-    local_heads = r.table.get("act_kv") is not None \
-        or mesh.shape_of(head_ax) == 1
+    head_ax = plan.ax
+    local_heads = plan.mode == "heads" and (
+        r.table.get("act_kv") is not None or plan.m == 1)
     n_seq = mesh.shape_of(seq_ax)
     with use_rules(None):
-        qkv = [_qkv_decode(lc, _views(ap, k, gather), xs[k], poss[k])
-               for k in range(n)]
-    if not local_heads:                       # every head on every device
-        qkv = list(zip(*(C.all_gather(list(t), mesh, head_ax, dim=1)
-                         for t in zip(*qkv))))
-    outs = []
+        qkv = each(mesh, lambda k: _qkv_decode(
+            plan.lc, _attn_views(cfg, plan, ap, k, gather), xs[k], poss[k]))
+    if not local_heads and plan.mode != "all":   # every head everywhere
+        qkv = [list(t) for t in zip(*(C.all_gather(list(t), mesh, head_ax,
+                                                   dim=1)
+                                      for t in zip(*qkv)))]
+        if plan.mode == "kv":                 # each kv head once, in order
+            owner = [j for c in range(plan.m) for j in plan.kv_of(cfg, c)]
+            idx = [owner.index(j) for j in range(cfg.n_kv)]
+
+            def dedup(k):
+                sel = torch.tensor(idx, device=qkv[k][1].device)
+                return [qkv[k][0], qkv[k][1][:, sel], qkv[k][2][:, sel]]
+            qkv = each(mesh, dedup)
+
+    def attend(k):
+        q, kk, v = qkv[k]
+        kc, vc = kcs[k], vcs[k]
+        off = _chunk(mesh, k, seq_ax) * kc.shape[1]
+        _cache_write(kc, vc, kk, v, poss[k], off, kc.shape[1] * n_seq)
+        return (decode_attention(q, kc, vc, poss[k]) if n_seq == 1 else
+                decode_partial(q, kc, vc, poss[k], off))
+
+    def project(k):
+        o = outs[k].reshape(outs[k].shape[0], -1)
+        wo = ap["wo"].local(k, gather)
+        if not local_heads:                   # this device's rows of wo
+            r0 = _offset(ap["wo"], 0, k)
+            o = o[:, r0:r0 + wo.shape[0]]
+        return o @ wo.to(o.dtype)
     with use_rules(None):
-        for k in range(n):
-            q, kk, v = qkv[k]
-            kc, vc = kcs[k], vcs[k]
-            off = _chunk(mesh, k, seq_ax) * kc.shape[1]
-            _cache_write(kc, vc, kk, v, poss[k], off, kc.shape[1] * n_seq)
-            outs.append(decode_attention(q, kc, vc, poss[k])
-                        if n_seq == 1 else
-                        decode_partial(q, kc, vc, poss[k], off))
+        outs = each(mesh, attend)
     if n_seq > 1:                             # flash-decode's combine
-        outs = [combine_partials([tuple(t.to(mesh.devices[k])
-                                        for t in outs[j])
-                                  for j in mesh.group(k, seq_ax)],
-                                 qkv[k][0].dtype) for k in range(n)]
+        outs = each(mesh, lambda k: combine_partials(
+            [tuple(t.to(mesh.devices[k]) for t in outs[j])
+             for j in mesh.group(k, seq_ax)], qkv[k][0].dtype))
     with use_rules(None):
-        for k in range(n):
-            o = outs[k].reshape(outs[k].shape[0], -1)
-            wo = ap["wo"].local(k, gather)
-            if not local_heads:               # this device's rows of wo
-                r0 = _offset(ap["wo"], 0, k)
-                o = o[:, r0:r0 + wo.shape[0]]
-            outs[k] = o @ wo.to(o.dtype)
+        outs = each(mesh, project)
     red = C.all_reduce(outs, mesh, _ax(ap["wo"].sharding.spec[0]))
-    return [x + o for x, o in zip(xs, red)]
+    return each(mesh, lambda k: xs[k] + red[k])
 
 
 def _mesh_ffn_decode(cfg, lc, r, fp, xs, gather) -> list:
     """The FFN sub-block on one token a slot, every device's share."""
     with use_rules(None):
-        outs = [_ffn_decode(lc, _views(fp, k, gather), x,
-                            **(dict(experts=_experts(fp, k))
-                               if cfg.is_moe else {}))
-                for k, x in enumerate(xs)]
+        outs = each(r.mesh, lambda k: _ffn_decode(
+            lc, _views(fp, k, gather), xs[k],
+            **(dict(experts=_experts(fp, k)) if cfg.is_moe else {})))
     red = C.all_reduce(outs, r.mesh, _ax(fp["w2"].sharding.spec[0]))
-    return [x + o for x, o in zip(xs, red)]
+    return each(r.mesh, lambda k: xs[k] + red[k])
 
 
 def _mesh_mamba(cfg, r, lp, xs, gather, cache=None, i=None) -> list:
@@ -1048,9 +1180,10 @@ def _mesh_mamba(cfg, r, lp, xs, gather, cache=None, i=None) -> list:
             y = rms_norm_split(y, ss, cfg.d_inner, s, cfg.norm_eps)
             return y @ w.to(y.dtype)
 
-    mixed = [_remat(cfg, mix, k, x) for k, x in enumerate(xs)]
+    mixed = each(mesh, lambda k: _remat(cfg, mix, k, xs[k]))
     if decode:                         # every device has read: write back
-        for k, (_, _, (sh, cv)) in enumerate(mixed):
+        for k in run_range(mesh):
+            sh, cv = mixed[k][2]
             cache["ssm_h"][k][i].copy_(sh)
             own = cols[k]["conv_w"]          # its x channels, then B / C
             if mesh.group(k, ax)[0] != k:    # B / C: the group's first
@@ -1058,10 +1191,9 @@ def _mesh_mamba(cfg, r, lp, xs, gather, cache=None, i=None) -> list:
             C.put(convs, mesh, k, ax, 2, own,
                   cv[..., :sum(b - a for a, b in own)])
     tot = C.all_reduce([m[1] for m in mixed], mesh, ax)
-    outs = [_remat(cfg, out, k, m[0], t)
-            for k, (m, t) in enumerate(zip(mixed, tot))]
+    outs = each(mesh, lambda k: _remat(cfg, out, k, mixed[k][0], tot[k]))
     red = C.all_reduce(outs, mesh, ax)
-    return [x + o for x, o in zip(xs, red)]
+    return each(mesh, lambda k: xs[k] + red[k])
 
 
 def _fp32_partial(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -1076,7 +1208,8 @@ def _sum_fp32(parts: list, r, axes, dtype) -> list:
     once.  The xLSTM blocks sum their partial products so: their
     exponential gates amplify the rounding of every bf16 part (PERF.md
     §6 has the logits on the card both ways)."""
-    return [x.to(dtype) for x in C.all_reduce(parts, r.mesh, axes)]
+    red = C.all_reduce(parts, r.mesh, axes)
+    return each(r.mesh, lambda k: red[k].to(dtype))
 
 
 def _mesh_mlstm(cfg, r, lp, xs, gather, state=None) -> tuple[list, list]:
@@ -1092,6 +1225,8 @@ def _mesh_mlstm(cfg, r, lp, xs, gather, state=None) -> tuple[list, list]:
     Returns (xs, new states)."""
     mesh, n = r.mesh, r.mesh.size
     ax, hl = _inner(cfg, r)
+    if not hl:
+        return _mesh_mlstm_rows(cfg, r, lp, xs, gather, state)
     H = cfg.n_heads
     di = cfg.mlstm_proj * cfg.d_model
     P = di // H
@@ -1131,16 +1266,135 @@ def _mesh_mlstm(cfg, r, lp, xs, gather, state=None) -> tuple[list, list]:
             h = rms_norm_split(h, ss, di, s, cfg.norm_eps) * F.silu(z)
             return _fp32_partial(h, w)
 
-    pr = [_remat(cfg, proj, k, x) for k, x in enumerate(xs)]
+    pr = each(mesh, lambda k: _remat(cfg, proj, k, xs[k]))
     gates = _sum_fp32([t[3] for t in pr], r, ax, xs[0].dtype)
-    sc = [_remat(cfg, scan, k, *t[:3], g)
-          for k, (t, g) in enumerate(zip(pr, gates))]
+    sc = each(mesh, lambda k: _remat(cfg, scan, k, *pr[k][:3], gates[k]))
     tot = C.all_reduce([t[1] for t in sc], mesh, ax)
-    outs = [_remat(cfg, out, k, t[0], ss, p[4])
-            for k, (t, ss, p) in enumerate(zip(sc, tot, pr))]
+    outs = each(mesh, lambda k: _remat(cfg, out, k, sc[k][0], tot[k],
+                                       pr[k][4]))
     red = _sum_fp32(outs, r, ax, xs[0].dtype)
     new = [(t[2], p[5]) for t, p in zip(sc, pr)] if decode else None
-    return [x + o for x, o in zip(xs, red)], new
+    return each(mesh, lambda k: xs[k] + red[k]), new
+
+
+def _mesh_mlstm_rows(cfg, r, lp, xs, gather, state=None
+                     ) -> tuple[list, list]:
+    """One mLSTM layer where the model axes ``ax`` (m devices) do not
+    divide the heads (ROADMAP item 12f): device ``k`` at index c over
+    ``ax`` runs rows R = [c P / m, (c + 1) P / m) of P in every head, as
+    the reference splits P:
+
+    * its channels (head h's rows R, h = 0 .. H-1) of ``up_proj`` (``xm``
+      and ``z``), ``conv_w``, ``wi`` / ``wf``, ``norm_inner`` and
+      ``down_proj`` taken from the shards that hold them, and its shard
+      of ``wq`` / ``wk`` / ``wv``, whose P input rows ``p_inner`` splits:
+      R of every head;
+    * q, k, v over its rows are partial sums: q and k reduce-scattered to
+      their columns R, v all-reduced whole, the gates all-reduced (all in
+      fp32, rounded once: ``_sum_fp32``'s rule);
+    * the state's rows R (``C[R, :]``, ``n[R]``; ``m`` on every device)
+      advance with no collective; the sums over p that read the state
+      (``qk``, ``h``'s inter-chunk term and the denominator's) are
+      partial sums, all-reduced (``h``: reduce-scattered to its columns
+      R, all a device reads);
+    * ``norm_inner`` takes its sum of squares all-reduced and
+      ``down_proj`` its partial products summed.
+
+    Decode reads and writes ``mC`` / ``mn`` rows R, ``mm`` whole (the
+    reference's layout: ``mesh_cache_axes``), and the conv cache's
+    channels, which lie in other devices' parts of its flat split, taken
+    from them and put back after every device has read.  ``state``:
+    each device's ((C, n, m), conv).  Returns (xs, new states), each
+    state's conv None: the conv caches are written in place."""
+    mesh, n = r.mesh, r.mesh.size
+    ax = _ax(r.table.get("p_inner"))
+    m = mesh.shape_of(ax)
+    H = cfg.n_heads
+    di = cfg.mlstm_proj * cfg.d_model
+    P = di // H
+    Pl = P // m
+    dt = xs[0].dtype
+    decode = state is not None
+    rows = [_chunk(mesh, k, ax) for k in range(n)]
+    ch = [[(h * P + c * Pl, h * P + (c + 1) * Pl) for h in range(H)]
+          for c in rows]
+    convs = [st[1] for st in state] if decode else None
+
+    def proj(k, x):
+        with use_rules(None):
+            p = {"up_proj": lp["up_proj"].take(
+                     k, 1, ch[k] + [(di + a, di + b) for a, b in ch[k]],
+                     gather),
+                 "conv_w": lp["conv_w"].take(k, 1, ch[k], gather),
+                 "wi": lp["wi"].take(k, 0, ch[k], gather),
+                 "wf": lp["wf"].take(k, 0, ch[k], gather)}
+            for nm in ("wq", "wk", "wv"):
+                p[nm] = lp[nm].local(k, gather)
+            cv = C.take(convs, mesh, k, ax, 2, ch[k]) if decode else None
+            q, kk, v, i_pre, f_pre, z, cv = mlstm_proj(
+                rms_norm(x, lp["norm"].local(k, gather), cfg.norm_eps), p,
+                conv_cache=cv, decode=decode, gate_dtype=torch.float32,
+                qkv_dtype=torch.float32)
+        return (q, kk, v, torch.cat([i_pre, f_pre], dim=-1), z) + (
+            (cv,) if decode else ())
+
+    def sums(k, q, kk, v, g):
+        st = state[k][0] if decode else None
+        if decode:
+            return mlstm_step_sums(q, kk, v, g[..., :H], g[..., H:], st)
+        (qk, hi, di_), rest, st = mlstm_chunk_sums(
+            q, kk, v, g[..., :H], g[..., H:], cfg.ssd_chunk, st)
+        return (qk, hi, di_), st, rest
+
+    def read(k, v, red, rest):
+        if decode:
+            h = mlstm_step_read(red[0], red[1], rest, dt)
+        else:                          # v's columns R: h's
+            c = rows[k]
+            h = mlstm_chunk_read(red, rest, v[..., c * Pl:(c + 1) * Pl])
+        h = h.flatten(-2)
+        return h, sum_squares(h)
+
+    def out(k, h, ss, z):
+        with use_rules(None):
+            s = lp["norm_inner"].take(k, 0, ch[k], gather)
+            w = lp["down_proj"].take(k, 0, ch[k], gather)
+            h = rms_norm_split(h, ss, di, s, cfg.norm_eps) * F.silu(z)
+            return _fp32_partial(h, w)
+
+    pr = each(mesh, lambda k: _remat(cfg, proj, k, xs[k]))
+    if decode:                         # every device has read: write back
+        for k in run_range(mesh):
+            C.put(convs, mesh, k, ax, 2, ch[k], pr[k][5])
+    q = _reduce_scatter_fp32([t[0] for t in pr], r, ax, dt)
+    kk = _reduce_scatter_fp32([t[1] for t in pr], r, ax, dt)
+    v = _sum_fp32([t[2] for t in pr], r, ax, dt)
+    gates = _sum_fp32([t[3] for t in pr], r, ax, dt)
+    sc = each(mesh, lambda k: _remat(cfg, sums, k, q[k], kk[k], v[k],
+                                     gates[k]))
+    parts = list(zip(*[t[0] for t in sc]))
+    if decode:                         # (h, d): h to its columns R
+        red = list(zip(C.reduce_scatter(list(parts[0]), mesh, ax, dim=-1),
+                       C.all_reduce(list(parts[1]), mesh, ax)))
+        rest = [t[1][2] for t in sc]   # m, the new stabiliser
+    else:                              # (qk, h_inter, d_inter)
+        red = list(zip(C.all_reduce(list(parts[0]), mesh, ax),
+                       C.reduce_scatter(list(parts[1]), mesh, ax, dim=-1),
+                       C.all_reduce(list(parts[2]), mesh, ax)))
+        rest = [t[2] for t in sc]
+    hs = each(mesh, lambda k: _remat(cfg, read, k, v[k], red[k], rest[k]))
+    tot = C.all_reduce([t[1] for t in hs], mesh, ax)
+    outs = each(mesh, lambda k: _remat(cfg, out, k, hs[k][0], tot[k],
+                                       pr[k][4]))
+    res = _sum_fp32(outs, r, ax, dt)
+    new = [(t[1], None) for t in sc] if decode else None
+    return each(mesh, lambda k: xs[k] + res[k]), new
+
+
+def _reduce_scatter_fp32(parts: list, r, axes, dtype) -> list:
+    """``_sum_fp32``'s rule for a reduce-scatter over the last dim."""
+    red = C.reduce_scatter(parts, r.mesh, axes, dim=-1)
+    return each(r.mesh, lambda k: red[k].to(dtype))
 
 
 def _mesh_slstm(cfg, r, lp, xs, gather, state=None) -> tuple[list, list]:
@@ -1149,13 +1403,17 @@ def _mesh_slstm(cfg, r, lp, xs, gather, state=None) -> tuple[list, list]:
     ``r_gates`` blocks) with no collective inside the time loop; ``y`` is
     all-gathered over the heads before the RMSNorm over d, and ``up`` /
     ``down`` split as ``p_ff`` (their partial sums ``_sum_fp32``).
+    Where the axes do not divide the heads (``_inner``'s 0) every device
+    runs every head, ``w_gates`` taken whole a layer at a time, and
+    keeps the whole state (the reference's layout: ``mesh_cache_axes``).
     ``state``: each device's (c, n, m, h) for decode.  Returns (xs, new
     states)."""
     mesh, n = r.mesh, r.mesh.size
     ax, hl = _inner(cfg, r)
     dh = cfg.d_model // cfg.n_heads
     decode = state is not None
-    hs = [_heads(mesh, k, ax, hl) for k in range(n)]
+    hs = [_heads(mesh, k, ax, hl) if hl else (0, cfg.n_heads)
+          for k in range(n)]
 
     def cells(k, x):
         h0, h1 = hs[k]
@@ -1173,12 +1431,13 @@ def _mesh_slstm(cfg, r, lp, xs, gather, state=None) -> tuple[list, list]:
                        gather)
             return _fp32_partial(slstm_up(y, p, cfg), p["down"])
 
-    ys, new = zip(*[_remat(cfg, cells, k, x) for k, x in enumerate(xs)])
-    ys = C.all_gather(list(ys), mesh, ax, dim=-1)
-    outs = [_remat(cfg, ffn, k, y) for k, y in enumerate(ys)]
+    ys, new = zip(*each(mesh, lambda k: _remat(cfg, cells, k, xs[k])))
+    if hl:
+        ys = C.all_gather(list(ys), mesh, ax, dim=-1)
+    outs = each(mesh, lambda k: _remat(cfg, ffn, k, ys[k]))
     red = _sum_fp32(outs, r, _ax(lp["down"].sharding.spec[0]), xs[0].dtype)
-    return [x + o for x, o in zip(xs, red)], (list(new) if decode
-                                              else None)
+    return each(mesh, lambda k: xs[k] + red[k]), (list(new) if decode
+                                                  else None)
 
 
 def _mesh_zamba(cfg, r, params, xs, gather, *, pos=None, cache=None,
@@ -1189,7 +1448,7 @@ def _mesh_zamba(cfg, r, params, xs, gather, *, pos=None, cache=None,
     (K7 on a device's heads with ``attn_impl="pallas"``).  Prefill with
     ``pos``; decode with ``cache`` / ``poss``, the shared block's
     application ``a`` attending over its KV cache ``a``."""
-    lc = _local_cfg(cfg, r)
+    plan = _attn_plan(cfg, r)
     ap = _subtree(params, "shared/attn")
     mlp = _subtree(params, "shared/mlp")
     every = cfg.attn_every
@@ -1199,14 +1458,14 @@ def _mesh_zamba(cfg, r, params, xs, gather, *, pos=None, cache=None,
         if (i + 1) % every:
             continue
         if cache is None:
-            xs = _mesh_attn(cfg, lc, r, ap, xs, pos, gather)
-            xs = _mesh_ffn(cfg, lc, r, mlp, xs, gather)[0]
+            xs = _mesh_attn(cfg, plan, r, ap, xs, pos, gather)
+            xs = _mesh_ffn(cfg, plan.lc, r, mlp, xs, gather)[0]
         else:
             a = (i + 1) // every - 1           # the shared block's a-th use
-            xs = _mesh_attn_decode(r, lc, ap, xs, poss,
+            xs = _mesh_attn_decode(cfg, r, plan, ap, xs, poss,
                                    [c[a] for c in cache["k"]],
                                    [c[a] for c in cache["v"]], gather)
-            xs = _mesh_ffn_decode(cfg, lc, r, mlp, xs, gather)
+            xs = _mesh_ffn_decode(cfg, plan.lc, r, mlp, xs, gather)
     return xs
 
 
@@ -1228,10 +1487,12 @@ def _mesh_xlstm(cfg, r, params, xs, gather, cache=None) -> list:
                     cache["mm"][k][j]), cache["mconv"][k][j])
                   for k in range(n)]
         xs, new = _mesh_mlstm(cfg, r, mp[j], xs, gather, st)
-        for k, ((Cm, nm, mm), cv) in enumerate(new or ()):
+        for k in run_range(r.mesh) if new else ():
+            (Cm, nm, mm), cv = new[k]
             for name, t in (("mC", Cm), ("mn", nm), ("mm", mm),
                             ("mconv", cv)):
-                cache[name][k][j].copy_(t)
+                if t is not None:            # None: written in place
+                    cache[name][k][j].copy_(t)
         return xs
 
     def s_step(xs, g):
@@ -1239,8 +1500,8 @@ def _mesh_xlstm(cfg, r, params, xs, gather, cache=None) -> list:
         st = None if cache is None else [
             tuple(cache[nm][k][g] for nm in names) for k in range(n)]
         xs, new = _mesh_slstm(cfg, r, sp[g], xs, gather, st)
-        for k, ts in enumerate(new or ()):
-            for nm, t in zip(names, ts):
+        for k in run_range(r.mesh) if new else ():
+            for nm, t in zip(names, new[k]):
                 cache[nm][k][g].copy_(t)
         return xs
 
@@ -1269,27 +1530,27 @@ def forward_parts(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     xs = _mesh_embed(cfg, params, toks, r, dtype, gather)
     if cfg.family == "vlm":
         pe = constrain(patch_emb, "act_batch", "act_seq", "act_embed")
-        xs = [torch.cat([p.to(dtype), x], dim=1) for p, x in zip(pe, xs)]
+        xs = each(mesh, lambda k: torch.cat([pe[k].to(dtype), xs[k]], dim=1))
     xs = constrain(xs, "act_batch", "act_seq", "act_embed")
     S = xs[0].shape[1]
-    pos = [torch.arange(S, device=d)[None, :] for d in mesh.devices]
+    pos = each(mesh, lambda k: torch.arange(S, device=mesh.devices[k])[None])
     auxs = [zero]
     if cfg.family == "hybrid":
         xs = _mesh_zamba(cfg, r, params, xs, gather, pos=pos)
     elif cfg.family == "ssm":
         xs = _mesh_xlstm(cfg, r, params, xs, gather)
     else:
-        lc = _local_cfg(cfg, r)
+        plan = _attn_plan(cfg, r)
         attn_p = _mesh_layers(params, "layers/attn", cfg.n_layers)
         ff_p = _mesh_layers(params, "layers/moe" if cfg.is_moe
                             else "layers/mlp", cfg.n_layers)
         auxs = []
         for ap, fp in zip(attn_p, ff_p):
-            xs = _mesh_attn(cfg, lc, r, ap, xs, pos, gather)
-            xs, aux = _mesh_ffn(cfg, lc, r, fp, xs, gather)
+            xs = _mesh_attn(cfg, plan, r, ap, xs, pos, gather)
+            xs, aux = _mesh_ffn(cfg, plan.lc, r, fp, xs, gather)
             auxs.append(zero if aux is None else aux)
     if last_only:
-        xs = [x[:, -1:] for x in xs]
+        xs = each(mesh, lambda k: xs[k][:, -1:])
     parts = _lm_heads(cfg, params, xs, gather)
     parts = constrain(parts, *(("act_batch",) + (None,) * (parts[0].dim() - 2)
                                + ("act_vocab",)))
@@ -1314,13 +1575,13 @@ def _mesh_decode(cfg: ModelConfig, params: dict, cache: dict,
     elif cfg.family == "ssm":
         xs = _mesh_xlstm(cfg, r, params, xs, gather, cache=cache)
     else:
-        lc = _local_cfg(cfg, r)
+        plan = _attn_plan(cfg, r)
         attn_p = _mesh_layers(params, "layers/attn", cfg.n_layers)
         ff_p = _mesh_layers(params, "layers/moe" if cfg.is_moe
                             else "layers/mlp", cfg.n_layers)
         for i, (ap, fp) in enumerate(zip(attn_p, ff_p)):
-            xs = _mesh_attn_decode(r, lc, ap, xs, poss,
+            xs = _mesh_attn_decode(cfg, r, plan, ap, xs, poss,
                                    [c[i] for c in cache["k"]],
                                    [c[i] for c in cache["v"]], gather)
-            xs = _mesh_ffn_decode(cfg, lc, r, fp, xs, gather)
+            xs = _mesh_ffn_decode(cfg, plan.lc, r, fp, xs, gather)
     return gather_logits(_lm_heads(cfg, params, xs, gather), r)

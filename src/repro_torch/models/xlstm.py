@@ -26,11 +26,21 @@ def mlstm_chunked(q, k, v, i_pre, f_pre, chunk: int, state=None):
     """q, k, v: (B, S, H, P); i_pre, f_pre: (B, S, H) pre-activation
     gates.  Returns (h (B, S, H, P), (C (B, H, P, P), n (B, H, P), m (B,
     H))), the state in fp32."""
-    B, S, H, P = q.shape
+    sums, rest, st = mlstm_chunk_sums(q, k, v, i_pre, f_pre, chunk, state)
+    return mlstm_chunk_read(sums, rest, v), st
+
+
+def mlstm_chunk_sums(q, k, v, i_pre, f_pre, chunk: int, state=None):
+    """``mlstm_chunked`` up to its contractions over the k dim p: q, k
+    (B, S, H, Pk) may hold rows Pk of the head dim P = v's last (each
+    sum over p is then a partial sum, and the state's C / n hold those
+    rows).  Returns ((qk, h_inter, d_inter) the sums over p, the read's
+    (w_intra, m_read), the new (C, n, m))."""
+    B, S, H, Pk = q.shape
     Lc = min(chunk, S)
     assert S % Lc == 0
     nc = S // Lc
-    scale = 1.0 / (P ** 0.5)
+    scale = 1.0 / (v.shape[-1] ** 0.5)
 
     logf = F.logsigmoid(f_pre.float())                    # (B, S, H) <= 0
     logi = i_pre.float()
@@ -39,9 +49,9 @@ def mlstm_chunked(q, k, v, i_pre, f_pre, chunk: int, state=None):
     li = logi.reshape(B, nc, Lc, H)
     Fc = torch.cumsum(lf, dim=2)                          # within-chunk
     F_last = Fc[:, :, -1, :]                              # (B, nc, H)
-    qc = (q.float() * scale).reshape(B, nc, Lc, H, P)
-    kc = k.float().reshape(B, nc, Lc, H, P)
-    vc = v.float().reshape(B, nc, Lc, H, P)
+    qc = (q.float() * scale).reshape(B, nc, Lc, H, Pk)
+    kc = k.float().reshape(B, nc, Lc, H, Pk)
+    vc = v.float().reshape(B, nc, Lc, H, v.shape[-1])
 
     # per-position source weight (log): i * f-decay to the chunk's end
     src = F_last[:, :, None, :] - Fc + li                 # (B, nc, Lc, H)
@@ -49,8 +59,9 @@ def mlstm_chunked(q, k, v, i_pre, f_pre, chunk: int, state=None):
 
     # ---- inter-chunk loop over (C, n, m) ----
     if state is None:
-        C = torch.zeros((B, H, P, P), dtype=torch.float32, device=q.device)
-        n = torch.zeros((B, H, P), dtype=torch.float32, device=q.device)
+        C = torch.zeros((B, H, Pk, v.shape[-1]), dtype=torch.float32,
+                        device=q.device)
+        n = torch.zeros((B, H, Pk), dtype=torch.float32, device=q.device)
         m = torch.full((B, H), _NEG, dtype=torch.float32, device=q.device)
     else:
         C, n, m = state
@@ -84,24 +95,41 @@ def mlstm_chunked(q, k, v, i_pre, f_pre, chunk: int, state=None):
 
     w_intra = torch.exp(lw - m_read[:, :, :, None, :])
     qk = torch.einsum("bclhp,bcshp->bclsh", qc, kc)
-    h_intra = torch.einsum("bclsh,bclsh,bcshp->bclhp", qk, w_intra, vc)
-    d_intra = torch.einsum("bclsh,bclsh->bclh", qk, w_intra)
-
     w_carry = torch.exp(m_carry - m_read)                 # (B, nc, Lc, H)
     h_inter = torch.einsum("bclhp,bchpq,bclh->bclhq", qc, C_pre, w_carry)
     d_inter = torch.einsum("bclhp,bchp,bclh->bclh", qc, n_pre, w_carry)
+    return (qk, h_inter, d_inter), (w_intra, m_read), (C, n, m)
 
+
+def mlstm_chunk_read(sums, rest, v):
+    """h (B, S, H, Pv) in v's dtype from ``mlstm_chunk_sums``' sums over
+    the whole of p (``h_inter``: its columns Pv) and v (B, S, H, Pv),
+    v's columns Pv of the head."""
+    qk, h_inter, d_inter = sums
+    w_intra, m_read = rest
+    B, nc, Lc, H = m_read.shape
+    vc = v.float().reshape(B, nc, Lc, H, v.shape[-1])
+    h_intra = torch.einsum("bclsh,bclsh,bcshp->bclhp", qk, w_intra, vc)
+    d_intra = torch.einsum("bclsh,bclsh->bclh", qk, w_intra)
     denom = torch.maximum(torch.abs(d_intra + d_inter),
                           torch.exp(-m_read)) + 1e-9
     h = (h_intra + h_inter) / denom[..., None]
-    return h.reshape(B, S, H, P).to(q.dtype), (C, n, m)
+    return h.reshape(B, nc * Lc, H, v.shape[-1]).to(v.dtype)
 
 
 def mlstm_decode_step(q, k, v, i_pre, f_pre, state):
     """One token.  q, k, v: (B, H, P); gates (B, H)."""
+    (h, d), st = mlstm_step_sums(q, k, v, i_pre, f_pre, state)
+    return mlstm_step_read(h, d, st[2], q.dtype), st
+
+
+def mlstm_step_sums(q, k, v, i_pre, f_pre, state):
+    """``mlstm_decode_step`` up to its contractions over p: q, k (B, H,
+    Pk) may hold rows Pk of P = v's last dim, and the state (C, n, m)
+    those rows of C / n.  Returns ((h, d) the sums over p, the new
+    state)."""
     C, n, m = state
-    P = q.shape[-1]
-    scale = 1.0 / (P ** 0.5)
+    scale = 1.0 / (v.shape[-1] ** 0.5)
     logf = F.logsigmoid(f_pre.float())
     logi = i_pre.float()
     m_new = torch.maximum(logf + m, logi)
@@ -113,28 +141,39 @@ def mlstm_decode_step(q, k, v, i_pre, f_pre, state):
     n_new = n * w_old[..., None] + kf
     qs = q.float() * scale
     h = torch.einsum("bhp,bhpq->bhq", qs, C_new)
-    d = torch.maximum(torch.abs(torch.einsum("bhp,bhp->bh", qs, n_new)),
-                      torch.exp(-m_new)) + 1e-9
-    return (h / d[..., None]).to(q.dtype), (C_new, n_new, m_new)
+    d = torch.einsum("bhp,bhp->bh", qs, n_new)
+    return (h, d), (C_new, n_new, m_new)
+
+
+def mlstm_step_read(h, d, m_new, dtype):
+    """One token's h from ``mlstm_step_sums``' sums over the whole of
+    p."""
+    d = torch.maximum(torch.abs(d), torch.exp(-m_new)) + 1e-9
+    return (h / d[..., None]).to(dtype)
 
 
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
 
-def _mlstm_qkv(c, xm, p, dt):
+def _mlstm_qkv(c, xm, p, dt, qkv_dtype=None):
     """q, k (from the conv path), v (from the raw path) through the
-    per-head block-diagonal projections, and the gate pre-activations."""
-    q = torch.einsum("...hp,hpj->...hj", c, p["wq"].to(dt))
-    k = torch.einsum("...hp,hpj->...hj", c, p["wk"].to(dt))
-    v = torch.einsum("...hp,hpj->...hj", xm, p["wv"].to(dt))
-    return q, k, v
+    per-head block-diagonal projections (weights cast to ``dt``; the
+    products in ``qkv_dtype``, default ``dt``)."""
+    qd = qkv_dtype or dt
+
+    def proj(a, w):
+        return torch.einsum("...hp,hpj->...hj", a.to(qd), w.to(dt).to(qd))
+    return proj(c, p["wq"]), proj(c, p["wk"]), proj(xm, p["wv"])
 
 
-def mlstm_proj(x, p, *, conv_cache=None, decode=False, gate_dtype=None):
-    """The mLSTM block's input side for ``p``'s heads (``wq`` (H, P, P)):
-    ``up_proj`` (d, 2 H P: their ``xm`` columns, then their ``z``
-    columns), the causal conv, q / k / v (..., H, P) and the gate
+def mlstm_proj(x, p, *, conv_cache=None, decode=False, gate_dtype=None,
+               qkv_dtype=None):
+    """The mLSTM block's input side for ``p``'s heads (``wq`` (H, P, P),
+    or (H, Pr, P): the P rows Pr of every head): ``up_proj`` (d, 2 H P:
+    their ``xm`` columns, then their ``z`` columns), the causal conv,
+    q / k / v (..., H, P) (a sum over ``wq``'s rows: with Pr rows a
+    partial sum, which ``qkv_dtype`` fp32 keeps unrounded) and the gate
     pre-activations ``c @ wi``, ``c @ wf`` (..., H_all) over ``p``'s rows
     of ``wi`` / ``wf`` (all of d_inner: the gates, in x's dtype; some
     rows: a partial sum, which ``gate_dtype`` fp32 keeps unrounded until
@@ -148,7 +187,7 @@ def mlstm_proj(x, p, *, conv_cache=None, decode=False, gate_dtype=None):
     if decode:
         c = c[:, 0]
     q, k, v = _mlstm_qkv(c.unflatten(-1, (H, P)), xm.unflatten(-1, (H, P)),
-                         p, x.dtype)
+                         p, x.dtype, qkv_dtype)
     gd = gate_dtype or x.dtype
     i_pre = c.to(gd) @ p["wi"].to(x.dtype).to(gd)
     f_pre = c.to(gd) @ p["wf"].to(x.dtype).to(gd)

@@ -25,6 +25,15 @@ tensor a shard, each on its own device:
   part a device, its slice under the current rules; a list of parts (one
   a device) is already laid out and passes as it is.  The port keeps the
   ``act_seq`` dim whole where the table shards it (ROADMAP Queue 3).
+* ``lead()`` makes the controller run device 0's share only (the dry
+  run's count of one device's program): ``run_range`` / ``each`` give
+  device 0 alone, a leaf's ``leaf_parts`` is its device-0 shard, and
+  what device 0 would read of other shards (an FSDP gather, a ``take``'s
+  pieces, a collective's result: ``sharding/collectives.py``) is made in
+  its shape by ``stand_in``.  This module alone reads the switch.
+* A recorder (``launch/hlo_stats.py``'s counter, installed with
+  ``recording``) hears of every collective and every piece moved between
+  devices (``report``); with none installed ``report`` does nothing.
 """
 from __future__ import annotations
 
@@ -96,6 +105,75 @@ _STATE = threading.local()
 
 def current_rules() -> Optional[Rules]:
     return getattr(_STATE, "rules", None)
+
+
+def _lead_only() -> bool:
+    return getattr(_STATE, "lead", False)
+
+
+@contextlib.contextmanager
+def lead(on: bool = True):
+    """The controller runs device 0's share only (see the module
+    docstring)."""
+    prev = _lead_only()
+    _STATE.lead = on
+    try:
+        yield
+    finally:
+        _STATE.lead = prev
+
+
+def run_range(mesh: Mesh) -> range:
+    """The devices whose share the controller runs: all, or under
+    ``lead()`` device 0."""
+    return range(1) if _lead_only() else range(mesh.size)
+
+
+def each(mesh: Mesh, fn, over=None) -> list:
+    """``[fn(k) for k in over]`` (default: every device of ``mesh``), one
+    value a device; under ``lead()`` ``fn(over[0])`` only, standing for
+    every one's."""
+    over = range(mesh.size) if over is None else over
+    if len(run_range(mesh)) < mesh.size:
+        return [fn(over[0])] * len(over)
+    return [fn(k) for k in over]
+
+
+_RECORDERS: list = []
+
+
+@contextlib.contextmanager
+def recording(rec):
+    """Install ``rec`` (with ``collective(kind, operand_bytes,
+    out_bytes)`` and a ``paused()`` context) as the recorder ``report``
+    tells."""
+    _RECORDERS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDERS.remove(rec)
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def report(kind: str, operand: torch.Tensor, out_bytes: int) -> None:
+    """A collective ``kind`` of ``operand`` (the device's part) that
+    writes ``out_bytes``, told to the installed recorder, if any."""
+    if _RECORDERS:
+        _RECORDERS[-1].collective(kind, _nbytes(operand), out_bytes)
+
+
+def stand_in(kind: str, x: torch.Tensor, shape) -> torch.Tensor:
+    """Under ``lead()``: what device 0 receives by collective ``kind`` of
+    its part ``x``, a new tensor of ``shape`` (made outside the
+    recorder's count), reported."""
+    with (_RECORDERS[-1].paused() if _RECORDERS
+          else contextlib.nullcontext()):
+        out = x.new_empty(shape)
+    report(kind, x, _nbytes(out))
+    return out
 
 
 @contextlib.contextmanager
@@ -304,9 +382,24 @@ class Shards:
         placed = self.views.get(tuple(gather))
         if placed is not None:
             return placed[k]
+        return self._piece(self._gathered(gather), k, self.sharding.mesh
+                           .coords(k), ())
+
+    def _piece(self, gdims, k, cc, cut) -> torch.Tensor:
+        """``_build`` for device ``k``; under ``lead()`` device 0's own
+        shard cut by ``cut``, or a stand-in of that shape for another's (a
+        collective-permute), all-gathered over ``gdims``."""
         mesh = self.sharding.mesh
-        return self._build(self._gathered(gather), 0, mesh.coords(k),
-                           mesh.devices[k], ())
+        if not _lead_only():
+            return self._build(gdims, 0, cc, mesh.devices[k], cut)
+        from repro_torch.sharding import collectives as C
+        own = self.parts[0]
+        x = own[cut] if cut else own
+        if self.sharding.shard_index(cc):      # another device's shard
+            x = stand_in("collective-permute", x, x.shape)
+        for d, ax in gdims:
+            x = C.one_device(x, "all-gather", mesh.shape_of(ax), d)
+        return x
 
     def take(self, k: int, dim: int, ranges, gather=(),
              index: dict | None = None) -> torch.Tensor:
@@ -339,8 +432,7 @@ class Shards:
         for j, lo, n, _ in range_pieces(ranges, w):
             cc = dict(mesh.coords(k), **_unravel(mesh, ax, j))
             cut[dim] = slice(lo, lo + n)
-            pieces.append(self._build(gdims, 0, cc, mesh.devices[k],
-                                      tuple(cut)))
+            pieces.append(self._piece(gdims, k, cc, tuple(cut)))
         out = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)
         if memo is not None:
             memo[key] = out
@@ -385,14 +477,20 @@ def _unravel(mesh: Mesh, axes, j: int) -> dict[str, int]:
 
 
 def leaf_parts(x) -> list[torch.Tensor]:
-    """A leaf's tensors: a sharded leaf's shards, or the tensor itself."""
-    return x.parts if isinstance(x, Shards) else [x]
+    """A leaf's tensors: a sharded leaf's shards (under ``lead()``: its
+    device-0 shard, the first), or the tensor itself."""
+    if isinstance(x, Shards):
+        return x.parts[:1] if _lead_only() else x.parts
+    return [x]
 
 
 def leaf_like(x, parts):
     """``parts`` (one a tensor of ``leaf_parts(x)``) in the form of leaf
-    ``x``: a ``Shards`` of the same split, or the one tensor."""
-    return x.like(parts) if isinstance(x, Shards) else parts[0]
+    ``x``: a ``Shards`` of the same split (under ``lead()`` the other
+    shards kept as they are), or the one tensor."""
+    if isinstance(x, Shards):
+        return x.like(list(parts) + x.parts[len(parts):])
+    return parts[0]
 
 
 def _iter_coords(mesh: Mesh, axes):
@@ -416,8 +514,8 @@ def constrain(x, *logical: str | None):
     sh = NamedSharding(r.mesh, spec_for(
         tuple(None if n in KEPT_WHOLE else n for n in logical), r))
     mesh = r.mesh
-    return [x[sh.slices(x.shape, mesh.coords(k))].to(mesh.devices[k])
-            for k in range(mesh.size)]
+    return each(mesh, lambda k: x[sh.slices(x.shape, mesh.coords(k))]
+                .to(mesh.devices[k]))
 
 
 # ---------------------------------------------------------------------------

@@ -14,13 +14,62 @@ their shards, those of an all-reduce summed over the group.
 Members of a group on one device (the CPU's shards, or a rehearsal of
 several cards on one) share one result tensor instead of computing it
 again.
+
+**One device's program** (``sharding.axes.lead()``, the dry run's:
+``launch/dryrun.py`` on ``meta`` tensors).  Where the controller runs
+device 0's share alone (``axes.run_range``), a collective takes device
+0's part and makes the result of its shape (an all-gather's n parts, a
+reduce-scatter's chunk) without reading the others'.  Every collective
+made so, forward and backward, and every piece ``take`` / ``put`` move
+between devices, is told to the installed recorder (``axes.report``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.launch.mesh import Mesh
-from repro_torch.sharding.axes import range_pieces
+from repro_torch.sharding.axes import (range_pieces, report, run_range,
+                                       stand_in)
+
+
+class _OneDevice(torch.autograd.Function):
+    """Device 0's result of a collective of its part: a stand-in of the
+    result's shape, the collective (and its transpose in the backward)
+    reported."""
+
+    @staticmethod
+    def forward(ctx, x, kind, n, dim):
+        ctx.kind, ctx.n, ctx.dim = kind, n, dim
+        shape = list(x.shape)
+        if kind == "all-gather":
+            shape[dim] *= n
+        elif kind == "reduce-scatter":
+            shape[dim] //= n
+        return stand_in(kind, x, shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the transposes: all-reduce <-> all-reduce, all-gather <->
+        # reduce-scatter
+        back = {"all-reduce": "all-reduce", "all-gather": "reduce-scatter",
+                "reduce-scatter": "all-gather"}[ctx.kind]
+        return one_device(g, back, ctx.n, ctx.dim), None, None, None
+
+
+def one_device(x: torch.Tensor, kind: str, n: int, dim: int = 0
+               ) -> torch.Tensor:
+    """Device 0's result of collective ``kind`` over ``n`` parts (device
+    0's ``x``) along ``dim``, made in its shape and reported."""
+    return _OneDevice.apply(x, kind, n, dim)
+
+
+def _lead(xs: list, mesh: Mesh, axis, kind: str, dim: int = 0):
+    """Where the controller runs device 0 alone, device 0's result (in
+    every device's place); else None."""
+    if len(run_range(mesh)) == mesh.size:
+        return None
+    return [one_device(xs[0], kind, mesh.shape_of(axis),
+                       dim % xs[0].dim())] * mesh.size
 
 
 def _per_device(xs: list, mesh: Mesh, axis, build) -> list:
@@ -40,6 +89,8 @@ def all_reduce(xs: list, mesh: Mesh, axis) -> list:
     """Each device: the sum of its group's parts."""
     if mesh.shape_of(axis) == 1:
         return list(xs)
+    if (one := _lead(xs, mesh, axis, "all-reduce")) is not None:
+        return one
 
     def build(g, dev):
         acc = xs[g[0]].to(dev)
@@ -53,6 +104,8 @@ def all_gather(xs: list, mesh: Mesh, axis, dim: int) -> list:
     """Each device: its group's parts concatenated along ``dim``."""
     if mesh.shape_of(axis) == 1:
         return list(xs)
+    if (one := _lead(xs, mesh, axis, "all-gather", dim)) is not None:
+        return one
     return _per_device(xs, mesh, axis, lambda g, dev: torch.cat(
         [xs[j].to(dev) for j in g], dim=dim))
 
@@ -66,6 +119,8 @@ def reduce_scatter(xs: list, mesh: Mesh, axis, dim: int) -> list:
     n = mesh.shape_of(axis)
     if n == 1:
         return list(xs)
+    if (one := _lead(xs, mesh, axis, "reduce-scatter", dim)) is not None:
+        return one
     out = []
     for k in range(mesh.size):
         g = mesh.group(k, axis)
@@ -96,8 +151,12 @@ def take(xs: list, mesh: Mesh, k: int, axis, dim: int, ranges
     group along ``axis``, each piece cut where it lies and copied to
     ``k``."""
     dev = mesh.devices[k]
-    parts = [xs[j].narrow(dim, lo, n).to(dev)
-             for j, lo, n, _ in _pieces(xs, mesh, k, axis, dim, ranges)]
+    parts = []
+    for j, lo, n, _ in _pieces(xs, mesh, k, axis, dim, ranges):
+        piece = xs[j].narrow(dim, lo, n)
+        if j != k:                    # cut on device j, sent to k
+            report("collective-permute", piece, piece.nbytes)
+        parts.append(piece.to(dev))
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
 
 
@@ -106,4 +165,7 @@ def put(xs: list, mesh: Mesh, k: int, axis, dim: int, ranges,
     """``take``'s inverse, in place: ``value``'s pieces written into the
     parts of device ``k``'s group that hold ``ranges``."""
     for j, lo, n, off in _pieces(xs, mesh, k, axis, dim, ranges):
-        xs[j].narrow(dim, lo, n).copy_(value.narrow(dim, off, n))
+        piece = value.narrow(dim, off, n)
+        if j != k:                    # sent from k to device j
+            report("collective-permute", piece, piece.nbytes)
+        xs[j].narrow(dim, lo, n).copy_(piece)

@@ -48,7 +48,7 @@ import torch
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import shard_params, softmax_cross_entropy
-from repro_torch.sharding.axes import (Rules, constrain, leaf_like,
+from repro_torch.sharding.axes import (Rules, constrain, each, leaf_like,
                                        leaf_parts, mesh_rules, use_rules)
 from repro_torch.training import compress
 from repro_torch.training.optimizer import Optimizer, apply_updates
@@ -90,27 +90,38 @@ def mesh_loss(cfg: ModelConfig, params: dict, batch: dict, r
                        *((None,) * (batch["labels"].dim() - 2)))
     vax = M._ax(r.table["p_vocab"])
     dev0 = mesh.devices[0]
-    nll = n = 0
-    for k in mesh.group(0, M._ax(r.table["act_batch"])):
+
+    def columns(j):
+        """Device j's log-sum-exp and label logit over its vocab columns."""
+        lab = labels[j]
+        lg = parts[j]
+        if cfg.family == "vlm":
+            lg = lg[:, -lab.shape[1]:]
+        lg = lg.float()
+        v0 = M._offset(params["lm_head/w"], -1, j)
+        t = lab.to(lg.device).clamp(min=0).long() - v0
+        hit = (t >= 0) & (t < lg.shape[-1])
+        got = torch.gather(lg, -1, t.clamp(0, lg.shape[-1] - 1)
+                           [..., None])[..., 0]
+        return torch.logsumexp(lg, dim=-1), torch.where(hit, got, 0.0)
+
+    def rows(k):
+        """Batch shard k's masked sums, on its first device."""
         dev = mesh.devices[k]
-        lab = labels[k]
         lse, ll = [], 0
         for j in mesh.group(k, vax):
-            lg = parts[j]
-            if cfg.family == "vlm":
-                lg = lg[:, -lab.shape[1]:]
-            lg = lg.float()
-            v0 = M._offset(params["lm_head/w"], -1, j)
-            t = lab.to(lg.device).clamp(min=0).long() - v0
-            hit = (t >= 0) & (t < lg.shape[-1])
-            got = torch.gather(lg, -1, t.clamp(0, lg.shape[-1] - 1)
-                               [..., None])[..., 0]
-            lse.append(torch.logsumexp(lg, dim=-1).to(dev))
-            ll = ll + torch.where(hit, got, 0.0).to(dev)
+            lse.append(cols[j][0].to(dev))
+            ll = ll + cols[j][1].to(dev)
         lse = torch.logsumexp(torch.stack(lse), dim=0)
-        mask = (lab >= 0).float()
-        nll = nll + torch.sum((lse - ll) * mask).to(dev0)
-        n = n + torch.sum(mask).to(dev0)
+        mask = (labels[k] >= 0).float()
+        return torch.sum((lse - ll) * mask), torch.sum(mask)
+
+    cols = each(mesh, columns)
+    nll = n = 0
+    for s, c in each(mesh, rows,
+                     over=mesh.group(0, M._ax(r.table["act_batch"]))):
+        nll = nll + s.to(dev0)
+        n = n + c.to(dev0)
     n = torch.clamp(n, min=1.0)
     loss = nll / n
     return loss + 0.01 * aux, dict(loss=loss, aux_loss=aux, tokens=n)

@@ -488,30 +488,6 @@ def test_hybrid_and_ssm_decode_on_a_mesh_match_the_reference(
                 err_msg=f"{name} at step {i}")
 
 
-@pytest.mark.parametrize("arch,model,smoke", [("xlstm-1.3b", 8, False),
-                                              ("xlstm-1.3b", 4, True)])
-def test_xlstm_raises_where_the_model_axis_does_not_divide_its_heads(
-        arch, model, smoke):
-    """xlstm-1.3b's 4 heads at model=8 (its smoke config's 2 at model=4):
-    ``make_rules`` keeps ``p_inner`` on ``model`` and the reference runs
-    by splitting P; the port, which runs whole heads, raises naming
-    ROADMAP item 12f, in ``init_cache`` and in the forward."""
-    cfg = t_configs.get_smoke(arch) if smoke else t_configs.get_config(arch)
-    mesh = make_local_mesh(model, device="cpu")
-    rules = make_rules(cfg, mesh, ShapeSpec("t", 32, 4, "serve"))
-    assert "model" in _axes(rules.table["p_inner"])
-    assert cfg.n_heads % model
-    with A.use_rules(rules), pytest.raises(NotImplementedError,
-                                           match="item 12f"):
-        TM.init_cache(cfg, 4, 32, device="cpu")
-    if smoke:
-        specs = TM.param_specs(cfg)
-        sp = shard_params(init_params(specs, 0, device="cpu"), specs, rules)
-        with A.use_rules(rules), pytest.raises(NotImplementedError,
-                                               match="item 12f"):
-            TM.forward(cfg, sp, torch.zeros((4, 8), dtype=torch.long))
-
-
 @pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-1.3b"])
 def test_no_device_reads_a_whole_split_leaf(arch, monkeypatch):
     """Every read of a split leaf in a train step (remat on, its backward
