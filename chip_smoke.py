@@ -3849,20 +3849,25 @@ def mesh_serve(dev, kw, by_path) -> dict:
 
 
 def mesh_grads(cfg, master, mesh, by_path, seq=TRAIN_SEQ,
-               label=f"train grads ({TRAIN_MICRO}, {TRAIN_SEQ}) bf16 mesh"
-               ) -> dict:
+               label=f"train grads ({TRAIN_MICRO}, {TRAIN_SEQ}) bf16 mesh",
+               whole_too=False) -> dict:
     """The train step's bf16 grads through the grad probe at (TRAIN_MICRO,
     ``seq``) on ``mesh`` against one device, both on the K7 path, at
     the families' limit max(TRAIN_GRAD_RTOL, 2 x the torch-op path's
     floor at half its key tile); every K7 fwd and bwd call of the mesh's
     step held against its plain version (a second run; with no K7 call
-    the first run's grads are held)."""
+    the first run's grads are held).  ``whole_too``: first the same step
+    under the table with ``act_seq=None`` (the residual stream's
+    sequence whole on every model shard, no sequence parallelism), its
+    grads kept on the host and held against the split step's at the same
+    limit, its wall, launches and peak memory by card beside the split
+    step's (both windows with the same tensors resident)."""
     import torch
     from repro_torch.models import model as M
     from repro_torch.models.config import ShapeSpec
     from repro_torch.models.layers import gather_params, shard_params
     from repro_torch.sharding.auto import make_rules
-    from repro_torch.sharding.axes import use_rules
+    from repro_torch.sharding.axes import Rules, use_rules
     dev = mesh.devices[0]
     pal = dataclasses.replace(cfg, attn_impl="pallas", dtype="bfloat16")
     xla = dataclasses.replace(pal, attn_impl="xla")
@@ -3880,6 +3885,20 @@ def mesh_grads(cfg, master, mesh, by_path, seq=TRAIN_SEQ,
     rules = make_rules(pal, mesh, ShapeSpec("train", seq, TRAIN_MICRO,
                                             "train"))
     sm = shard_params(master, M.param_specs(cfg), rules)
+    limit = max(TRAIN_GRAD_RTOL["bfloat16"], 2 * floor["max"])
+    whole = None
+    if whole_too:
+        wr = Rules(mesh=rules.mesh, table=dict(rules.table, act_seq=None))
+        peaks_gb(mesh, reset=True)
+        with use_rules(wr):
+            sync_cards(mesh)
+            t = time.perf_counter()
+            gw, cw = probe_grads(pal, sm, micro)
+            sync_cards(mesh)
+            whole = dict(wall_s=time.perf_counter() - t,
+                         peak_gb=peaks_gb(mesh), launches=nonzero(cw))
+        gw = {k: v.cpu() for k, v in gather_params(gw, dev).items()}
+        torch.cuda.empty_cache()
     peaks_gb(mesh, reset=True)
     with use_rules(rules):
         sync_cards(mesh)
@@ -3897,17 +3916,28 @@ def mesh_grads(cfg, master, mesh, by_path, seq=TRAIN_SEQ,
     del sm
     gm = gather_params(gm, dev)
     sound = grad_errors(gm, g1)
-    del gm, g1
+    del g1
+    if whole is not None:
+        whole["split_vs_whole"] = grad_errors(
+            gm, {k: v.to(dev) for k, v in gw.items()})
+        del gw
+    del gm
     torch.cuda.empty_cache()
-    limit = max(TRAIN_GRAD_RTOL["bfloat16"], 2 * floor["max"])
     k7 = k7_verdict(label, fwd, bwd)
     info = dict(wall_s=wall, grads=sound, floor=floor, limit=limit,
-                launches=nonzero(c), k7=k7, peak_gb=peak)
+                launches=nonzero(c), k7=k7, peak_gb=peak, act_seq_none=whole)
     log(f"  {label} on {mesh}: {wall:.3f} s, grads (every K7 call held) "
         f"vs one device " + json.dumps(sound) + f" (limit "
         f"{limit:.3g}, floor " + json.dumps(floor) + "), launches "
         f"{nonzero(c)}, K7 " + json.dumps(k7) + ", peak GB by card "
-        + json.dumps(peak))
+        + json.dumps(peak) + ("" if whole is None else
+                              "; the table with act_seq=None (the sequence "
+                              "whole): " + json.dumps(whole)))
+    if whole is not None:
+        require(whole["split_vs_whole"]["max"] <= limit
+                and whole["launches"] == nonzero(c),
+                f"{label}: the split sequence's grads against act_seq=None: "
+                f"{whole} (limit {limit}; launches {nonzero(c)})")
     require((c["flash_fwd"], c["flash_bwd_fused"]) == (2 * L, L)
             and sum(c.values()) == 3 * L,
             f"{label}: launches {nonzero(c)}, expected (fwd, fused) = "
@@ -4001,7 +4031,10 @@ def lm_mesh_path(dev, by_path, train):
     """qwen3-1.7b at full width (random weights, seed 0) on a mesh of
     every visible card, or REHEARSAL_SHARDS shards of one: prefill
     (LM_PREFILL, K7) at model=LM_MESH_MODEL, ``serve --model-parallel``,
-    the bf16 grads at (TRAIN_MICRO, TRAIN_SEQ), AdamW steps at model=4 and
+    the bf16 grads at (TRAIN_MICRO, TRAIN_SEQ) (the residual stream's
+    sequence split over ``model``, and once more under the table with
+    ``act_seq=None``: grads held split against whole, both peaks by
+    card), AdamW steps at model=4 and
     at data=2 x model=2, the launcher with a restart at
     ``--model-parallel 2``; then granite-moe-1b-a400m's prefill (its 32
     experts 8 a shard at model=4).  Each drive is held against the same
@@ -4027,7 +4060,7 @@ def lm_mesh_path(dev, by_path, train):
     info["serve"] = mesh_serve(dev, kw, by_path)
     del params
     torch.cuda.empty_cache()
-    info["grads"] = mesh_grads(cfg, master, mesh, by_path)
+    info["grads"] = mesh_grads(cfg, master, mesh, by_path, whole_too=True)
     del master
     torch.cuda.empty_cache()
     info["steps"] = {m: mesh_adamw(cfg, dev, m, by_path,

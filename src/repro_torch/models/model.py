@@ -31,10 +31,22 @@ of ``sharding/collectives.py`` between them:
 
 * the batch is laid out over ``act_batch`` (``constrain`` at the
   reference's :331 / :531 sites); a device runs its batch rows;
+* Megatron sequence parallelism: where the table's ``act_seq`` splits
+  the sequence over ``model`` (``_seq_split``; the :331 site), a device
+  holds ``S / m`` positions of its batch rows' residual stream between
+  sub-blocks.  A sub-block's remat frame takes its group's shards as its
+  inputs, all-gathers the whole sequence inside the frame (``_gathered``:
+  the backward gathers it again, nothing whole is saved), runs its
+  pre-norm and mixer on it, and its row-parallel partial sums are
+  reduce-scattered along the sequence (``_seq_sum``) onto the shard the
+  residual adds to.  Where ``act_seq`` is None (or ``make_rules``
+  dropped it: ``model`` does not divide S) the stream is whole and the
+  partial sums all-reduced.  Positions stay whole (RoPE, K7 on the
+  gathered sequence); decode has no sequence dim;
 * ``wq`` / ``wk`` / ``wv`` and ``w1`` / ``w3`` are split by columns over
   ``model``, so a device runs its heads (and its K7 calls on them) and
   its ff columns; ``wo`` / ``w2`` are split by rows, and their partial
-  sums are all-reduced over ``model``.  Where ``model`` does not divide
+  sums are summed over ``model`` (``_seq_sum``).  Where ``model`` does not divide
   the kv heads (8 at model=16) a device takes the ``wk`` / ``wv``
   columns of the kv heads its q heads read; where it does not divide
   the q heads either (24 at model=16) every device runs every head, ``wq``
@@ -42,10 +54,12 @@ of ``sharding/collectives.py`` between them:
 * moe: a device runs its ``E / m`` experts (``p_expert``) over its
   group's tokens, and the outputs are summed over ``model``;
 * the token embedding and the LM head are split over the vocab
-  (``p_vocab``): a device looks up the token rows it holds (the others'
-  rows add zeros) and computes its vocab columns of the logits (the
-  :311 site's ``act_vocab`` layout, kept for the train loss, gathered
-  for a caller of ``forward``);
+  (``p_vocab``): a device looks up the token rows it holds at every
+  position (the others' rows add zeros; the sum reduce-scattered to the
+  sequence's shards) and, the final norm run on its shard and the
+  sequence gathered, computes its vocab columns of the logits (the :311
+  site's ``act_vocab`` layout, kept for the train loss, gathered for a
+  caller of ``forward``);
 * under ``train_rules`` every weight's ``p_embed`` dim is split over
   ``data`` (FSDP) and all-gathered inside each layer's block, inside
   remat, so the gathered weights are freed after use and gathered again
@@ -67,7 +81,9 @@ of ``sharding/collectives.py`` between them:
   over d_inner) are all-reduced, the sLSTM's heads' outputs all-gathered
   before its norm over d, and ``out_proj`` / ``down_proj`` sum their
   partial products like ``wo`` (the xLSTM's sums in fp32, rounded once:
-  ``_sum_fp32``); the hybrid's shared block splits as the attention
+  ``_sum_fp32``, ``_seq_sum``); in prefill the conv, the chunked SSD and
+  the sLSTM's time loop run on the sequence gathered inside the block's
+  first frame; the hybrid's shared block splits as the attention
   families'.  At decode a device reads and writes its heads'
   state; the Mamba2 conv cache stays split over d_inner + 2N as the
   reference's (each device takes its channels and puts them back), the
@@ -80,9 +96,9 @@ of ``sharding/collectives.py`` between them:
 Under ``sharding.axes.lead()`` (the dry run, ``launch/dryrun.py``) every
 per-device computation is ``each(mesh, fn)``: device 0's share alone.
 
-The ``act_seq`` dim stays whole (the reference shards it, Megatron
-sequence parallelism; ROADMAP Queue 3), so the :234 ``q`` site and the
-activations inside a device's share need no layout change.
+Inside the attention sub-block a device runs its heads over the whole
+gathered sequence, where the reference lays ``q`` out over ``act_seq``
+(the :234 site, its context-parallel flash loop): ROADMAP Queue 3.
 
 Weights are cast to ``cfg.dtype`` at use, as in the reference
 (``w.astype(x.dtype)``); ``cast_params`` does that cast once for a caller
@@ -959,12 +975,82 @@ def _remat(cfg: ModelConfig, fn, k: int, *args):
     return fn(k, *args)
 
 
+def _gathered(cfg: ModelConfig, r, ax, fn, xs: list, dim: int = 1) -> list:
+    """Every device's ``_remat`` of ``fn(k, x)``, ``x`` the parts of
+    ``xs`` that device ``k``'s group over ``ax`` holds, all-gathered
+    along ``dim`` inside the frame: the parts (references to the tensors
+    they are, no copy) are the frame's inputs, so the frame saves no more
+    than its group's parts, and the gathered tensor is freed after use
+    and gathered again in the backward.  The forward takes the parts
+    from copies made for every device before any frame is queued: a copy
+    between two cards waits for the work queued on both, so copies made
+    inside the frames would wait for the frames queued before them on
+    the other cards, and the devices' frames would run one after
+    another.  With ``ax`` () ``x`` is ``xs[k]``.  The sub-blocks' frames
+    gather the residual stream's sequence so (``dim`` 1 over
+    ``act_seq``'s axes: ``_seq_split``)."""
+    mesh = r.mesh
+    groups = [mesh.group(k, ax) for k in range(mesh.size)]
+    near = each(mesh, lambda k: [xs[j].to(mesh.devices[k])
+                                 for j in groups[k]])
+
+    def frame(k):
+        box, near[k] = [near[k]], None
+
+        def body(k, *parts):
+            return fn(k, C.gather_one(box.pop() if box else list(parts),
+                                      mesh, k, ax, dim))
+        return _remat(cfg, body, k, *[xs[j] for j in groups[k]])
+    return each(mesh, frame)
+
+
+def _seq_split(r, S: int) -> tuple[str, ...]:
+    """The mesh axes over which the table's ``act_seq`` splits the
+    residual stream's ``S`` positions (Megatron sequence parallelism: a
+    device holds ``S / m`` positions of its batch rows between
+    sub-blocks), or () where it keeps them whole (None, or one device).
+    ``make_rules`` keeps them whole where the axes do not divide ``S``;
+    a table that splits an ``S`` they do not divide raises."""
+    sq = _ax(r.table.get("act_seq"))
+    m = r.mesh.shape_of(sq)
+    if m == 1:
+        return ()
+    if S % m:
+        raise ValueError(f"act_seq splits the sequence over {sq} ({m} "
+                         f"ways), which does not divide its {S} positions")
+    return sq
+
+
+def _seq_sum(parts: list, r, ax, sq, dtype=None) -> list:
+    """A row-parallel product's partial sums over ``ax`` (each device's
+    (B, S, d) over the whole sequence), summed over the group and rounded
+    to ``dtype`` once (default: the parts'; the xLSTM's fp32 partials:
+    ``_sum_fp32``'s rule): reduce-scattered along the sequence where
+    ``sq`` splits it, so a device gets the sum at its ``S / m``
+    positions, else all-reduced.  A sequence split over other axes than
+    the sum's raises: the port has no layout for it."""
+    if not sq:
+        red = C.all_reduce(parts, r.mesh, ax)
+        return red if dtype is None else each(r.mesh,
+                                               lambda k: red[k].to(dtype))
+    if tuple(ax) != tuple(sq):
+        raise NotImplementedError(
+            f"partial sums over {ax} with act_seq split over {sq}")
+    return C.reduce_scatter(parts, r.mesh, ax, dim=1, dtype=dtype)
+
+
 def _mesh_embed(cfg: ModelConfig, params: dict, toks: list, r, dtype,
-                gather) -> list:
+                gather, sq=(), pe=None) -> list:
     """The token embedding with its table split over the vocab: each
-    device looks up the rows it holds (zeros for the others) and the
-    lookups are all-reduced over the vocab axes, one codebook at a time,
-    so the sum is the one-device lookup exactly."""
+    device looks up the rows it holds (zeros for the others) at every
+    position of its batch rows, and the lookups are summed over the vocab
+    axes, one codebook at a time, so the sum is the one-device lookup
+    exactly: reduce-scattered along the sequence where ``sq`` splits it
+    (the vocab and the sequence share the axes; ``_seq_sum``), else
+    all-reduced.  ``pe``: the vlm family's patch rows (each device's
+    batch rows), put before the text by the first device of the vocab
+    group (the others put zeros), so the split falls on the whole
+    sequence."""
     mesh = r.mesh
     emb = params["embed/tok"]
     vdim = 1 if cfg.family == "audio" else 0
@@ -983,24 +1069,50 @@ def _mesh_embed(cfg: ModelConfig, params: dict, toks: list, r, dtype,
                 x = torch.where(hit[..., i, None], e[i][t[..., i]], 0)
             else:
                 x = torch.where(hit[..., None], e[t], 0)
-            out.append(x.to(e.dtype))
+            x = x.to(e.dtype)
+            if pe is not None:
+                p = pe[k].to(x.device, x.dtype)
+                if _chunk(mesh, k, vax):
+                    p = torch.zeros_like(p)
+                x = torch.cat([p, x], dim=1)
+            out.append(x)
         return out
     rows = each(mesh, lookup)
-    looked = [C.all_reduce([x[i] for x in rows], mesh, vax)
+    looked = [_seq_sum([x[i] for x in rows], r, vax, sq)
               for i in range(n_cb)]
     return each(mesh, lambda k: sum(x[k] for x in looked).to(dtype)
                 if n_cb > 1 else looked[0][k].to(dtype))
 
 
-def _lm_heads(cfg: ModelConfig, params: dict, xs: list, gather) -> list:
-    """final norm + each device's vocab columns of the LM head."""
-    def head(k):
-        x = rms_norm(xs[k], params["final_norm/scale"].local(k, gather),
-                     cfg.norm_eps)
-        return _lm_head(cfg, {"lm_head/w": params["lm_head/w"]
-                              .local(k, gather)}, x)
+def _lm_heads(cfg: ModelConfig, params: dict, xs: list, gather, sq=(),
+              last_only: bool = False) -> list:
+    """final norm + each device's vocab columns of the LM head.  Where
+    ``sq`` splits the sequence the norm runs on a device's shard and the
+    normed shards are all-gathered, so a device's logits cover the whole
+    sequence of its batch rows: in fp32, so that the backward sums the
+    group's grads of a position in fp32 and rounds them once, before the
+    norm's scale sums them over the positions (in bf16 partial sums of
+    16 devices its grad strayed 0.12 from one device's: PERF.md §6);
+    with ``last_only`` a device takes the last position from the last
+    shard of its group."""
+    mesh = params["lm_head/w"].sharding.mesh
+    if last_only:
+        n = mesh.shape_of(sq)
+        xs = each(mesh, lambda k: C.take(
+            xs, mesh, k, sq, 1, [(n * xs[k].shape[1] - 1,
+                                  n * xs[k].shape[1])]))
     with use_rules(None):
-        return each(params["lm_head/w"].sharding.mesh, head)
+        xs = each(mesh, lambda k: rms_norm(
+            xs[k], params["final_norm/scale"].local(k, gather),
+            cfg.norm_eps))
+    if sq and not last_only:
+        dt = xs[0].dtype
+        xs = C.all_gather(each(mesh, lambda k: xs[k].float()), mesh, sq,
+                          dim=1)
+        xs = each(mesh, lambda k: xs[k].to(dt))
+    with use_rules(None):
+        return each(mesh, lambda k: _lm_head(
+            cfg, {"lm_head/w": params["lm_head/w"].local(k, gather)}, xs[k]))
 
 
 def gather_logits(parts: list, r) -> torch.Tensor:
@@ -1028,11 +1140,13 @@ def _batch_mean(xs: list, r) -> torch.Tensor:
 
 # ---- the sub-blocks, every device's share -------------------------------
 
-def _mesh_attn(cfg, plan, r, ap, xs, pos, gather) -> list:
-    """Prefill attention (pre-norm residual): a device runs its heads
-    under ``plan`` (``plan.lc``, its K7 calls on them; the weights it
-    takes inside its remat frame) and ``wo``'s partial sums are
-    all-reduced."""
+def _mesh_attn(cfg, plan, r, ap, xs, pos, gather, sq=()) -> list:
+    """Prefill attention (pre-norm residual): a device gathers its batch
+    rows' whole sequence over ``sq`` inside its remat frame
+    (``_gathered``), runs its heads under ``plan`` (``plan.lc``, its K7
+    calls on them; the weights it takes inside the frame), and ``wo``'s
+    partial sums are reduce-scattered back to the sequence's shards
+    (all-reduced where ``sq`` is ())."""
     def attn(k, x):
         with use_rules(None):
             p = _attn_views(cfg, plan, ap, k, gather)
@@ -1041,15 +1155,18 @@ def _mesh_attn(cfg, plan, r, ap, xs, pos, gather) -> list:
                 r0 = _offset(ap["wo"], 0, k)
                 rows = (r0, r0 + p["wo"].shape[0])
             return _attn_apply(plan.lc, p, x, pos[k], rows)
-    outs = each(r.mesh, lambda k: _remat(cfg, attn, k, xs[k]))
-    red = C.all_reduce(outs, r.mesh, _ax(ap["wo"].sharding.spec[0]))
+    outs = _gathered(cfg, r, sq, attn, xs)
+    red = _seq_sum(outs, r, _ax(ap["wo"].sharding.spec[0]), sq)
     return each(r.mesh, lambda k: xs[k] + red[k])
 
 
-def _mesh_ffn(cfg, lc, r, fp, xs, gather) -> tuple[list, torch.Tensor]:
-    """The FFN sub-block (pre-norm residual): a device runs its ff
-    columns or its experts and the outputs are all-reduced; the moe
-    family's load-balance aux over the whole batch (else None)."""
+def _mesh_ffn(cfg, lc, r, fp, xs, gather, sq=()
+              ) -> tuple[list, torch.Tensor]:
+    """The FFN sub-block (pre-norm residual): a device gathers the
+    sequence as ``_mesh_attn`` does, runs its ff columns or its experts
+    (over its batch rows' whole sequences: the moe groups of one device)
+    and the outputs are summed (``_seq_sum``); the moe family's
+    load-balance aux over the whole batch (else None)."""
     def mlp(k, x):
         with use_rules(None):
             return _mlp_apply(lc, _views(fp, k, gather), x)
@@ -1060,13 +1177,12 @@ def _mesh_ffn(cfg, lc, r, fp, xs, gather) -> tuple[list, torch.Tensor]:
                               experts=_experts(fp, k), stats=True)
     aux = None
     if cfg.is_moe:
-        outs, stats = zip(*each(r.mesh,
-                                lambda k: _remat(cfg, moe, k, xs[k])))
+        outs, stats = zip(*_gathered(cfg, r, sq, moe, xs))
         aux = moe_aux(_batch_mean([s[0] for s in stats], r),
                       _batch_mean([s[1] for s in stats], r), cfg.top_k)
     else:
-        outs = each(r.mesh, lambda k: _remat(cfg, mlp, k, xs[k]))
-    red = C.all_reduce(list(outs), r.mesh, _ax(fp["w2"].sharding.spec[0]))
+        outs = _gathered(cfg, r, sq, mlp, xs)
+    red = _seq_sum(list(outs), r, _ax(fp["w2"].sharding.spec[0]), sq)
     return each(r.mesh, lambda k: xs[k] + red[k]), aux
 
 
@@ -1137,14 +1253,18 @@ def _mesh_ffn_decode(cfg, lc, r, fp, xs, gather) -> list:
     return each(r.mesh, lambda k: xs[k] + red[k])
 
 
-def _mesh_mamba(cfg, r, lp, xs, gather, cache=None, i=None) -> list:
+def _mesh_mamba(cfg, r, lp, xs, gather, cache=None, i=None, sq=()
+                ) -> list:
     """One Mamba2 layer (pre-norm residual) on every device: a device
     runs its SSM heads (``_inner``): the columns of ``in_proj`` and
     ``conv_w`` they read (their z, x and dt, the shared B / C whole;
     ``ssm.mamba2_cols``) taken from the shards that hold them, their
     conv channels, chunked SSD and state; the gated RMSNorm over the
     whole d_inner takes its sum of squares all-reduced over the heads'
-    axes, and ``out_proj``'s partial sums are all-reduced.  With
+    axes, and ``out_proj``'s partial sums are summed (``_seq_sum``).  In
+    prefill the conv and the chunked SSD read the whole sequence: a
+    device gathers it over ``sq`` inside its first frame, before
+    ``in_proj`` (``_gathered``).  With
     ``cache`` (decode) layer ``i``'s state is read and written in place:
     ``ssm_h`` a device's own heads, the conv cache (split over d_inner +
     2N as the reference's, not by heads) its columns taken from the
@@ -1180,7 +1300,7 @@ def _mesh_mamba(cfg, r, lp, xs, gather, cache=None, i=None) -> list:
             y = rms_norm_split(y, ss, cfg.d_inner, s, cfg.norm_eps)
             return y @ w.to(y.dtype)
 
-    mixed = each(mesh, lambda k: _remat(cfg, mix, k, xs[k]))
+    mixed = _gathered(cfg, r, sq, mix, xs)
     if decode:                         # every device has read: write back
         for k in run_range(mesh):
             sh, cv = mixed[k][2]
@@ -1192,7 +1312,7 @@ def _mesh_mamba(cfg, r, lp, xs, gather, cache=None, i=None) -> list:
                   cv[..., :sum(b - a for a, b in own)])
     tot = C.all_reduce([m[1] for m in mixed], mesh, ax)
     outs = each(mesh, lambda k: _remat(cfg, out, k, mixed[k][0], tot[k]))
-    red = C.all_reduce(outs, mesh, ax)
+    red = _seq_sum(outs, r, ax, sq)
     return each(mesh, lambda k: xs[k] + red[k])
 
 
@@ -1207,26 +1327,31 @@ def _sum_fp32(parts: list, r, axes, dtype) -> list:
     ``dtype`` once, as one device's product rounds its fp32 accumulation
     once.  The xLSTM blocks sum their partial products so: their
     exponential gates amplify the rounding of every bf16 part (PERF.md
-    §6 has the logits on the card both ways)."""
+    §6 has the logits on the card both ways).  The mLSTM's gate
+    pre-activations and v go through here; the blocks' outputs through
+    ``_seq_sum`` with ``dtype``, the same rule along the sequence."""
     red = C.all_reduce(parts, r.mesh, axes)
     return each(r.mesh, lambda k: red[k].to(dtype))
 
 
-def _mesh_mlstm(cfg, r, lp, xs, gather, state=None) -> tuple[list, list]:
+def _mesh_mlstm(cfg, r, lp, xs, gather, state=None, sq=()
+                ) -> tuple[list, list]:
     """One mLSTM layer (pre-norm residual) on every device: a device runs
     its heads (``_inner``): its ``xm`` and ``z`` columns of ``up_proj``,
     its conv channels, its heads' ``wq`` / ``wk`` / ``wv`` blocks (P
     whole, where the reference splits it: ROADMAP Queue 3) taken from
     the shards that hold them; the gate pre-activations ``c @ wi`` /
     ``c @ wf`` sum over all of d_inner, so each device's partial sums
-    are summed over the heads' axes, as ``down_proj``'s are
-    (``_sum_fp32``); ``norm_inner`` takes its sum of squares
-    all-reduced.  ``state``: each device's ((C, n, m), conv) for decode.
-    Returns (xs, new states)."""
+    are summed over the heads' axes (``_sum_fp32``), as ``down_proj``'s
+    are along the sequence's shards (``_seq_sum`` in fp32);
+    ``norm_inner`` takes its sum of squares all-reduced.  In prefill a
+    device gathers the sequence over ``sq`` inside its first frame
+    (``_gathered``).  ``state``: each device's ((C, n, m), conv) for
+    decode.  Returns (xs, new states)."""
     mesh, n = r.mesh, r.mesh.size
     ax, hl = _inner(cfg, r)
     if not hl:
-        return _mesh_mlstm_rows(cfg, r, lp, xs, gather, state)
+        return _mesh_mlstm_rows(cfg, r, lp, xs, gather, state, sq)
     H = cfg.n_heads
     di = cfg.mlstm_proj * cfg.d_model
     P = di // H
@@ -1266,18 +1391,18 @@ def _mesh_mlstm(cfg, r, lp, xs, gather, state=None) -> tuple[list, list]:
             h = rms_norm_split(h, ss, di, s, cfg.norm_eps) * F.silu(z)
             return _fp32_partial(h, w)
 
-    pr = each(mesh, lambda k: _remat(cfg, proj, k, xs[k]))
+    pr = _gathered(cfg, r, sq, proj, xs)
     gates = _sum_fp32([t[3] for t in pr], r, ax, xs[0].dtype)
     sc = each(mesh, lambda k: _remat(cfg, scan, k, *pr[k][:3], gates[k]))
     tot = C.all_reduce([t[1] for t in sc], mesh, ax)
     outs = each(mesh, lambda k: _remat(cfg, out, k, sc[k][0], tot[k],
                                        pr[k][4]))
-    red = _sum_fp32(outs, r, ax, xs[0].dtype)
+    red = _seq_sum(outs, r, ax, sq, xs[0].dtype)
     new = [(t[2], p[5]) for t, p in zip(sc, pr)] if decode else None
     return each(mesh, lambda k: xs[k] + red[k]), new
 
 
-def _mesh_mlstm_rows(cfg, r, lp, xs, gather, state=None
+def _mesh_mlstm_rows(cfg, r, lp, xs, gather, state=None, sq=()
                      ) -> tuple[list, list]:
     """One mLSTM layer where the model axes ``ax`` (m devices) do not
     divide the heads (ROADMAP item 12f): device ``k`` at index c over
@@ -1298,7 +1423,9 @@ def _mesh_mlstm_rows(cfg, r, lp, xs, gather, state=None
       partial sums, all-reduced (``h``: reduce-scattered to its columns
       R, all a device reads);
     * ``norm_inner`` takes its sum of squares all-reduced and
-      ``down_proj`` its partial products summed.
+      ``down_proj`` its partial products summed (``_seq_sum``: in prefill
+      reduce-scattered along the sequence, which a device gathers over
+      ``sq`` inside its first frame).
 
     Decode reads and writes ``mC`` / ``mn`` rows R, ``mm`` whole (the
     reference's layout: ``mesh_cache_axes``), and the conv cache's
@@ -1362,12 +1489,12 @@ def _mesh_mlstm_rows(cfg, r, lp, xs, gather, state=None
             h = rms_norm_split(h, ss, di, s, cfg.norm_eps) * F.silu(z)
             return _fp32_partial(h, w)
 
-    pr = each(mesh, lambda k: _remat(cfg, proj, k, xs[k]))
+    pr = _gathered(cfg, r, sq, proj, xs)
     if decode:                         # every device has read: write back
         for k in run_range(mesh):
             C.put(convs, mesh, k, ax, 2, ch[k], pr[k][5])
-    q = _reduce_scatter_fp32([t[0] for t in pr], r, ax, dt)
-    kk = _reduce_scatter_fp32([t[1] for t in pr], r, ax, dt)
+    q = C.reduce_scatter([t[0] for t in pr], mesh, ax, dim=-1, dtype=dt)
+    kk = C.reduce_scatter([t[1] for t in pr], mesh, ax, dim=-1, dtype=dt)
     v = _sum_fp32([t[2] for t in pr], r, ax, dt)
     gates = _sum_fp32([t[3] for t in pr], r, ax, dt)
     sc = each(mesh, lambda k: _remat(cfg, sums, k, q[k], kk[k], v[k],
@@ -1386,26 +1513,24 @@ def _mesh_mlstm_rows(cfg, r, lp, xs, gather, state=None
     tot = C.all_reduce([t[1] for t in hs], mesh, ax)
     outs = each(mesh, lambda k: _remat(cfg, out, k, hs[k][0], tot[k],
                                        pr[k][4]))
-    res = _sum_fp32(outs, r, ax, dt)
+    res = _seq_sum(outs, r, ax, sq, dt)
     new = [(t[1], None) for t in sc] if decode else None
     return each(mesh, lambda k: xs[k] + res[k]), new
 
 
-def _reduce_scatter_fp32(parts: list, r, axes, dtype) -> list:
-    """``_sum_fp32``'s rule for a reduce-scatter over the last dim."""
-    red = C.reduce_scatter(parts, r.mesh, axes, dim=-1)
-    return each(r.mesh, lambda k: red[k].to(dtype))
-
-
-def _mesh_slstm(cfg, r, lp, xs, gather, state=None) -> tuple[list, list]:
+def _mesh_slstm(cfg, r, lp, xs, gather, state=None, sq=()
+                ) -> tuple[list, list]:
     """One sLSTM layer (pre-norm residual) on every device: a device runs
     its heads' recurrence (their ``w_gates`` columns, head-major, and
-    ``r_gates`` blocks) with no collective inside the time loop; ``y`` is
-    all-gathered over the heads before the RMSNorm over d, and ``up`` /
-    ``down`` split as ``p_ff`` (their partial sums ``_sum_fp32``).
-    Where the axes do not divide the heads (``_inner``'s 0) every device
-    runs every head, ``w_gates`` taken whole a layer at a time, and
-    keeps the whole state (the reference's layout: ``mesh_cache_axes``).
+    ``r_gates`` blocks) over the whole sequence (gathered over ``sq``
+    inside its frame) with no collective inside the time loop; ``y`` is
+    all-gathered over the heads inside the FFN's frame, before the
+    RMSNorm over d, and ``up`` / ``down`` split as ``p_ff`` (their
+    partial sums ``_seq_sum`` in fp32).  Where the axes do not divide
+    the heads (``_inner``'s 0) every device runs every head, ``w_gates``
+    taken whole a layer at a time, and keeps the whole state (the
+    reference's layout: ``mesh_cache_axes``); in prefill its FFN frame
+    keeps its own shard of ``y``'s sequence and gathers the others'.
     ``state``: each device's (c, n, m, h) for decode.  Returns (xs, new
     states)."""
     mesh, n = r.mesh, r.mesh.size
@@ -1431,35 +1556,43 @@ def _mesh_slstm(cfg, r, lp, xs, gather, state=None) -> tuple[list, list]:
                        gather)
             return _fp32_partial(slstm_up(y, p, cfg), p["down"])
 
-    ys, new = zip(*each(mesh, lambda k: _remat(cfg, cells, k, xs[k])))
-    if hl:
-        ys = C.all_gather(list(ys), mesh, ax, dim=-1)
-    outs = each(mesh, lambda k: _remat(cfg, ffn, k, ys[k]))
-    red = _sum_fp32(outs, r, _ax(lp["down"].sharding.spec[0]), xs[0].dtype)
+    ys, new = zip(*_gathered(cfg, r, sq, cells, xs))
+    if hl:                           # its heads' y, gathered in the frame
+        outs = _gathered(cfg, r, ax, ffn, ys, dim=-1)
+    elif sq:                         # its own shard of y's sequence
+        Sl = xs[0].shape[1]
+        own = each(mesh, lambda k: ys[k].narrow(
+            1, _chunk(mesh, k, sq) * Sl, Sl).clone())
+        outs = _gathered(cfg, r, sq, ffn, own)
+    else:
+        outs = each(mesh, lambda k: _remat(cfg, ffn, k, ys[k]))
+    red = _seq_sum(outs, r, _ax(lp["down"].sharding.spec[0]), sq,
+                   xs[0].dtype)
     return each(mesh, lambda k: xs[k] + red[k]), (list(new) if decode
                                                   else None)
 
 
 def _mesh_zamba(cfg, r, params, xs, gather, *, pos=None, cache=None,
-                poss=None) -> list:
+                poss=None, sq=()) -> list:
     """The hybrid's layers on every device (``_zamba_forward``'s order):
     the Mamba2 layers (``_mesh_mamba``) and the shared attention + MLP
     block, whose heads and ff columns split as the attention families'
     (K7 on a device's heads with ``attn_impl="pallas"``).  Prefill with
     ``pos``; decode with ``cache`` / ``poss``, the shared block's
-    application ``a`` attending over its KV cache ``a``."""
+    application ``a`` attending over its KV cache ``a``; ``sq``: the
+    prefill's sequence split (``_seq_split``)."""
     plan = _attn_plan(cfg, r)
     ap = _subtree(params, "shared/attn")
     mlp = _subtree(params, "shared/mlp")
     every = cfg.attn_every
     for i, lp in enumerate(_mesh_layers(params, "layers/mamba",
                                         cfg.n_layers)):
-        xs = _mesh_mamba(cfg, r, lp, xs, gather, cache=cache, i=i)
+        xs = _mesh_mamba(cfg, r, lp, xs, gather, cache=cache, i=i, sq=sq)
         if (i + 1) % every:
             continue
         if cache is None:
-            xs = _mesh_attn(cfg, plan, r, ap, xs, pos, gather)
-            xs = _mesh_ffn(cfg, plan.lc, r, mlp, xs, gather)[0]
+            xs = _mesh_attn(cfg, plan, r, ap, xs, pos, gather, sq)
+            xs = _mesh_ffn(cfg, plan.lc, r, mlp, xs, gather, sq)[0]
         else:
             a = (i + 1) // every - 1           # the shared block's a-th use
             xs = _mesh_attn_decode(cfg, r, plan, ap, xs, poss,
@@ -1469,11 +1602,11 @@ def _mesh_zamba(cfg, r, params, xs, gather, *, pos=None, cache=None,
     return xs
 
 
-def _mesh_xlstm(cfg, r, params, xs, gather, cache=None) -> list:
+def _mesh_xlstm(cfg, r, params, xs, gather, cache=None, sq=()) -> list:
     """The ssm family's blocks on every device in ``_xlstm_forward``'s
     order (``_mesh_mlstm`` / ``_mesh_slstm``); with ``cache`` (decode)
     each block's state read from and written into its rows, a device's
-    own heads."""
+    own heads; ``sq``: the prefill's sequence split."""
     n_s = _n_slstm(cfg)
     n = r.mesh.size
     mp = _mesh_layers(params, "mblocks", cfg.n_layers - n_s)
@@ -1486,7 +1619,7 @@ def _mesh_xlstm(cfg, r, params, xs, gather, cache=None) -> list:
             st = [((cache["mC"][k][j], cache["mn"][k][j],
                     cache["mm"][k][j]), cache["mconv"][k][j])
                   for k in range(n)]
-        xs, new = _mesh_mlstm(cfg, r, mp[j], xs, gather, st)
+        xs, new = _mesh_mlstm(cfg, r, mp[j], xs, gather, st, sq)
         for k in run_range(r.mesh) if new else ():
             (Cm, nm, mm), cv = new[k]
             for name, t in (("mC", Cm), ("mn", nm), ("mm", mm),
@@ -1499,7 +1632,7 @@ def _mesh_xlstm(cfg, r, params, xs, gather, cache=None) -> list:
         names = ("sc", "sn", "sm", "sh")
         st = None if cache is None else [
             tuple(cache[nm][k][g] for nm in names) for k in range(n)]
-        xs, new = _mesh_slstm(cfg, r, sp[g], xs, gather, st)
+        xs, new = _mesh_slstm(cfg, r, sp[g], xs, gather, st, sq)
         for k in run_range(r.mesh) if new else ():
             for nm, t in zip(names, new[k]):
                 cache[nm][k][g].copy_(t)
@@ -1518,27 +1651,35 @@ def forward_parts(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                   patch_emb: torch.Tensor | None = None,
                   last_only: bool = False) -> tuple[list, torch.Tensor]:
     """``forward`` under mesh rules, its logits left laid out: one part a
-    device, that device's batch rows and vocab columns.  aux (0-d, on the
-    mesh's first device) is taken over the whole batch."""
+    device, that device's batch rows and vocab columns (the whole
+    sequence).  aux (0-d, on the mesh's first device) is taken over the
+    whole batch.  Where the table's ``act_seq`` splits the sequence
+    (``_seq_split``) the residual stream between sub-blocks is a
+    device's ``S / m`` positions; every sub-block gathers the whole
+    sequence inside its remat frame and reduce-scatters its output
+    (``_gathered``, ``_seq_sum``)."""
     r = mesh_rules()
     mesh = r.mesh
     gather = _fsdp(r)
     dtype = dtype_of(cfg)
     cb = (None,) if cfg.family == "audio" else ()
-    toks = constrain(tokens, "act_batch", "act_seq", *cb)
-    zero = torch.zeros((), device=mesh.devices[0])
-    xs = _mesh_embed(cfg, params, toks, r, dtype, gather)
+    # whole on the sequence: a device looks up its vocab rows at every
+    # position of its batch rows
+    toks = constrain(tokens, "act_batch", None, *cb)
+    pe = None
     if cfg.family == "vlm":
-        pe = constrain(patch_emb, "act_batch", "act_seq", "act_embed")
-        xs = each(mesh, lambda k: torch.cat([pe[k].to(dtype), xs[k]], dim=1))
-    xs = constrain(xs, "act_batch", "act_seq", "act_embed")
-    S = xs[0].shape[1]
+        pe = constrain(patch_emb, "act_batch", None, "act_embed")
+    S = tokens.shape[1] + (0 if pe is None else patch_emb.shape[1])
+    sq = _seq_split(r, S)
+    zero = torch.zeros((), device=mesh.devices[0])
+    xs = _mesh_embed(cfg, params, toks, r, dtype, gather, sq, pe)
+    # positions whole: RoPE and K7 run on the gathered sequence
     pos = each(mesh, lambda k: torch.arange(S, device=mesh.devices[k])[None])
     auxs = [zero]
     if cfg.family == "hybrid":
-        xs = _mesh_zamba(cfg, r, params, xs, gather, pos=pos)
+        xs = _mesh_zamba(cfg, r, params, xs, gather, pos=pos, sq=sq)
     elif cfg.family == "ssm":
-        xs = _mesh_xlstm(cfg, r, params, xs, gather)
+        xs = _mesh_xlstm(cfg, r, params, xs, gather, sq=sq)
     else:
         plan = _attn_plan(cfg, r)
         attn_p = _mesh_layers(params, "layers/attn", cfg.n_layers)
@@ -1546,12 +1687,10 @@ def forward_parts(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                             else "layers/mlp", cfg.n_layers)
         auxs = []
         for ap, fp in zip(attn_p, ff_p):
-            xs = _mesh_attn(cfg, plan, r, ap, xs, pos, gather)
-            xs, aux = _mesh_ffn(cfg, plan.lc, r, fp, xs, gather)
+            xs = _mesh_attn(cfg, plan, r, ap, xs, pos, gather, sq)
+            xs, aux = _mesh_ffn(cfg, plan.lc, r, fp, xs, gather, sq)
             auxs.append(zero if aux is None else aux)
-    if last_only:
-        xs = each(mesh, lambda k: xs[k][:, -1:])
-    parts = _lm_heads(cfg, params, xs, gather)
+    parts = _lm_heads(cfg, params, xs, gather, sq, last_only)
     parts = constrain(parts, *(("act_batch",) + (None,) * (parts[0].dim() - 2)
                                + ("act_vocab",)))
     return parts, torch.stack(auxs).sum()

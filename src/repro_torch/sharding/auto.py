@@ -44,7 +44,11 @@ def make_rules(cfg: ModelConfig, mesh, shape: ShapeSpec, *,
 
     drop_if("act_heads", cfg.n_heads)
     drop_if("act_kv", cfg.n_kv)
-    if table.get("act_seq") is not None and shape.seq_len % msz != 0:
+    # the residual stream's positions: the vlm family's patch rows come
+    # first (the reference reads the text's alone; GSPMD pads an uneven
+    # split, the port keeps the sequence whole)
+    seq = shape.seq_len + (cfg.patch_tokens if cfg.family == "vlm" else 0)
+    if table.get("act_seq") is not None and seq % msz != 0:
         table["act_seq"] = None
     if cfg.is_moe:
         drop_if("act_expert", cfg.n_experts)

@@ -22,9 +22,10 @@ tensor a shard, each on its own device:
   gathered whole (the FSDP all-gather; its backward is the
   reduce-scatter of the grads).
 * ``constrain(x, *logical)`` lays a whole tensor out over the mesh: one
-  part a device, its slice under the current rules; a list of parts (one
-  a device) is already laid out and passes as it is.  The port keeps the
-  ``act_seq`` dim whole where the table shards it (ROADMAP Queue 3).
+  part a device, its slice under the current rules (``act_seq`` too:
+  the residual stream's sequence split, Megatron sequence parallelism;
+  a caller that needs a dim whole names it None); a list of parts (one
+  a device) is already laid out and passes as it is.
 * ``lead()`` makes the controller run device 0's share only (the dry
   run's count of one device's program): ``run_range`` / ``each`` give
   device 0 alone, a leaf's ``leaf_parts`` is its device-0 shard, and
@@ -81,11 +82,6 @@ def mbe_serve_mesh(n_devices: Optional[int] = None,
 # ---------------------------------------------------------------------------
 # rules
 # ---------------------------------------------------------------------------
-
-# logical activation axes the port keeps whole where a table shards them:
-# the reference's Megatron sequence parallelism (ROADMAP Queue 3)
-KEPT_WHOLE = ("act_seq",)
-
 
 @dataclasses.dataclass(frozen=True)
 class Rules:
@@ -505,14 +501,12 @@ def constrain(x, *logical: str | None):
     """Lay ``x`` out by logical dim names under the current rules (a
     no-op without a mesh of several devices).  A whole tensor becomes one
     part a device of the mesh, its device's slice on that device; a list
-    (one part a device) is already laid out and is returned as it is.
-    Dims named in ``KEPT_WHOLE`` stay whole."""
+    (one part a device) is already laid out and is returned as it is."""
     r = mesh_rules()
     if r is None or not isinstance(x, torch.Tensor):
         return x
     assert len(logical) == x.dim(), (logical, tuple(x.shape))
-    sh = NamedSharding(r.mesh, spec_for(
-        tuple(None if n in KEPT_WHOLE else n for n in logical), r))
+    sh = NamedSharding(r.mesh, spec_for(logical, r))
     mesh = r.mesh
     return each(mesh, lambda k: x[sh.slices(x.shape, mesh.coords(k))]
                 .to(mesh.devices[k]))
@@ -532,8 +526,8 @@ def train_rules(mesh: Mesh, multi_pod: bool = False,
     return Rules(mesh=mesh, table={
         # activations
         "act_batch": b,
-        # Megatron-style sequence parallelism in the reference (the port
-        # keeps this dim whole: KEPT_WHOLE)
+        # Megatron-style sequence parallelism: the residual stream between
+        # sub-blocks holds S / model positions a device
         "act_seq": ("model",),
         "act_embed": None,
         "act_heads": ("model",),
@@ -571,8 +565,8 @@ def serve_rules(mesh: Mesh, multi_pod: bool = False,
         batch = None
     return Rules(mesh=mesh, table={
         "act_batch": batch,
-        # prefill: the residual stream shards over (model x seq) in the
-        # reference; decode has no seq dim so the entry is inert there
+        # prefill: the residual stream shards over (model x seq); decode
+        # has no seq dim so the entry is inert there
         "act_seq": ("model",),
         "act_embed": None,
         "act_heads": ("model",),

@@ -9,7 +9,8 @@ copied to it with ``.to(device)``, then added or concatenated in group
 order, so every member computes the same numbers.  Autograd carries the
 copies backward, so each collective's backward is its transpose with no
 code of its own: the grads of an all-gather are reduce-scattered back to
-their shards, those of an all-reduce summed over the group.
+their shards, those of a reduce-scatter all-gathered, those of an
+all-reduce summed over the group.
 
 Members of a group on one device (the CPU's shards, or a rehearsal of
 several cards on one) share one result tensor instead of computing it
@@ -28,8 +29,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.launch.mesh import Mesh
-from repro_torch.sharding.axes import (range_pieces, report, run_range,
-                                       stand_in)
+from repro_torch.sharding.axes import (each, range_pieces, report,
+                                       run_range, stand_in)
 
 
 class _OneDevice(torch.autograd.Function):
@@ -110,28 +111,65 @@ def all_gather(xs: list, mesh: Mesh, axis, dim: int) -> list:
         [xs[j].to(dev) for j in g], dim=dim))
 
 
-def reduce_scatter(xs: list, mesh: Mesh, axis, dim: int) -> list:
+def reduce_scatter(xs: list, mesh: Mesh, axis, dim: int, dtype=None
+                   ) -> list:
     """Each device: its own chunk (by its index in the group) along
-    ``dim`` of the sum of its group's parts.  No model path calls it yet:
-    it is the row-parallel output's layout where ``act_seq`` shards
-    (Megatron sequence parallelism), and the port keeps ``act_seq``
-    whole (``axes.KEPT_WHOLE``)."""
+    ``dim`` of the sum of its group's parts, rounded to ``dtype`` (default:
+    the parts') once, after the sum: parts summed in fp32 and rounded to
+    bf16 so (the xLSTM's partial products) round as one device's product
+    does.  The row-parallel output's layout where ``act_seq`` splits the
+    sequence over the same axes (Megatron sequence parallelism:
+    ``models/model.py`` ``_seq_sum``), and the P split of the xLSTM's q /
+    k.  Each part is split once, so the backward's copies bring every
+    chunk's grad back to the part's device and concatenate them there:
+    the all-gather of the grads.  A group on one device sums once and
+    splits the sum (the same numbers: the adds are elementwise)."""
     n = mesh.shape_of(axis)
     if n == 1:
-        return list(xs)
-    if (one := _lead(xs, mesh, axis, "reduce-scatter", dim)) is not None:
-        return one
-    out = []
-    for k in range(mesh.size):
-        g = mesh.group(k, axis)
-        i = g.index(k)
-        dev = mesh.devices[k]
-        acc = None
-        for j in g:
-            c = xs[j].chunk(n, dim=dim)[i].to(dev)
-            acc = c if acc is None else acc + c
-        out.append(acc)
-    return out
+        out = list(xs)
+    elif (one := _lead(xs, mesh, axis, "reduce-scatter", dim)) is not None:
+        out = one
+    else:
+        chunks, whole, out = {}, {}, []
+        for k in range(mesh.size):
+            g = tuple(mesh.group(k, axis))
+            i = g.index(k)
+            dev = mesh.devices[k]
+            if all(mesh.devices[j] == dev for j in g):
+                # the group on one device: one sum, split once
+                if g not in whole:
+                    acc = xs[g[0]]
+                    for j in g[1:]:
+                        acc = acc + xs[j]
+                    whole[g] = acc.chunk(n, dim=dim)
+                out.append(whole[g][i])
+                continue
+            acc = None
+            for j in g:
+                if j not in chunks:
+                    chunks[j] = xs[j].chunk(n, dim=dim)
+                c = chunks[j][i].to(dev)
+                acc = c if acc is None else acc + c
+            out.append(acc)
+    if dtype is None:
+        return out
+    return each(mesh, lambda k: out[k].to(dtype))
+
+
+def gather_one(parts: list, mesh: Mesh, k: int, axis, dim: int
+               ) -> torch.Tensor:
+    """Device ``k``'s share of an all-gather: ``parts`` (its group's
+    parts over ``axis``, in group order) concatenated along ``dim`` on
+    its device.  For a frame of one device (a remat frame), whose inputs
+    are the parts: it gathers them inside the frame, and the backward
+    gathers them again."""
+    if len(parts) == 1:
+        return parts[0]
+    if len(run_range(mesh)) < mesh.size:
+        return one_device(parts[0], "all-gather", len(parts),
+                          dim % parts[0].dim())
+    dev = mesh.devices[k]
+    return torch.cat([p.to(dev) for p in parts], dim=dim)
 
 
 def _pieces(xs: list, mesh: Mesh, k: int, axis, dim: int, ranges):

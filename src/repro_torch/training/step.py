@@ -86,7 +86,8 @@ def mesh_loss(cfg: ModelConfig, params: dict, batch: dict, r
     mesh = r.mesh
     parts, aux = M.forward_parts(cfg, params, batch["tokens"],
                                  patch_emb=batch.get("patch_emb"))
-    labels = constrain(batch["labels"], "act_batch", "act_seq",
+    # whole on the sequence, as the logits are (``forward_parts``)
+    labels = constrain(batch["labels"], "act_batch", None,
                        *((None,) * (batch["labels"].dim() - 2)))
     vax = M._ax(r.table["p_vocab"])
     dev0 = mesh.devices[0]
